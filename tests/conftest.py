@@ -16,3 +16,10 @@ if SRC not in sys.path:
 def rng_key():
     import jax
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the port's CUDA kernels); "
+        "skipped where there is none")
