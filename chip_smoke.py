@@ -7,11 +7,14 @@ Run from the root of a checkout, with one card and no arguments:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc``, holds every kernel against its plain PyTorch version on the
-card, drives the port's main path (config string -> MemscopeInterface ->
-CoreCoordinator -> workload -> kernel -> modeled rungs) at the sizes a
-user of the toolkit would call real on this card, checks the results,
-and times every kernel beside its bound.  One JSON object per phase goes
-to standard output; the last line is
+card, drives the port's two paths at the sizes a user of the toolkit
+would call real on this card — one experiment at a time (config string ->
+MemscopeInterface -> CoreCoordinator -> workload -> kernel -> modeled
+rungs) and the characterization loop (characterize / characterize_matrix
+/ characterize_surface -> run_matrix -> one member-axis launch per
+signature group -> CurveDB -> PlacementAdvisor) — checks the results, and
+times every kernel beside its bound.  One JSON object per phase goes to
+standard output; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase makes the exit code non-zero and withholds that line.
 Without a CUDA device it exits non-zero and prints no result.
@@ -24,8 +27,10 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -35,15 +40,26 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device available\n")
     sys.exit(1)
 
+from repro_torch.core import coordinator as coordinator_mod  # noqa: E402
 from repro_torch.core import workloads  # noqa: E402
+from repro_torch.core.characterize import (CurveDB,  # noqa: E402
+                                           characterize, characterize_matrix,
+                                           characterize_surface)
 from repro_torch.core.coordinator import (ActivitySpec,  # noqa: E402
                                           CoreCoordinator, ExperimentConfig)
 from repro_torch.core.devicetree import H100_SXM  # noqa: E402
+from repro_torch.core.exec import plan as exec_plan  # noqa: E402
 from repro_torch.core.interface import (MemscopeInterface,  # noqa: E402
                                         format_results)
+from repro_torch.core.placement import (ContentionSpec,  # noqa: E402
+                                        MemObject, PlacementAdvisor,
+                                        kv_cache_object, params_object)
 from repro_torch.core.pools import PoolManager  # noqa: E402
-from repro_torch.kernels import (_build, chase, counts, ref,  # noqa: E402
-                                 stream)
+from repro_torch.core.scenarios import (ObserverSpec,  # noqa: E402
+                                        ScenarioSpec, StressorSpec,
+                                        TrafficShape)
+from repro_torch.kernels import (_build, chase, compute_probe,  # noqa: E402
+                                 counts, ref, stream)
 
 DEV = torch.device("cuda")
 # published peaks of the H100 SXM (NVIDIA's data sheet)
@@ -53,6 +69,7 @@ PCIE_GBPS = 64.0               # PCIe Gen5 x16, one direction
 SECTOR_BYTES = 32              # the least the device memory moves for a load
 # main-path sizes
 G1, M256, M64, M16, K128 = 1 << 30, 256 << 20, 64 << 20, 16 << 20, 128 << 10
+PROBE_ITERS = 64               # the probe's chain, as letter `i` runs it
 CSRC = "src/repro_torch/kernels/csrc/"
 FAILURES: list = []
 
@@ -72,11 +89,20 @@ def sync() -> None:
 
 def time_ms(fn, n: int) -> float:
     """Milliseconds per call over ``n`` back-to-back calls after one warm
-    call, between two device events."""
+    call, between two device events.  The first event waits behind a hold
+    of the stream for twice the host's cost of the ``n`` calls (at most
+    50 ms, as ``workloads._timed`` does), so a short kernel is timed on
+    the card and not at the rate the host enqueues it."""
     fn()
+    sync()
+    t0 = time.perf_counter_ns()
+    fn()
+    hold_ns = min(workloads.HOLD_CAP_NS, workloads.HOLD_PER_CALL
+                  * (time.perf_counter_ns() - t0) * n)
     sync()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    stream.hold(hold_ns, DEV)
     start.record()
     for _ in range(n):
         fn()
@@ -255,12 +281,116 @@ def phase_kernels(main_rows: int) -> dict:
             case(cases, name, buf.shape, err, 0.0, {"n_steps": steps},
                  at_main)
 
+    probe_cases(cases, at_main)
+    member_cases(cases, at_main, main_rows)
+
     launched, _ = counts.snapshot()
     emit({"phase": "kernel_checks", "n_cases": len(cases),
           "n_ok": sum(c["ok"] for c in cases),
           "launches": {k: launched[k] - before[k] for k in launched},
           "cases": cases})
     return at_main
+
+
+# The probe against its plain version: float32 products in full float32
+# on both sides (main() sets torch.backends.cuda.matmul.allow_tf32 False).
+# Powers of 0.5 * I are exact; on a random operand of spectral radius 0.9
+# each side sums every entry's 128 products in its own order, through 64
+# dependent products: each entry within 1e-5 of the largest.
+PROBE_RTOL_EXACT = 1e-6
+PROBE_TOL_RANDOM = 1e-5
+
+
+def radius_09(seed: int) -> torch.Tensor:
+    """A seeded (128, 128) operand scaled to spectral radius 0.9."""
+    a = np.random.default_rng(seed).standard_normal((128, 128))
+    a = a / np.abs(np.linalg.eigvals(a)).max() * 0.9
+    return torch.from_numpy(a.astype(np.float32)).to(DEV)
+
+
+def probe_cases(cases: list, at_main: dict) -> None:
+    a = torch.eye(128, dtype=torch.float32, device=DEV) * 0.5
+    want = ref.mxu_probe_ref(a, 3)
+    err = float((compute_probe.mxu_probe(a, iters=3) - want).abs().max())
+    case(cases, "mxu_probe", a.shape, err,
+         PROBE_RTOL_EXACT * float(want.abs().max()),
+         {"iters": 3, "operand": "0.5*I", "rtol": PROBE_RTOL_EXACT})
+    for seed_, iters in ((0, 1), (0, PROBE_ITERS), (1, PROBE_ITERS)):
+        a = radius_09(seed_)
+        want = ref.mxu_probe_ref(a, iters)
+        err = float((compute_probe.mxu_probe(a, iters=iters) - want)
+                    .abs().max())
+        case(cases, "mxu_probe", a.shape, err,
+             PROBE_TOL_RANDOM * float(want.abs().max()),
+             {"iters": iters, "operand": f"radius 0.9, seed {seed_}",
+              "tol_of_max": PROBE_TOL_RANDOM},
+             at_main if iters == PROBE_ITERS else None)
+
+
+def chain_stack(n_lines: int, g: int) -> np.ndarray:
+    return np.stack([chase.chain_buffer(n_lines, s) for s in range(g)])
+
+
+def member_cases(cases: list, at_main: dict, main_rows: int) -> None:
+    """The member axis (one launch over a (g, rows, 128) stack) against
+    the plain versions, at small shapes for g in 1, 3, 4 and at the
+    matrix phase's shapes: 256 MiB members, four to a 1 GiB chunk, and
+    two 128 KiB or 256 MiB members for the two-member groups."""
+    m256, k128 = rows_of(M256), rows_of(K128)
+    shapes = [(g, rows) for g in (1, 3, 4) for rows in (256, 2048 + 8)]
+    shapes += [(4, m256), (2, m256), (2, k128)]
+    for g, rows in shapes:
+        x = torch.rand((g, rows, 128), generator=torch.Generator()
+                       .manual_seed(g * rows), dtype=torch.float32).to(DEV)
+        want = x.double().sum(dim=(1, 2))
+        tol = READ_RTOL_FULL if rows >= m256 else READ_RTOL_SMALL * 5
+        extra = {"members": g, "rtol": tol}
+        got = stream.read_hbm(x, block_rows=8)
+        err = float(((got.double() - want) / want).abs().max())
+        case(cases, "read_hbm", x.shape, err, tol, extra)
+        if rows <= 2048 + 8:
+            got = stream.read_vmem(x, repeats=3)
+            err = float(((got.double() - 3 * want) / want / 3).abs().max())
+            case(cases, "read_vmem", x.shape, err, tol * 5, extra)
+        if g <= 2 or rows < m256:
+            err = float((stream.copy_hbm(x, block_rows=8) - x).abs().max())
+            case(cases, "copy_hbm", x.shape, err, 0.0, {"members": g})
+            err = float((stream.rmw_hbm(x, block_rows=8) - ref.rmw_ref(x))
+                        .abs().max())
+            case(cases, "rmw_hbm", x.shape, err, 0.0, {"members": g})
+            seed = torch.zeros((1, 1), dtype=torch.float32, device=DEV)
+            s_, out = stream.mixed_hbm(x, read_fraction=2 / 3, block_rows=8,
+                                       seed=seed)
+            ws, wout = ref.mixed_ref(x, 2 / 3, block_rows=8)
+            if tuple(out.shape) != tuple(wout.shape) or \
+                    not bool((out == wout).all()):
+                fail(f"mixed_hbm members {g}: written part wrong")
+            err = float(((s_.double() - ws.double()) / ws.double())
+                        .abs().max())
+            case(cases, "mixed_hbm", x.shape, err, tol,
+                 {"members": g, "read_fraction": 2 / 3})
+        del x
+    # chases: exact, every member
+    for g, n_lines in [(g, n) for g in (1, 3, 4) for n in (16, 257)] + \
+            [(2, k128)]:
+        host = chain_stack(n_lines, g)
+        buf = torch.from_numpy(host).to(DEV)
+        for steps in (1, n_lines // 3, n_lines, 3 * n_lines):
+            want = ref.chase_members_ref(host, steps)
+            for name, fn in (("chase_vmem", chase.chase_vmem),
+                             ("chase_hbm", chase.chase_hbm)):
+                got = fn(buf, n_steps=steps).tolist()
+                case(cases, name, buf.shape,
+                     float(sum(a != b for a, b in zip(got, want))), 0.0,
+                     {"members": g, "n_steps": steps})
+    host = chain_stack(rows_of(M256), 4)
+    buf = torch.from_numpy(host).to(DEV)
+    for steps in (host.shape[1] // 3, host.shape[1]):
+        got = chase.chase_hbm(buf, n_steps=steps).tolist()
+        want = ref.chase_members_ref(host, steps)
+        case(cases, "chase_hbm", buf.shape,
+             float(sum(a != b for a, b in zip(got, want))), 0.0,
+             {"members": 4, "n_steps": steps})
 
 
 def phase_pinned() -> None:
@@ -310,16 +440,35 @@ EXPERIMENTS = [
     ("s,host,256M", f"s,host,{M256}", 20, ("read_hbm",)),
     ("y,host,256M", f"y,host,{M256}", 20, ("write_hbm",)),
     ("m,host,64M", f"m,host,{M64}", 20, ("chase_hbm",)),
+    ("i,hbm,0", "i,hbm,0", 50, ("mxu_probe",)),
 ]
 _TWICE = ("x", "c")
 _CHASES = ("l", "m", "t")
+# The on-chip rows' figures as this script's direct slope checks measured
+# them on an H100 80GB HBM3 at 700 W (phase_checks: walks launched through
+# the C entry points, the long-minus-short chase): us per walk of the
+# 128 KiB tile, ns per hop of the staged chain.  The workload's own slope
+# timing must land within 0.5-2x of them.
+SLOPE_WALK_US = {"r": 0.537, "w": 0.517}
+SLOPE_HOP_NS = 14.0
 
 
 def expected_accounting(strategy: str, buffer_bytes: int, iters: int):
     rows = rows_of(buffer_bytes)
+    if strategy == "i":
+        return 0, 0
     if strategy in _CHASES:
         return rows * 512, rows
     return (2 if strategy in _TWICE else 1) * rows * 512 * iters, 0
+
+
+def on_chip_figure(m):
+    """(what, value, the direct slope figure) of an on-chip row: us per
+    walk for the reads and writes, ns per hop for the chase."""
+    if m.strategy in _CHASES:
+        return "ns_per_hop", m.latency_ns, SLOPE_HOP_NS
+    return ("us_per_walk", m.elapsed_ns / m.iters / 1e3,
+            SLOPE_WALK_US[m.strategy])
 
 
 def phase_main_path() -> dict:
@@ -349,18 +498,27 @@ def phase_main_path() -> dict:
             m.strategy, m.buffer_bytes, iters)
         rungs = [[s.n_stressors, s.modeled_bw_gbps, s.modeled_lat_ns,
                   s.stress_bw_gbps] for s in res.scenarios]
+        stream_ = m.strategy not in _CHASES + ("i",)
         rec = {
             "experiment": label, "reply": reply, "iters": iters,
             "bytes_moved": m.bytes_moved, "transactions": m.transactions,
             "accounting_ok": (m.bytes_moved == want_bytes
                               and m.transactions == want_tx),
             "elapsed_ns": m.elapsed_ns, "launch_bound": m.launch_bound,
-            "gbps": m.bandwidth_gbps if m.strategy not in _CHASES else None,
+            "gbps": m.bandwidth_gbps if stream_ else None,
             "ns_per_hop": m.latency_ns if m.strategy in _CHASES else None,
             "launches": {k: after[k] - before[k] for k in after
                          if after[k] != before[k]},
             "rungs": rungs, "seconds": round(time.perf_counter() - t0, 2),
         }
+        if m.strategy == "i":
+            rec["ms_per_probe"] = m.elapsed_ns / iters / 1e6
+        if label.endswith("128K"):
+            what, value, direct = on_chip_figure(m)
+            rec[what] = value
+            if not 0.5 * direct <= value <= 2.0 * direct:
+                fail(f"{label}: {what} {value}, want within 0.5-2x of "
+                     f"{direct}")
         records[label] = rec
         if reply != "OK complete":
             fail(f"{label}: {reply}")
@@ -372,11 +530,10 @@ def phase_main_path() -> dict:
                 fail(f"{label}: kernel {k} was not launched")
         if not m.elapsed_ns > 0 or not math.isfinite(m.elapsed_ns):
             fail(f"{label}: elapsed_ns {m.elapsed_ns}")
-        # the on-chip kernels' results are marked: their time is the launch's
-        if m.launch_bound != label.endswith("128K"):
-            fail(f"{label}: launch_bound is {m.launch_bound}")
-        n_lines = 10 + m.launch_bound
-        if len(rungs) != 8 or len(text.splitlines()) != n_lines or not all(
+        # the on-chip rows are timed by their slope: none is marked
+        if m.launch_bound:
+            fail(f"{label}: launch_bound")
+        if len(rungs) != 8 or len(text.splitlines()) != 10 or not all(
                 math.isfinite(v) and v >= 0 for r in rungs for v in r):
             fail(f"{label}: modeled rungs malformed")
         if coord.pools.pool("hbm").allocated or \
@@ -402,9 +559,32 @@ def phase_small_reference() -> None:
         out[dev.type] = (reply, m.bytes_moved, m.transactions,
                          iface.read_results())
     same = len(set(out.values())) == 1
-    emit({"phase": "small_reference", "devices": sorted(out), "same": same})
+    # and a small matrix through characterize_matrix: the same keys,
+    # dispatches, accounting and curves (modeled, so equal to the bit);
+    # only the activity that ran differs ("cuda" and "plain")
+    small = [ScenarioSpec(f"small.{o}.{st}",
+                          ObserverSpec(o, "hbm", (64 << 10,)),
+                          (StressorSpec(st, "hbm", 64 << 10),), iters=2,
+                          max_stressors=3)
+             for o in ("r", "c", "l", "i") for st in ("w", "y")]
+    text = []
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for i, dev in enumerate((DEV, torch.device("cpu"))):
+            db = characterize_matrix(CoreCoordinator(
+                PoolManager(H100_SXM, dev), H100_SXM, backend="cuda",
+                device=dev), small)
+            path = os.path.join(tmp, f"{i}.json")
+            db.save(path)
+            with open(path) as f:
+                text.append(f.read().replace('"activity": "plain"',
+                                             '"activity": "cuda"'))
+    same_db = text[0] == text[1]
+    emit({"phase": "small_reference", "devices": sorted(out), "same": same,
+          "same_curvedb": same_db})
     if not same:
         fail("card and CPU disagree on a small experiment")
+    if not same_db:
+        fail("card and CPU disagree on a small matrix")
 
 
 # ---------------------------------------------------------------------------
@@ -433,13 +613,13 @@ def phase_checks(records: dict, launched: dict, plain: dict) -> None:
     part = torch.empty(1, dtype=torch.float32, device=DEV)
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     c_read = _build.bind("stream", "repro_read_vmem",
-                         (vp, vp, ll, i32, i32, vp))
+                         (vp, vp, ll, ll, i32, i32, i32, vp))
     c_write = _build.bind("stream", "repro_write_vmem",
                           (vp, ll, i32, i32, vp))
     st, n_vec = _build.current_stream(DEV), x.numel() // 4
 
     def walk_r(r): return lambda: c_read(
-        x.data_ptr(), part.data_ptr(), n_vec, n_vec, r, st)
+        x.data_ptr(), part.data_ptr(), n_vec, n_vec, 1, n_vec, r, st)
 
     def walk_w(r): return lambda: c_write(
         dst.data_ptr(), n_vec, n_vec, r, st)
@@ -449,8 +629,7 @@ def phase_checks(records: dict, launched: dict, plain: dict) -> None:
     checks["write_vmem_grows_1_to_64"] = t_w[64] > 2.0 * t_w[1]
 
     # One hop in shared memory: the slope between a short and a long chase
-    # of the same staged chain.  The main path's `l,hbm,128K` makes 256
-    # hops a launch, which the launch itself outweighs.
+    # of the same staged chain, here apart from the workload's own slope.
     chain = torch.from_numpy(chase.chain_buffer(rows_of(K128), 0)).to(DEV)
     short, long_ = chain.shape[0], 256 * chain.shape[0]
     t_short = time_ms(lambda: chase.chase_vmem(chain, n_steps=short), 20)
@@ -479,7 +658,267 @@ def phase_checks(records: dict, launched: dict, plain: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: each kernel's time at the main path's shape, beside its bound
+# phase 6: the characterize -> CurveDB -> placement loop (run_matrix)
+# ---------------------------------------------------------------------------
+
+MATRIX_ITERS = 50
+# letters whose group is measured over a stacked member axis (streams and
+# random chases); every other letter's group shares one measurement
+STACKED = ("r", "s", "c", "x", "b", "l", "m")
+# the batched per-member figure must be this close to the lone observer's
+LONE_REL = 0.15
+BATCH_CAP = 1 << 30            # bytes of one stacked chunk, at most
+
+
+def resolved(strategy: str, shape) -> str:
+    kind = getattr(shape, "kind", "steady")
+    return {"mixed": "b", "strided": "t"}.get(kind, strategy)
+
+
+def expected_dispatches(triples, pools) -> int:
+    """What observer_groups and the chunk rule imply, the rule restated:
+    a stacked group of n members of B bytes each is measured in chunks of
+    min(n, cap // B) members, cap = min(BATCH_CAP, the pool's free bytes);
+    any other group in one measurement."""
+    n = 0
+    for (strategy, shape, buf, *_), idxs in \
+            exec_plan.observer_groups(triples, pools).items():
+        if resolved(strategy, shape) not in STACKED:
+            n += 1
+            continue
+        member = rows_of(buf) * 512
+        free = pools.pool(triples[idxs[0]][1].pool).available
+        per_chunk = max(1, min(len(idxs), min(BATCH_CAP, max(free, member))
+                               // member))
+        n += -(-len(idxs) // per_chunk)
+    return n
+
+
+def figure(m):
+    """The per-member figure a group reports: GB/s of a stream, ns per
+    hop of a chase, ms per call of the compute probe."""
+    if m.strategy in _CHASES:
+        return "ns_per_hop", m.latency_ns
+    if m.strategy == "i":
+        return "ms_per_probe", m.elapsed_ns / m.iters / 1e6
+    return "gbps", m.bandwidth_gbps
+
+
+def matrix_specs():
+    """Explicit specs on `hbm`, each observer under two stressors, so
+    that every signature group has two members."""
+    observers = [
+        ObserverSpec("c", "hbm", (M256,)),
+        ObserverSpec("x", "hbm", (M256,)),
+        ObserverSpec("r", "hbm", (M256,), TrafficShape.mixed(2, 1)),
+        ObserverSpec("m", "hbm", (M256,), TrafficShape.strided(8)),
+        ObserverSpec("r", "hbm", (K128,)),
+        ObserverSpec("w", "hbm", (K128,)),
+        ObserverSpec("l", "hbm", (K128,)),
+        ObserverSpec("i", "hbm", (0,)),
+    ]
+    stressors = [StressorSpec("w", "hbm", G1), StressorSpec("y", "hbm", G1)]
+    return [ScenarioSpec(f"matrix.{i}.{s.strategy}", o, (s,),
+                         iters=MATRIX_ITERS)
+            for i, o in enumerate(observers) for s in stressors]
+
+
+def executions(db: CurveDB) -> list:
+    out = []
+    for surf in db.surfaces.values():
+        prov = surf.provenance
+        cells = prov.get("cells")
+        out += ([c["execution"] for c in cells.values()] if cells
+                else [prov["execution"]])
+    return out
+
+
+def round_trips(db: CurveDB, tmp: str, name: str) -> bool:
+    a, b = os.path.join(tmp, f"{name}.a.json"), os.path.join(tmp,
+                                                              f"{name}.b.json")
+    db.save(a)
+    CurveDB.load(a).save(b)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def placement_objects():
+    return [params_object("params", 18 << 30),
+            kv_cache_object("kv_cache", 20 << 30, 20 << 30),
+            MemObject("activations", 8 << 30, 16 << 30)]
+
+
+def check_plan(name: str, plan, caps: dict, objects) -> dict:
+    used = {p: 0 for p in caps}
+    for obj in objects:
+        d = plan.decisions.get(obj.name)
+        if d is None:
+            fail(f"placement {name}: no decision for {obj.name}")
+            continue
+        used[d.pool] = used.get(d.pool, 0) + obj.size_bytes
+    for p, n in used.items():
+        if n > caps.get(p, 0):
+            fail(f"placement {name}: pool {p} holds {n} B of {caps.get(p)}")
+    return {"name": name, "report": plan.report(),
+            "pools": {o: d.pool for o, d in plan.decisions.items()},
+            "predicted_step_ns": plan.total_predicted_ns()}
+
+
+def phase_matrix() -> dict:
+    """Drives the loop through its entry points.  Returns what the lone
+    re-measurement needs: every signature group measured."""
+    coord = CoreCoordinator(PoolManager(H100_SXM, DEV), H100_SXM,
+                            backend="cuda", device=DEV)
+    runs = []            # (call, specs, MatrixResult) of each run_matrix
+    groups = []          # one record per measured signature group
+    run_matrix, measure_group = coord.run_matrix, coordinator_mod.measure_group
+
+    def recorded_run_matrix(specs, **kw):
+        res = run_matrix(specs, **kw)
+        runs.append((call, specs, res))
+        return res
+
+    def timed_measure_group(strategy, pool, buf, n, iters, **kw):
+        t0 = time.perf_counter()
+        results, dispatches = measure_group(strategy, pool, buf, n, iters,
+                                            **kw)
+        sync()
+        what, _ = figure(results[0])
+        groups.append({
+            "call": call, "strategy": strategy, "shape":
+            kw.get("shape").tag() if kw.get("shape") is not None else "",
+            "pool": pool.node.name, "buffer_bytes": buf, "iters": iters,
+            "members": [r.pool for r in results], "dispatches": dispatches,
+            what: [figure(r)[1] for r in results],
+            "launch_bound": any(r.launch_bound for r in results),
+            "seconds": round(time.perf_counter() - t0, 3),
+            "_key": (pool.node.name, strategy, kw.get("shape"), buf, iters)})
+        return results, dispatches
+
+    coord.run_matrix = recorded_run_matrix
+    coordinator_mod.measure_group = timed_measure_group
+    t_phase = time.perf_counter()
+    try:
+        call = "characterize"
+        db = characterize(coord, pools=["hbm", "host"],
+                          obs_strategies=("r", "w", "l"),
+                          stress_strategies=("r", "w", "y"),
+                          iters=MATRIX_ITERS)
+        call = "characterize_matrix"
+        db_matrix = characterize_matrix(coord, matrix_specs())
+        call = "characterize_surface"
+        db_surface = characterize_surface(coord, pools=["hbm"],
+                                          stress_pools=["hbm"],
+                                          iters=MATRIX_ITERS)
+    finally:
+        coordinator_mod.measure_group = measure_group
+        coord.run_matrix = run_matrix
+    sync()
+    loop_seconds = time.perf_counter() - t_phase
+
+    caps = {"hbm": 80 * 10**9, "host": 64 << 30}
+    objects = placement_objects()
+    adv = PlacementAdvisor(db, H100_SXM, pools=["hbm", "host"])
+    plans = [check_plan("curves, 0 x w on hbm",
+                        adv.advise(objects, ContentionSpec(0, "hbm", "w"),
+                                   caps), caps, objects),
+             check_plan("curves, 7 x y on hbm",
+                        adv.advise(objects, ContentionSpec(7, "hbm", "y"),
+                                   caps), caps, objects)]
+    # the surface database characterizes the hbm observers only
+    surf_caps = {"hbm": caps["hbm"]}
+    plans.append(check_plan(
+        "surface, 3 x b on hbm at rw 0.9",
+        PlacementAdvisor(db_surface, H100_SXM, pools=["hbm"]).advise(
+            objects, ContentionSpec(3, "hbm", "b", rw_ratio=0.9),
+            surf_caps), surf_caps, objects))
+
+    stats, checks = {}, {}
+    for call, specs, res in runs:
+        triples = [(sp, o, b) for sp in specs for o in sp.observers
+                   for b in o.buffers]
+        want = expected_dispatches(triples, coord.pools)
+        stats[call] = dataclass_dict(res.stats)
+        checks[f"dispatches_as_planned:{call}"] = \
+            res.stats.measure_dispatches == want
+        checks[f"fewer_dispatches_than_ladders:{call}"] = \
+            res.stats.measure_dispatches < res.stats.n_ladders
+        checks[f"no_group_mixes_hbm_and_host:{call}"] = all(
+            len({triples[i][1].pool for i in idxs}) == 1 for idxs in
+            exec_plan.observer_groups(triples, coord.pools).values())
+        checks[f"accounting:{call}"] = all(
+            (run.scenarios[0].main.bytes_moved,
+             run.scenarios[0].main.transactions) ==
+            expected_accounting(run.scenarios[0].main.strategy,
+                                run.buffer_bytes, run.spec.iters)
+            for run in res.runs)
+        checks[f"no_launch_bound:{call}"] = not any(
+            run.scenarios[0].main.launch_bound for run in res.runs)
+    dbs = {"characterize": db, "characterize_matrix": db_matrix,
+           "characterize_surface": db_surface}
+    for name, d in dbs.items():
+        checks[f"provenance:{name}"] = all(
+            e["backend"] == "cuda" and e["activity"] == "cuda"
+            and e["measured_uncontended"] for e in executions(d))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for name, d in dbs.items():
+            checks[f"curvedb_round_trip:{name}"] = round_trips(d, tmp, name)
+    checks["pools_released"] = not any(p.allocated
+                                       for p in coord.pools.pools())
+    emit({"phase": "matrix", "platform": H100_SXM.name, "backend": "cuda",
+          "iters": MATRIX_ITERS, "seconds": round(loop_seconds, 2),
+          "groups": [{k: v for k, v in g.items() if k != "_key"}
+                     for g in groups],
+          "dispatch_stats": stats,
+          "n_ladders": {c: r.stats.n_ladders for c, _, r in runs},
+          "n_curves": len(db.surfaces) + len(db_matrix.surfaces),
+          "n_surfaces": len(db_surface.surfaces),
+          "mlp_hbm": db.mlp("hbm", H100_SXM.line_bytes),
+          "placement": plans, "checks": checks})
+    for k, ok in checks.items():
+        if not ok:
+            fail(f"matrix: check {k}")
+    return {"coord": coord, "groups": groups}
+
+
+def phase_lone(matrix: dict) -> None:
+    """Each group's per-member figure against the same observer measured
+    alone through make_shaped_workload(...).run: the card's counterpart of
+    the reference's test_batched_chase_latency_matches_naive."""
+    coord, lone, out, ok = matrix["coord"], {}, [], True
+    for g in matrix["groups"]:
+        pool, strategy, shape, buf, iters = g["_key"]
+        if g["_key"] not in lone:
+            wl = workloads.make_shaped_workload(
+                strategy, coord.pools.pool(pool), buf, shape)
+            try:
+                lone[g["_key"]] = figure(wl.run(iters))
+            finally:
+                wl.release()
+        what, alone = lone[g["_key"]]
+        worst = max(abs(v / alone - 1.0) for v in g[what])
+        within = worst <= LONE_REL and not g["launch_bound"]
+        ok = ok and within
+        out.append({"call": g["call"], "pool": pool, "strategy": strategy,
+                    "shape": g["shape"], "buffer_bytes": buf,
+                    "members": len(g["members"]), what: g[what],
+                    "alone": alone, "worst_rel_diff": worst,
+                    "within": within})
+    emit({"phase": "batched_vs_alone", "rel_limit": LONE_REL,
+          "groups": out})
+    if not ok:
+        fail("batched per-member figures differ from the lone observer's")
+    if any(p.allocated for p in coord.pools.pools()):
+        fail("batched_vs_alone: pool not released")
+
+
+def dataclass_dict(obj) -> dict:
+    return {k: getattr(obj, k) for k in obj.__dataclass_fields__}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: each kernel's time at the main path's shape, beside its bound
 # ---------------------------------------------------------------------------
 
 
@@ -490,6 +929,7 @@ def bound(bytes_: float, ops_: float):
 
 
 def phase_perf(at_main: dict, launched: dict, records: dict) -> list:
+    """``launched``: each kernel's launches over the two paths' runs."""
     rows = rows_of(G1)
     nbytes = rows * 512
     x = workloads.bw_buffer_init((rows, 128), torch.float32).to(DEV)
@@ -503,11 +943,24 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> list:
     n_big = rows_of(M256)
     chain_host = chase.chain_buffer(n_big, 0)
     chain_big = torch.from_numpy(chain_host).to(DEV)
+    probe_a = radius_09(0)
+    probe_ops = PROBE_ITERS * 2 * 128 ** 3
 
     def host_ms(fn) -> float:
         t0 = time.perf_counter()
         fn()
         return (time.perf_counter() - t0) * 1e3
+
+    def enqueue_ms(fn, calls: int) -> float:
+        """The host's cost of one call: ``calls`` calls enqueued, then
+        one synchronise outside the clock."""
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = (time.perf_counter() - t0) * 1e3 / calls
+        sync()
+        return t
 
     n = 20
     # name -> (source, replaces, kernel, plain, library, bytes, ops, calls)
@@ -555,6 +1008,15 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> list:
         ("chase_hbm", "chase.cu", "src/repro/kernels/chase.py:130",
          lambda: chase.chase_hbm(chain_big, n_steps=n_big),
          None, None, n_big * SECTOR_BYTES, n_big, 2),
+        # a^65 by 64 dependent products; the library call computes the
+        # same power by repeated squaring (7 products), which the probe
+        # must not: it is there to keep one SM busy for the whole chain
+        ("mxu_probe", "compute_probe.cu",
+         "src/repro/kernels/compute_probe.py:32",
+         lambda: compute_probe.mxu_probe(probe_a, iters=PROBE_ITERS),
+         lambda: ref.mxu_probe_ref(probe_a, PROBE_ITERS),
+         lambda: torch.linalg.matrix_power(probe_a, PROBE_ITERS + 1),
+         2 * probe_a.numel() * 4, probe_ops, n),
     ]
     kernels = []
     for name, src, replaces, kern, plain, lib, bytes_, ops_, calls in table:
@@ -572,35 +1034,56 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> list:
                                 .values())),
                **at_main[name], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None if lib is None else time_ms(lib, calls)}
+               "library_ms": None if lib is None else time_ms(lib, calls),
+               "host_enqueue_ms": enqueue_ms(kern, calls)}
         if name.startswith("chase"):
             rec["ns_per_hop"] = ms * 1e6 / ops_
+        elif name == "mxu_probe":
+            rec["tflops"] = ops_ / ms / 1e9
         else:
             rec["gbps"] = bytes_ / ms / 1e6
         kernels.append(rec)
     fn = _build.bind("stream", "repro_empty_launch", (ctypes.c_void_p,))
     stream_ = _build.current_stream(DEV)
     empty_ms = time_ms(lambda: fn(stream_), 1000)
-    emit({"phase": "perf", "empty_launch_ms": empty_ms,
-          "note": "ms per call over back-to-back calls, device events; "
+    emit({"phase": "perf", "empty_launch_ms": empty_ms, "kernels": kernels,
+          "note": "ms per call over back-to-back calls, device events, "
+                  "behind a hold of the stream; host_enqueue_ms is the "
+                  "host's cost of one call of the wrapper; "
                   "bound_ms from the published 3.35 TB/s and 67 TFLOP/s "
-                  "fp32"})
+                  "fp32; launches over the main path and the matrix "
+                  "phase; float32 products without TF32"})
     return kernels
 
 
 def main() -> int:
     smi = phase_device()
     phase_build()
+    # float32 products in full float32 on both sides of every comparison
+    torch.backends.cuda.matmul.allow_tf32 = False
     at_main = phase_kernels(rows_of(G1))
     phase_pinned()
     phase_small_reference()
 
+    # the two paths, each run between a reset and a read of the counts
     counts.reset()
     records = phase_main_path()
     launched, plain = counts.snapshot()
+    counts.reset()
+    matrix = phase_matrix()
+    m_launched, m_plain = counts.snapshot()
+    emit({"phase": "matrix_launches", "launches": m_launched,
+          "plain_calls": m_plain})
+    for k in counts.KERNELS:
+        if m_launched[k] < 1:
+            fail(f"matrix: kernel {k} was not launched")
+    if any(m_plain.values()):
+        fail("matrix: a plain version ran on the card's path")
 
+    phase_lone(matrix)
     phase_checks(records, launched, plain)
-    kernels = phase_perf(at_main, launched, records)
+    kernels = phase_perf(at_main, {k: launched[k] + m_launched[k]
+                                   for k in launched}, records)
     sync()
     if FAILURES:
         sys.stderr.write("chip_smoke: %d failure(s):\n  %s\n"

@@ -15,27 +15,36 @@ Backends:
 ``auto``      is ``cuda``.  It never resolves to ``simulate``: asked
               for the card where there is none, the coordinator raises.
 
-The scenario-matrix runner and the executable multi-engine contention
-path (observer + live stressor engines inside one launch) are not ported
-yet.
+:meth:`CoreCoordinator.run_matrix` runs a scenario matrix on either
+backend: on ``cuda`` same-signature observers are measured together, one
+launch over a leading member axis per group (:mod:`repro_torch.core.exec`).
+The executable multi-engine contention path (observer + live stressor
+engines inside one launch, the JAX package's ``spmd`` backend) is not
+ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.compat import resolve_device
 from repro_torch.core import simulate as sim
 from repro_torch.core.devicetree import Platform, detect_platform
-from repro_torch.core.exec.assemble import ScenarioResult
+from repro_torch.core.exec import plan as exec_plan
+from repro_torch.core.exec.assemble import (MatrixResult, ScenarioResult,
+                                            ScenarioRun, assemble_runs)
+from repro_torch.core.exec.dispatch import DispatchStats
 from repro_torch.core.pools import MemoryPool, PoolManager
-from repro_torch.core.scenarios import StressorSpec, TrafficShape
+from repro_torch.core.scenarios import (ObserverSpec, ScenarioSpec,
+                                        StressorSpec, TrafficShape)
 from repro_torch.core.workloads import (_REGISTRY, WorkloadResult,
-                                        make_shaped_workload, models_as_vmem)
+                                        make_shaped_workload, measure_group,
+                                        models_as_vmem)
 
 __all__ = [
-    "ActivitySpec", "CoreCoordinator", "ExperimentConfig",
-    "ExperimentResult", "ScenarioResult", "ValidationError",
+    "ActivitySpec", "CoreCoordinator", "DispatchStats", "ExperimentConfig",
+    "ExperimentResult", "MatrixResult", "ScenarioResult", "ScenarioRun",
+    "ValidationError",
 ]
 
 BACKENDS = ("simulate", "cuda")
@@ -260,3 +269,197 @@ class CoreCoordinator:
                iters: int = 500) -> ExperimentResult:
         return self.run(ExperimentConfig(main=main, stress=stress,
                                          iters=iters))
+
+    # ==================================================================
+    # ScenarioSpec matrix execution (the v2 characterization engine)
+    # ==================================================================
+
+    def validate_spec(self, spec: ScenarioSpec) -> None:
+        # exact-duplicate observers would alias one curve key per
+        # buffer and silently overwrite each other's ladders in
+        # CurveDB — reject up front (observers differing in ANY field
+        # are legitimate twins and key distinctly via the buf= suffix)
+        seen = set()
+        for obs in spec.observers:
+            if obs in seen:
+                raise ValidationError(
+                    f"{spec.name}: duplicate observer "
+                    f"({obs.pool}:{obs.strategy}"
+                    f"{'@' + obs.shape.tag() if obs.shape.tag() else ''}, "
+                    f"buffers={obs.buffers}) — its curves would alias "
+                    f"the first occurrence's keys")
+            seen.add(obs)
+        for obs in spec.observers:
+            if obs.strategy not in _REGISTRY:
+                raise ValidationError(
+                    f"{spec.name}: unknown observer strategy "
+                    f"{obs.strategy!r}")
+            pool = self.pools.pool(obs.pool)
+            for b in obs.buffers:
+                if obs.strategy != "i" and b > pool.available:
+                    raise ValidationError(
+                        f"{spec.name}: observer buffer {b}B exceeds pool "
+                        f"{obs.pool} ({pool.available}B free)")
+        for s in spec.stressors:
+            if s.strategy not in _REGISTRY:
+                raise ValidationError(
+                    f"{spec.name}: unknown stressor strategy "
+                    f"{s.strategy!r}")
+            self.pools.pool(s.pool)
+        if spec.iters <= 0:
+            raise ValidationError(f"{spec.name}: iters must be positive")
+        if spec.max_stressors is not None and not (
+                0 <= spec.max_stressors < self.platform.n_engines):
+            raise ValidationError(
+                f"{spec.name}: max_stressors out of "
+                f"[0, {self.platform.n_engines})")
+
+    def _obs_activity(self, observer: ObserverSpec,
+                      buffer_bytes: int) -> ActivitySpec:
+        sh = observer.shape
+        return ActivitySpec(
+            observer.strategy, observer.pool, buffer_bytes,
+            read_fraction=(sh.read_fraction if sh.kind == "mixed"
+                           else None),
+            duty_cycle=sh.duty_cycle, stride=sh.stride)
+
+    def _model_spec_scenario(self, spec: ScenarioSpec,
+                             observer: ObserverSpec, buffer_bytes: int,
+                             k: int) -> Tuple[float, float, float]:
+        """Model one rung: one observer + k stress engines distributed
+        round-robin over the stressor ensemble — plus, for a *coupled*
+        multi-observer scenario, one always-on single-engine class per
+        sibling observer (:func:`sim.co_observer_class`).
+        ``spec.coupled=False`` keeps the historical stressor-only
+        semantics."""
+        obs_act = self._obs_activity(observer, buffer_bytes)
+        obs_pool = self.pools.pool(observer.pool)
+        first = spec.stressors[0] if spec.stressors else None
+        obs_node = self._model_node(
+            obs_act, obs_pool,
+            other=ActivitySpec.from_stressor(first) if first else None,
+            other_engines=k)
+        classes = [sim.ActivityClass(
+            "obs", obs_node, obs_act.strategy, 1,
+            read_fraction=obs_act.read_fraction,
+            duty_cycle=obs_act.duty_cycle, stride=obs_act.stride)]
+        for j, sib in enumerate(self._coupled_siblings(spec, observer)):
+            if sib.strategy == "i":
+                continue
+            act = self._obs_activity(sib, sib.buffers[0])
+            node = self._model_node(act, self.pools.pool(sib.pool),
+                                    other=obs_act, other_engines=1)
+            classes.append(sim.co_observer_class(
+                f"co{j}", node, act.strategy,
+                read_fraction=act.read_fraction,
+                duty_cycle=act.duty_cycle, stride=act.stride))
+        m = len(spec.stressors)
+        if k and m:
+            share = [k // m + (1 if j < k % m else 0) for j in range(m)]
+            for j, (s, e) in enumerate(zip(spec.stressors, share)):
+                if e == 0 or s.strategy == "i":
+                    continue
+                act = ActivitySpec.from_stressor(s)
+                node = self._model_node(act, self.pools.pool(s.pool),
+                                        other=obs_act, other_engines=1)
+                classes.append(sim.ActivityClass(
+                    f"stress{j}", node, s.strategy, e,
+                    read_fraction=act.read_fraction,
+                    duty_cycle=act.duty_cycle, stride=act.stride))
+        res = sim.simulate_scenario(self.platform, classes)
+        obs = res.get("obs")
+        stress_bw = sum(r.bw_gbps for n, r in res.items()
+                        if n.startswith("stress"))
+        return (obs.bw_gbps if obs else 0.0,
+                obs.lat_ns if obs else 0.0,
+                stress_bw)
+
+    @staticmethod
+    def _coupled_siblings(spec: ScenarioSpec,
+                          observer: ObserverSpec) -> Tuple[ObserverSpec, ...]:
+        """The sibling observers sharing this observer's measured
+        region (the logic lives on :meth:`ScenarioSpec.coupled_siblings`
+        so the sweep-level grouping signature can reuse it)."""
+        return spec.coupled_siblings(observer)
+
+    def _ladder_depth(self, spec: ScenarioSpec) -> int:
+        return exec_plan.ladder_depth(spec, self.platform.n_engines)
+
+    def run_matrix(self, specs: List[ScenarioSpec], *,
+                   batched: bool = True, journal=None) -> MatrixResult:
+        """Execute a scenario matrix.
+
+        The measured observer pass is where the ``cuda`` backend spends
+        its launches; ``batched=True`` groups same-signature observers
+        (strategy, shape, buffer, iters, residency, effective memory
+        placement — :func:`repro_torch.core.exec.plan.observer_groups`)
+        and measures each group with ONE launch over a leading member
+        axis, instead of the naive one-measurement-per-scenario loop.
+        Multi-observer scenarios contribute one ladder per (observer,
+        buffer) and their observers join the same signature groups.
+
+        Both backends model the contention ladder per rung; ``cuda``
+        additionally measures the uncontended observer.  Every curve's
+        ``execution`` provenance records the backend, the modeled
+        rungs, whether the observer was measured, the effective
+        ``coupled`` state, and the ``activity`` that ran the measured
+        pass: ``"cuda"`` when the hand-written kernels ran on the card,
+        ``"plain"`` when their plain PyTorch versions ran
+        (``device="cpu"``), ``"none"`` on ``simulate``.
+
+        ``journal=`` (crash-resumable sweeps) belongs to the executable
+        multi-engine path, which is not ported: it raises."""
+        if journal is not None:
+            raise ValidationError(
+                "journal= requires the spmd backend, which is not ported "
+                "(the simulate and cuda backends model their rungs and "
+                "have nothing to resume)")
+        for spec in specs:
+            self.validate_spec(spec)
+        triples = [(spec, obs, b) for spec in specs
+                   for obs in spec.observers for b in obs.buffers]
+        stats = DispatchStats(n_scenarios=len(specs),
+                              n_ladders=len(triples))
+
+        measured: Dict[int, WorkloadResult] = {}
+        if self.backend == "cuda":
+            activity = "cuda" if self.device.type == "cuda" else "plain"
+            measured = self._measure_triples(triples, batched, stats)
+        else:
+            activity = "none"       # nothing executes on this backend
+
+        runs = assemble_runs(
+            triples, backend=self.backend, activity=activity,
+            stats=stats, depth_fn=self._ladder_depth,
+            model_fn=self._model_spec_scenario, measured=measured)
+        return MatrixResult(runs=runs, stats=stats)
+
+    def _measure_triples(self, triples, batched: bool,
+                         stats: DispatchStats) -> Dict[int, WorkloadResult]:
+        """The measured observer pass over all (spec, observer, buffer)
+        triples (uncontended: one observer on the card at a time)."""
+        measured: Dict[int, WorkloadResult] = {}
+        if not batched:
+            for i, (spec, obs, buf) in enumerate(triples):
+                wl = make_shaped_workload(
+                    obs.strategy, self.pools.pool(obs.pool), buf,
+                    obs.shape)
+                try:
+                    measured[i] = wl.run(spec.iters)
+                finally:
+                    wl.release()
+                stats.measure_dispatches += 1
+            return measured
+
+        groups = exec_plan.observer_groups(triples, self.pools)
+        for (strategy, shape, buf, iters, _kind, _vm), idxs in \
+                groups.items():
+            member_pools = [self.pools.pool(triples[i][1].pool)
+                            for i in idxs]
+            results, dispatches = measure_group(
+                strategy, member_pools[0], buf, len(idxs), iters,
+                shape=shape, member_pools=member_pools)
+            stats.measure_dispatches += dispatches
+            for i, res in zip(idxs, results):
+                measured[i] = res
+        return measured

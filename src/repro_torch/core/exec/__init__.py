@@ -1,8 +1,22 @@
-"""The execution pipeline's result types.
+"""The execution pipeline of the matrix runner: plan -> measure -> assemble.
 
-Only :mod:`repro_torch.core.exec.assemble`'s :class:`ScenarioResult` is
-ported so far: the single-observer path needs nothing else.  The plan,
-program, fence, dispatch, resilience and journal stages of the JAX
+* :mod:`repro_torch.core.exec.plan` — signature groups of the measured
+  observer pass (:func:`observer_groups`), ladder depth, duty guard.
+* :mod:`repro_torch.core.exec.dispatch` — :class:`DispatchStats`, the
+  accounting ``run_matrix`` returns and CurveDB records.
+* :mod:`repro_torch.core.exec.assemble` — ScenarioResult / ScenarioRun /
+  MatrixResult construction and the ``execution`` provenance.
+
+The program, fence, dispatch, resilience and journal stages of the JAX
 package's ``core/exec`` wait for the multi-engine contention path.
 """
-from repro_torch.core.exec.assemble import ScenarioResult  # noqa: F401
+from repro_torch.core.exec.assemble import (MatrixResult, ScenarioResult,
+                                            ScenarioRun, assemble_runs)
+from repro_torch.core.exec.dispatch import DispatchStats
+from repro_torch.core.exec.plan import (effective_duty, ladder_depth,
+                                        observer_groups)
+
+__all__ = [
+    "MatrixResult", "ScenarioResult", "ScenarioRun", "assemble_runs",
+    "DispatchStats", "effective_duty", "ladder_depth", "observer_groups",
+]

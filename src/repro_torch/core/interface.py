@@ -86,8 +86,9 @@ def format_results(res: ExperimentResult) -> str:
         lines.append(f"{s.n_stressors:9d}  {s.modeled_bw_gbps:8.3f} "
                      f"{s.modeled_lat_ns:9.1f}  {s.stress_bw_gbps:8.3f}")
     if res.scenarios and res.scenarios[0].main.launch_bound:
-        lines.append("# note: the measured observer ran an on-chip kernel; "
-                     "its time is bound by the kernel launch")
+        lines.append("# note: the measured observer ran an on-chip kernel "
+                     "whose slope timing failed; its time is the kernel "
+                     "launch's, not the memory's")
     return "\n".join(lines)
 
 

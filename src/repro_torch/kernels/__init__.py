@@ -1,11 +1,13 @@
 """Hand-written CUDA kernels behind the strategy letters, their ctypes
 wrappers, and the plain PyTorch versions they are held against.
 
-csrc/      stream.cu, chase.cu — CUDA C++ for sm_90a, plain C interface
+csrc/      stream.cu, chase.cu, compute_probe.cu — CUDA C++ for sm_90a,
+           plain C interface
 _build     nvcc build at first use + ctypes loading
 counts     launch counters (kernel launches / plain-version calls)
 stream     read/write/rmw/copy/mixed streams, on-chip residency pair
 chase      pointer-chase kernels + the numpy chain initialisers
+compute_probe  the memory-idle chain of (128, 128) products (letter i)
 ref        plain PyTorch versions
 ops        the call-site names the workload library uses
 """

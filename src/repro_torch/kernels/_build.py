@@ -26,7 +26,7 @@ import torch
 from repro_torch import compat
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("stream", "chase")
+SOURCES = ("stream", "chase", "compute_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # shared memory one block can use on an H100 SM (227 KB of the SM's 256 KB)
@@ -158,20 +158,37 @@ def compute_device(t: torch.Tensor) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def check_buffer(t: torch.Tensor, *, dtypes, what: str) -> None:
+def check_buffer(t: torch.Tensor, *, dtypes, what: str,
+                 members: bool = False) -> None:
     """Raise on what the kernels do not take: they index (rows, 128)
-    contiguous buffers in 16-byte units."""
-    if t.dim() != 2 or t.shape[1] != 128:
-        raise ValueError(f"{what}: want shape (rows, 128), got "
-                         f"{tuple(t.shape)}")
+    contiguous buffers in 16-byte units.  With ``members`` a
+    (g, rows, 128) stack is taken too: each member's rows contiguous, the
+    members 16-byte aligned and possibly apart (a view of a larger
+    stack)."""
+    if not (t.dim() == 2 or (members and t.dim() == 3)) or t.shape[-1] != 128:
+        want = "(rows, 128) or (g, rows, 128)" if members else "(rows, 128)"
+        raise ValueError(f"{what}: want shape {want}, got {tuple(t.shape)}")
     if t.dtype not in dtypes:
         raise TypeError(f"{what}: want dtype in {dtypes}, got {t.dtype}")
-    if not t.is_contiguous():
+    if t.dim() == 3:
+        if (t.stride(2) != 1 or t.stride(1) != 128
+                or (t.stride(0) * t.element_size()) % 16):
+            raise ValueError(f"{what}: each member's rows must be "
+                             "contiguous and 16-byte aligned")
+    elif not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
-    if t.shape[0] < 1:
+    if t.numel() < 1:
         raise ValueError(f"{what}: need at least one row")
     if t.data_ptr() % 16:
         raise ValueError(f"{what}: data pointer must be 16-byte aligned")
+
+
+def member_layout(t: torch.Tensor) -> tuple:
+    """``(members, rows, member stride in elements)`` of a buffer that
+    :func:`check_buffer` took: a (rows, 128) buffer is one member."""
+    if t.dim() == 2:
+        return 1, t.shape[0], t.numel()
+    return t.shape[0], t.shape[1], t.stride(0)
 
 
 def empty_like_placed(t: torch.Tensor,

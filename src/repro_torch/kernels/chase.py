@@ -21,7 +21,10 @@ A hop reads the 4-byte successor of a 512-byte line (one 32-byte
 sector), where the TPU kernel it replaces moves the whole line.
 
 Line layout: (n_lines, 128) int32 — one 512-byte row per "line";
-element [i, 0] holds the successor of line i.
+element [i, 0] holds the successor of line i.  Both chases also take a
+(g, n_lines, 128) stack of g chains (the port of the reference's
+``jax.vmap`` over a leading member axis): one launch chases member 0's
+chain, then member 1's, ..., and returns the g final indices.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from repro_torch.kernels import _build, counts, ref
 LANE = 128
 SMEM_CHAIN_BYTES = _build.SMEM_PER_BLOCK_BYTES
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 # ---------------------------------------------------------------------------
@@ -92,25 +95,31 @@ def strided_chain_buffer(n_lines: int, stride: int) -> np.ndarray:
 
 
 def _chase(name: str, buf: torch.Tensor, n_steps: int) -> torch.Tensor:
-    _build.check_buffer(buf, dtypes=(torch.int32,), what=name)
+    _build.check_buffer(buf, dtypes=(torch.int32,), what=name, members=True)
     if n_steps < 0:
         raise ValueError(f"{name}: n_steps must be >= 0")
     if not _build.launches_kernel(buf):
         counts.PLAIN[name] += 1
+        if buf.dim() == 3:
+            return torch.tensor(ref.chase_members_ref(buf, n_steps),
+                                dtype=torch.int32)
         return torch.tensor(ref.chase_ref(buf, n_steps), dtype=torch.int32)
     dev = _build.compute_device(buf)
-    out = torch.empty((), dtype=torch.int32, device=dev)
+    g, rows, stride = _build.member_layout(buf)
+    out = torch.empty(g, dtype=torch.int32, device=dev)
     stream = _build.current_stream(dev)
     if name == "chase_vmem":
-        fn = _build.bind("chase", "repro_chase_vmem", (_VP, _I, _I, _VP, _VP))
-        code = fn(buf.data_ptr(), buf.shape[0], n_steps, out.data_ptr(),
+        fn = _build.bind("chase", "repro_chase_vmem",
+                         (_VP, _LL, _I, _I, _I, _VP, _VP))
+        code = fn(buf.data_ptr(), stride, g, rows, n_steps, out.data_ptr(),
                   stream)
     else:
-        fn = _build.bind("chase", "repro_chase_hbm", (_VP, _I, _VP, _VP))
-        code = fn(buf.data_ptr(), n_steps, out.data_ptr(), stream)
+        fn = _build.bind("chase", "repro_chase_hbm",
+                         (_VP, _LL, _I, _I, _VP, _VP))
+        code = fn(buf.data_ptr(), stride, g, n_steps, out.data_ptr(), stream)
     _build.check_launch("chase", name, code)
     counts.LAUNCHES[name] += 1
-    return out
+    return out.reshape(buf.shape[:-2])
 
 
 def chase_vmem(buf: torch.Tensor, *, n_steps: int) -> torch.Tensor:
@@ -122,10 +131,10 @@ def chase_vmem(buf: torch.Tensor, *, n_steps: int) -> torch.Tensor:
     loads, one at a time.  Design (D): stage with the whole block, chase
     with one thread, store the final index.  The entries must lie in
     [0, n_lines): the kernel does not check them."""
-    if buf.dim() == 2 and buf.shape[0] * LANE * 4 > SMEM_CHAIN_BYTES:
+    if buf.dim() in (2, 3) and buf.shape[-2] * LANE * 4 > SMEM_CHAIN_BYTES:
         raise ValueError(
-            f"chase_vmem: a chain of {buf.shape[0]} lines "
-            f"({buf.shape[0] * LANE * 4} B) does not fit the "
+            f"chase_vmem: a chain of {buf.shape[-2]} lines "
+            f"({buf.shape[-2] * LANE * 4} B) does not fit the "
             f"{SMEM_CHAIN_BYTES} B of shared memory of one SM")
     return _chase("chase_vmem", buf, n_steps)
 

@@ -11,7 +11,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 KERNELS = ("read_hbm", "write_hbm", "write_hbm_seeded", "rmw_hbm",
-           "copy_hbm", "read_vmem", "write_vmem", "chase_vmem", "chase_hbm")
+           "copy_hbm", "read_vmem", "write_vmem", "chase_vmem", "chase_hbm",
+           "mxu_probe")
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN: Dict[str, int] = {k: 0 for k in KERNELS}

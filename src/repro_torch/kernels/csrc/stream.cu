@@ -8,12 +8,22 @@
 // row is one "line".  All kernels move 16 bytes per thread and access;
 // `n_vec` counts those 16-byte units, so any whole number of rows divides.
 //
+// The two reads also take a stack of `members` such buffers, member m at
+// x + m * member_stride (in 16-byte units; a stack may be a strided view):
+// the port of the reference's jax.vmap over a leading member axis.  The
+// stream spreads every member's blocks over the whole card in one launch;
+// the on-chip read walks the members back to back in each CTA, so its time
+// is the sum of the members' walks, as the reference's per-member split of
+// the pass time assumes.
+//
 // Four designs:
 //   (A) grid-stride stream of 16-byte accesses: write, write_seeded, rmw, copy
 //   (B) the same stream with a block reduction to one partial per CTA: read
 //   (C) a CTA keeps its tile in shared memory and walks it `repeats` times:
 //       read_tile / write_tile (the on-chip residency pair)
-//   (-) an empty kernel, to time a bare launch
+//   (-) an empty kernel, to time a bare launch, and a hold kernel that keeps
+//       the stream busy for a given time while the host enqueues the work
+//       it is followed by
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,9 +58,12 @@ __device__ __forceinline__ float block_sum(float v) {
 // ---- (B) read: every 16 bytes loaded once, one partial sum per CTA --------
 // The loads are live only because the partial is stored.  Four independent
 // accumulators per thread keep the adds off the loads' critical path and
-// shorten each float32 summation chain.
+// shorten each float32 summation chain.  blockIdx.y is the member.
 __global__ void read_kernel(const float4* __restrict__ x,
-                            float* __restrict__ partials, long long n_vec) {
+                            float* __restrict__ partials, long long n_vec,
+                            long long member_stride) {
+  x += blockIdx.y * member_stride;
+  partials += (long long)blockIdx.y * gridDim.x;
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
   const long long step = grid_threads();
 #pragma unroll 4
@@ -115,28 +128,36 @@ __global__ void copy_kernel(const uint4* __restrict__ x,
 // the end of each walk tells the compiler that shared memory may have been
 // read and changed there: without it the repeated loads of an unchanged
 // tile are hoisted out of the loop and all but the last of the repeated
-// stores are deleted, and the kernel would time nothing.
+// stores are deleted, and the kernel would time nothing.  The read walks
+// member 0's tile, then member 1's, ...: one partial per (member, CTA).
 __global__ void read_tile_kernel(const float4* __restrict__ x,
                                  float* __restrict__ partials,
-                                 long long n_vec, int tile_vec, int repeats) {
+                                 long long n_vec, long long member_stride,
+                                 int members, int tile_vec, int repeats) {
   extern __shared__ float4 tile[];
   const long long base = (long long)blockIdx.x * tile_vec;
   const long long left = n_vec - base;
   const int n = left < tile_vec ? (int)left : tile_vec;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = x[base + i];
-  __syncthreads();
-  float acc = 0.f;
-  for (int r = 0; r < repeats; ++r) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float4 v = tile[i];
-      a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
+  for (int m = 0; m < members; ++m) {
+    const float4* xm = x + m * member_stride + base;
+    // the previous member's walks and reduction are done before its tile
+    // is overwritten
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = xm[i];
+    __syncthreads();
+    float acc = 0.f;
+    for (int r = 0; r < repeats; ++r) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const float4 v = tile[i];
+        a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
+      }
+      acc += (a.x + a.y) + (a.z + a.w);
+      asm volatile("" ::: "memory");
     }
-    acc += (a.x + a.y) + (a.z + a.w);
-    asm volatile("" ::: "memory");
+    acc = block_sum(acc);
+    if (threadIdx.x == 0) partials[(long long)m * gridDim.x + blockIdx.x] = acc;
   }
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
 }
 
 __global__ void write_tile_kernel(float4* __restrict__ out, long long n_vec,
@@ -156,6 +177,16 @@ __global__ void write_tile_kernel(float4* __restrict__ out, long long n_vec,
 }
 
 __global__ void empty_kernel() {}
+
+// One thread sleeps until `ns` nanoseconds of the global timer have passed.
+__global__ void hold_kernel(long long ns) {
+  unsigned long long t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  do {
+    __nanosleep(1000);
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  } while ((long long)(t - t0) < ns);
+}
 
 constexpr int kStreamThreads = 256;
 constexpr int kTileThreads = 1024;
@@ -177,10 +208,13 @@ const char* repro_error_string(int code) {
 
 int repro_stream_threads() { return kStreamThreads; }
 
-int repro_read_hbm(const void* x, void* partials, long long n_vec, int grid,
+// partials: (members, grid) floats
+int repro_read_hbm(const void* x, void* partials, long long n_vec,
+                   long long member_stride, int members, int grid,
                    void* stream) {
-  read_kernel<<<grid, kStreamThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)x, (float*)partials, n_vec);
+  read_kernel<<<dim3(grid, members), kStreamThreads, 0,
+                (cudaStream_t)stream>>>(
+      (const float4*)x, (float*)partials, n_vec, member_stride);
   return (int)cudaGetLastError();
 }
 
@@ -217,14 +251,17 @@ int repro_copy_hbm(const void* x, void* out, long long n_vec, int grid,
   return (int)cudaGetLastError();
 }
 
+// partials: (members, ceil(n_vec / tile_vec)) floats
 int repro_read_vmem(const void* x, void* partials, long long n_vec,
-                    int tile_vec, int repeats, void* stream) {
+                    long long member_stride, int members, int tile_vec,
+                    int repeats, void* stream) {
   const size_t smem = (size_t)tile_vec * sizeof(float4);
   const int rc = allow_dynamic_smem(read_tile_kernel, smem);
   if (rc) return rc;
   const int grid = (int)((n_vec + tile_vec - 1) / tile_vec);
   read_tile_kernel<<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(
-      (const float4*)x, (float*)partials, n_vec, tile_vec, repeats);
+      (const float4*)x, (float*)partials, n_vec, member_stride, members,
+      tile_vec, repeats);
   return (int)cudaGetLastError();
 }
 
@@ -241,6 +278,11 @@ int repro_write_vmem(void* out, long long n_vec, int tile_vec, int repeats,
 
 int repro_empty_launch(void* stream) {
   empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+int repro_hold(long long ns, void* stream) {
+  hold_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(ns);
   return (int)cudaGetLastError();
 }
 

@@ -7,6 +7,7 @@ interpret mode, so these are the kernels under their call-site names.
 from __future__ import annotations
 
 from repro_torch.kernels import chase as _chase
+from repro_torch.kernels import compute_probe as _probe
 from repro_torch.kernels import stream as _stream
 
 # --- stream ------------------------------------------------------------------
@@ -41,6 +42,10 @@ def stream_mixed(x, *, read_fraction: float, block_rows: int = 512,
                              block_rows=block_rows, seed=seed)
 
 
+def hold_stream(ns: int, device):
+    return _stream.hold(ns, device)
+
+
 def vmem_read(x, *, repeats: int = 16):
     return _stream.read_vmem(x, repeats=repeats)
 
@@ -58,3 +63,10 @@ make_chain = _chase.make_chain
 chain_buffer = _chase.chain_buffer
 make_strided_chain = _chase.make_strided_chain
 strided_chain_buffer = _chase.strided_chain_buffer
+
+
+# --- compute probe -------------------------------------------------------------
+
+
+def mxu_probe(a, *, iters: int = 64):
+    return _probe.mxu_probe(a, iters=iters)

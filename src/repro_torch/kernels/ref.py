@@ -1,8 +1,13 @@
 """Plain PyTorch versions of every kernel (what the CPU runs, and what
-the CUDA kernels are held against on the card)."""
+the CUDA kernels are held against on the card).
+
+The reads, the on-chip read and the chases take a leading member axis
+too, as their kernels do: a (g, rows, 128) stack gives one result per
+member, what ``jax.vmap`` of the reference kernel gives.  Copy and rmw are
+elementwise and take any leading axes as they are."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -11,7 +16,7 @@ import torch
 
 
 def read_ref(x: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x, dtype=torch.float32)
+    return torch.sum(x, dim=(-2, -1), dtype=torch.float32)
 
 
 def write_ref(shape_rows: int, value: float = 1.0,
@@ -29,7 +34,7 @@ def copy_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 def read_vmem_ref(x: torch.Tensor, repeats: int) -> torch.Tensor:
-    return torch.sum(x, dtype=torch.float32) * repeats
+    return read_ref(x) * repeats
 
 
 def write_vmem_ref(shape_rows: int, repeats: int,
@@ -65,9 +70,11 @@ def mixed_split(rows: int, read_fraction: float,
 def mixed_ref(x: torch.Tensor, read_fraction: float, value: float = 1.0,
               block_rows: int = 512,
               seed: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    blk, n_r, n_w = mixed_split(x.shape[0], read_fraction, block_rows)
-    return (read_ref(x[:n_r * blk]),
-            write_ref(n_w * blk, value + seed, device=x.device))
+    """The block rule applied to each member of ``x``'s leading axes."""
+    blk, n_r, n_w = mixed_split(x.shape[-2], read_fraction, block_rows)
+    return (read_ref(x[..., :n_r * blk, :]),
+            torch.full((*x.shape[:-2], n_w * blk, 128), value + seed,
+                       dtype=torch.float32, device=x.device))
 
 
 # --- chase -----------------------------------------------------------------
@@ -80,3 +87,21 @@ def chase_ref(buf, n_steps: int) -> int:
     for _ in range(n_steps):
         idx = int(nxt[idx])
     return idx
+
+
+def chase_members_ref(bufs, n_steps: int) -> List[int]:
+    """The final index of each member of a (g, n_lines, 128) stack."""
+    return [chase_ref(b, n_steps) for b in bufs]
+
+
+# --- compute probe ----------------------------------------------------------
+
+
+def mxu_probe_ref(a: torch.Tensor, iters: int) -> torch.Tensor:
+    """a^(iters+1) by ``iters`` dependent products, as the reference's
+    oracle computes it.  On the card the caller decides whether float32
+    products may use TF32 (``torch.backends.cuda.matmul.allow_tf32``)."""
+    out = a.to(torch.float32)
+    for _ in range(iters):
+        out = out @ a.to(torch.float32)
+    return out

@@ -20,7 +20,11 @@ back: a build or launch that fails raises.
 the JAX package unchanged; it must divide the rows, as there, but it no
 longer shapes the launch.  Only :func:`mixed_hbm` uses it, for its split.
 
-Buffers are (rows, 128) float32: one 512-byte row is one "line".
+Buffers are (rows, 128) float32: one 512-byte row is one "line".  The
+reads, copy, rmw, the mixed stream and the on-chip read also take a
+(g, rows, 128) stack of g members, the port of the reference's
+``jax.vmap`` over a leading member axis, in one launch (two for the mixed
+stream): a result per member, computed as for each member alone.
 """
 from __future__ import annotations
 
@@ -95,29 +99,33 @@ def _destination(shape_rows: int, device, out: Optional[torch.Tensor],
 
 def read_hbm(x: torch.Tensor, *,
              block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
-    """Sum x by streaming every byte of it once. x: (R, 128) f32.
+    """Sum x by streaming every byte of it once. x: (R, 128) f32, or a
+    (g, R, 128) stack whose members may lie apart; then one sum a member.
 
     Replaces ``repro/kernels/stream.py:read_hbm``.  Bound by bytes: R*512
-    read once.  Design (B): a grid-stride loop of 16-byte loads, four
-    float32 accumulators a thread, one partial a CTA into a scratch
-    tensor; the partials are summed outside the kernel, as the TPU
-    version sums its per-block partials.  The summation order differs
-    from the reference's block order, so results agree to float32
-    rounding, not bit for bit."""
-    _build.check_buffer(x, dtypes=(torch.float32,), what="read_hbm")
-    _grid_blocks(x.shape[0], block_rows)
+    read once (a member).  Design (B): a grid-stride loop of 16-byte
+    loads, four float32 accumulators a thread, one partial a CTA into a
+    scratch tensor; the partials are summed outside the kernel, as the
+    TPU version sums its per-block partials.  A stack is one launch whose
+    grid spreads every member's blocks over the card.  The summation
+    order differs from the reference's block order, so results agree to
+    float32 rounding, not bit for bit."""
+    _build.check_buffer(x, dtypes=(torch.float32,), what="read_hbm",
+                        members=True)
+    g, rows, stride = _build.member_layout(x)
+    _grid_blocks(rows, block_rows)
     if not _build.launches_kernel(x):
         counts.PLAIN["read_hbm"] += 1
         return ref.read_ref(x)
     dev = _build.compute_device(x)
-    n_vec = x.numel() // 4
-    grid = _stream_grid(n_vec, dev)
-    partials = torch.empty(grid, dtype=torch.float32, device=dev)
-    _launch("repro_read_hbm", (_VP, _VP, _LL, _I, _VP),
-            x.data_ptr(), partials.data_ptr(), n_vec, grid,
+    n_vec = rows * LANE // 4
+    grid = max(1, _stream_grid(n_vec * g, dev) // g)
+    partials = torch.empty((g, grid), dtype=torch.float32, device=dev)
+    _launch("repro_read_hbm", (_VP, _VP, _LL, _LL, _I, _I, _VP),
+            x.data_ptr(), partials.data_ptr(), n_vec, stride // 4, g, grid,
             _build.current_stream(dev))
     counts.LAUNCHES["read_hbm"] += 1
-    return partials.sum()
+    return partials.sum(dim=-1) if x.dim() == 3 else partials.sum()
 
 
 def _write(name: str, seed: Optional[torch.Tensor], shape_rows: int,
@@ -174,16 +182,24 @@ def write_hbm_seeded(seed: torch.Tensor, shape_rows: int, *,
                   seed.device, out)
 
 
+def _elementwise(x: torch.Tensor, dtypes, block_rows: int, what: str):
+    """Checks for copy and rmw: a (rows, 128) buffer or a contiguous
+    (g, rows, 128) stack, which they stream as one (g*rows, 128) buffer."""
+    _build.check_buffer(x, dtypes=dtypes, what=what, members=True)
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: a stack must be contiguous")
+    _grid_blocks(x.shape[-2], block_rows)
+
+
 def rmw_hbm(x: torch.Tensor, *,
             block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
     """Write-allocate (x): every line read, modified (+1), and written
     to a NEW buffer, as the reference's ``pallas_call`` does.
 
     Replaces ``repro/kernels/stream.py:rmw_hbm``.  Bound by bytes: each
-    line read once and written once.  Design (A).  f32 and bf16."""
-    _build.check_buffer(x, dtypes=(torch.float32, torch.bfloat16),
-                        what="rmw_hbm")
-    _grid_blocks(x.shape[0], block_rows)
+    line read once and written once.  Design (A).  f32 and bf16.  A
+    stack of members is one elementwise stream over all of them."""
+    _elementwise(x, (torch.float32, torch.bfloat16), block_rows, "rmw_hbm")
     if not _build.launches_kernel(x):
         counts.PLAIN["rmw_hbm"] += 1
         return ref.rmw_ref(x)
@@ -203,10 +219,10 @@ def copy_hbm(x: torch.Tensor, *,
     """Copy stream (c): read every line, write it to a second buffer.
 
     Replaces ``repro/kernels/stream.py:copy_hbm``.  Bound by bytes: each
-    line read once and written once.  Design (A)."""
-    _build.check_buffer(x, dtypes=(torch.float32, torch.bfloat16,
-                                   torch.int32), what="copy_hbm")
-    _grid_blocks(x.shape[0], block_rows)
+    line read once and written once.  Design (A).  A stack of members is
+    one elementwise stream over all of them."""
+    _elementwise(x, (torch.float32, torch.bfloat16, torch.int32),
+                 block_rows, "copy_hbm")
     if not _build.launches_kernel(x):
         counts.PLAIN["copy_hbm"] += 1
         return ref.copy_ref(x)
@@ -233,28 +249,34 @@ def mixed_hbm(x: torch.Tensor, *, read_fraction: float,
     Returns (read_sum, written): read_sum keeps the read traffic live;
     written is the store destination, ``((n - n_r) * block, 128)``, in
     the same memory as ``x``.  The block rule is
-    :func:`repro_torch.kernels.ref.mixed_split`.
+    :func:`repro_torch.kernels.ref.mixed_split`; a (g, rows, 128) stack
+    applies it to each member and returns (g,) sums and a
+    (g, (n - n_r) * block, 128) destination.
 
     No kernel of its own, as in the reference: :func:`read_hbm` over the
     first ``n_r`` blocks, :func:`write_hbm` (``write_hbm_seeded`` when a
     (1, 1) f32 ``seed`` is given) over the rest."""
-    _build.check_buffer(x, dtypes=(torch.float32,), what="mixed_hbm")
-    block_rows, n_r, n_w = ref.mixed_split(x.shape[0], read_fraction,
+    _build.check_buffer(x, dtypes=(torch.float32,), what="mixed_hbm",
+                        members=True)
+    lead = tuple(x.shape[:-2])
+    block_rows, n_r, n_w = ref.mixed_split(x.shape[-2], read_fraction,
                                            block_rows)
-    on_card = _build.launches_kernel(x)
-    acc_dev = _build.compute_device(x) if on_card else x.device
-    acc = torch.zeros((), dtype=torch.float32, device=acc_dev)
-    out = torch.zeros((0, LANE), dtype=torch.float32, device=acc_dev)
+    dev = _build.compute_device(x) if _build.launches_kernel(x) else x.device
     if n_r:
-        acc = read_hbm(x[:n_r * block_rows], block_rows=block_rows)
-    if n_w:
-        dst = _build.empty_like_placed(x, (n_w * block_rows, LANE))
-        if seed is not None:
-            out = write_hbm_seeded(seed, n_w * block_rows, value=value,
-                                   block_rows=block_rows, out=dst)
-        else:
-            out = write_hbm(n_w * block_rows, value=value,
-                            block_rows=block_rows, out=dst)
+        acc = read_hbm(x[..., :n_r * block_rows, :], block_rows=block_rows)
+    else:
+        acc = torch.zeros(lead, dtype=torch.float32, device=dev)
+    if not n_w:
+        return acc, torch.zeros((*lead, 0, LANE), dtype=torch.float32,
+                                device=dev)
+    out = _build.empty_like_placed(x, (*lead, n_w * block_rows, LANE))
+    flat_rows = out.numel() // LANE
+    flat = out.view(flat_rows, LANE)
+    if seed is not None:
+        write_hbm_seeded(seed, flat_rows, value=value, block_rows=block_rows,
+                         out=flat)
+    else:
+        write_hbm(flat_rows, value=value, block_rows=block_rows, out=flat)
     return acc, out
 
 
@@ -271,28 +293,34 @@ def _tile_rows(rows: int) -> int:
 
 def read_vmem(x: torch.Tensor, *, repeats: int = 16) -> torch.Tensor:
     """Re-read an on-chip copy of the buffer ``repeats`` times (one load
-    from the buffer's memory); returns ``sum(x) * repeats``.
+    from the buffer's memory); returns ``sum(x) * repeats``, one a member
+    for a (g, rows, 128) stack.
 
     Replaces ``repro/kernels/stream.py:read_vmem``.  Bound by bytes
     (R*512 read once) for the card, by shared-memory bandwidth for what
     it is built to time.  Design (C): each CTA loads its tile into
     dynamic shared memory once, then sums it ``repeats`` times; a
-    compiler barrier in the loop keeps the re-reads from being hoisted."""
-    _build.check_buffer(x, dtypes=(torch.float32,), what="read_vmem")
+    compiler barrier in the loop keeps the re-reads from being hoisted.
+    The members of a stack run back to back in each CTA, so the launch
+    takes the sum of their walks."""
+    _build.check_buffer(x, dtypes=(torch.float32,), what="read_vmem",
+                        members=True)
     if repeats < 1:
         raise ValueError("read_vmem: repeats must be >= 1")
     if not _build.launches_kernel(x):
         counts.PLAIN["read_vmem"] += 1
         return ref.read_vmem_ref(x, repeats)
     dev = _build.compute_device(x)
-    tile_rows = _tile_rows(x.shape[0])
-    n_ctas = -(-x.shape[0] // tile_rows)
-    partials = torch.empty(n_ctas, dtype=torch.float32, device=dev)
-    _launch("repro_read_vmem", (_VP, _VP, _LL, _I, _I, _VP),
-            x.data_ptr(), partials.data_ptr(), x.numel() // 4,
-            tile_rows * (LANE // 4), repeats, _build.current_stream(dev))
+    g, rows, stride = _build.member_layout(x)
+    tile_rows = _tile_rows(rows)
+    n_ctas = -(-rows // tile_rows)
+    partials = torch.empty((g, n_ctas), dtype=torch.float32, device=dev)
+    _launch("repro_read_vmem", (_VP, _VP, _LL, _LL, _I, _I, _I, _VP),
+            x.data_ptr(), partials.data_ptr(), rows * LANE // 4,
+            stride // 4, g, tile_rows * (LANE // 4), repeats,
+            _build.current_stream(dev))
     counts.LAUNCHES["read_vmem"] += 1
-    return partials.sum()
+    return partials.sum(dim=-1) if x.dim() == 3 else partials.sum()
 
 
 def write_vmem(shape_rows: int, *, repeats: int = 16, device="cuda",
@@ -318,3 +346,12 @@ def write_vmem(shape_rows: int, *, repeats: int = 16, device="cuda",
             _build.current_stream(dev))
     counts.LAUNCHES["write_vmem"] += 1
     return dst
+
+
+def hold(ns: int, device) -> None:
+    """Keep the current stream of the card ``device`` busy for ``ns``
+    nanoseconds (one thread sleeping on the global timer).  Work enqueued
+    behind it then runs back to back however slowly the host enqueued
+    it.  A timing aid, not the port of a TPU kernel; it counts nothing."""
+    dev = torch.device(device)
+    _launch("repro_hold", (_LL, _VP), int(ns), _build.current_stream(dev))

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import coordinator, devicetree, interface, pools
-from repro_torch.kernels import chase, counts, ref, stream
+from repro_torch.core import (characterize, coordinator, devicetree,
+                              interface, pools, scenarios)
+from repro_torch.kernels import chase, compute_probe, counts, ref, stream
 
 pytestmark = pytest.mark.cuda
 
@@ -87,7 +88,94 @@ def test_interface_on_the_card_launches_kernels(card):
     assert iface.write_cmd("start") == "OK complete"
     m = iface.results.scenarios[0].main
     assert m.bytes_moved == 3 * (8 << 20) and m.elapsed_ns > 0
-    assert counts.LAUNCHES["read_hbm"] == 1 + 3 * 3
+    # one warm call, one that times the host's enqueue, 3 samples of 3
+    assert counts.LAUNCHES["read_hbm"] == 2 + 3 * 3
     assert not any(counts.PLAIN.values())
     assert iface.coord.pools.pool("host").effective_memory_kind() == \
         "pinned_host"
+
+
+def test_mxu_probe_matches_plain_version(card):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = torch.eye(128, device=card) * 0.5
+    torch.testing.assert_close(compute_probe.mxu_probe(a, iters=3),
+                               ref.mxu_probe_ref(a, 3), rtol=1e-6, atol=0)
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (128, 128))).float()
+    r = (r / torch.linalg.eigvals(r.double()).abs().max() * 0.9).float()
+    r = r.to(card)
+    want = ref.mxu_probe_ref(r, 64)
+    # 128 float32 products an entry, summed in another order, 64 times over
+    got = compute_probe.mxu_probe(r, iters=64)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert counts.LAUNCHES["mxu_probe"] == 2 and not any(counts.PLAIN.values())
+
+
+@pytest.mark.parametrize("g", [1, 3, 4])
+def test_member_axis_matches_plain_versions(card, g):
+    x = torch.stack([_arr(1024 + 8, s) for s in range(g)]).to(card)
+    want = x.double().sum(dim=(1, 2))
+    torch.testing.assert_close(stream.read_hbm(x, block_rows=8).double(),
+                               want, rtol=2e-6, atol=0)
+    torch.testing.assert_close(stream.read_vmem(x, repeats=3).double(),
+                               3 * want, rtol=1e-5, atol=0)
+    assert torch.equal(stream.copy_hbm(x, block_rows=8), x)
+    assert torch.equal(stream.rmw_hbm(x, block_rows=8), x + 1)
+    s, out = stream.mixed_hbm(x, read_fraction=2 / 3, block_rows=8,
+                              seed=torch.zeros((1, 1), device=card))
+    ws, wout = ref.mixed_ref(x, 2 / 3, block_rows=8)
+    assert torch.equal(out, wout)
+    torch.testing.assert_close(s, ws, rtol=2e-6, atol=0)
+    host = np.stack([chase.chain_buffer(257, s) for s in range(g)])
+    buf = torch.from_numpy(host).to(card)
+    for steps in (1, 100, 257, 771):
+        want = ref.chase_members_ref(host, steps)
+        assert chase.chase_vmem(buf, n_steps=steps).tolist() == want
+        assert chase.chase_hbm(buf, n_steps=steps).tolist() == want
+    assert not any(counts.PLAIN.values())
+
+
+def test_matrix_on_the_card_launches_one_kernel_per_group(card):
+    coord = coordinator.CoreCoordinator(
+        pools.PoolManager(devicetree.H100_SXM), backend="cuda")
+    specs = [scenarios.ScenarioSpec(
+        f"{o}.{st}", scenarios.ObserverSpec(o, pool, (128 << 10,)),
+        (scenarios.StressorSpec(st, "hbm", 8 << 20),), iters=5,
+        max_stressors=3)
+        for o in ("r", "l", "i") for pool in ("hbm", "host")
+        for st in ("w", "y")]
+    db = characterize.characterize_matrix(coord, specs)
+    # 3 letters x 2 memories, and hbm and pinned host never share a group
+    assert db.meta["measure_dispatches"] == 6
+    assert db.meta["n_ladders"] == 12
+    for surf in db.surfaces.values():
+        ex = surf.provenance["execution"]
+        assert (ex["backend"], ex["activity"]) == ("cuda", "cuda")
+        assert ex["measured_uncontended"]
+    assert counts.LAUNCHES["mxu_probe"] > 0 and counts.LAUNCHES["chase_vmem"]
+    assert not any(counts.PLAIN.values())
+    assert not any(p.allocated for p in coord.pools.pools())
+
+
+def test_on_chip_rows_are_timed_by_their_slope(card):
+    iface = interface.MemscopeInterface(coordinator.CoreCoordinator(
+        pools.PoolManager(devicetree.H100_SXM), backend="cuda"))
+    for line in ("r,hbm,128K w,hbm,1M iters=20", "l,hbm,128K w,hbm,1M",
+                 "i,hbm,0 w,hbm,1M iters=5"):
+        iface.write_experiment(line)
+        assert iface.write_cmd("start") == "OK complete"
+        assert not iface.results.scenarios[0].main.launch_bound
+        assert "# note" not in iface.read_results()
+    # one warm call, one that times the host's enqueue, 3 samples of 5
+    assert counts.LAUNCHES["mxu_probe"] == 2 + 3 * 5
+
+
+def test_hold_keeps_the_stream_busy(card):
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    stream.hold(2_000_000, card)
+    stop.record()
+    stop.synchronize()
+    assert start.elapsed_time(stop) >= 2.0
+    assert not any(counts.LAUNCHES.values())

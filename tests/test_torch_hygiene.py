@@ -34,7 +34,10 @@ def _sources():
 def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
     assert {"repro_torch.core.workloads", "repro_torch.kernels.stream",
-            "repro_torch.core.exec.assemble"} <= set(mods)
+            "repro_torch.core.exec.assemble", "repro_torch.core.exec.plan",
+            "repro_torch.core.exec.dispatch", "repro_torch.core.characterize",
+            "repro_torch.core.placement",
+            "repro_torch.kernels.compute_probe"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -70,9 +73,8 @@ def test_sources_hold_nothing_forbidden(what):
 
 def test_kernel_sources_are_in_the_package():
     names = sorted(os.listdir(os.path.join(PKG, "kernels", "csrc")))
-    assert names == ["chase.cu", "stream.cu"]
-    assert tuple(n[:-3] for n in sorted(names, reverse=True)) == \
-        _build.SOURCES
+    assert names == ["chase.cu", "compute_probe.cu", "stream.cu"]
+    assert sorted(f"{n}.cu" for n in _build.SOURCES) == names
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     gitignore = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert {"build/", "__pycache__/", ".hypothesis/", "*.so"} <= \

@@ -10,16 +10,26 @@ Tolerances: chases, writes, copy and float32 rmw are exact.  A read is a
 float32 sum taken in another order by each side: rtol 2e-6, the
 reference's own, on inputs with a mean well away from zero so that the
 relative tolerance means something.  bf16 rmw: rtol 1e-2 (8 mantissa
-bits), the reference's own.
+bits), the reference's own.  The compute probe: rtol 1e-6 on the
+reference's case (powers of 0.5 are exact); on random operands of
+spectral radius 0.9, each entry within 1e-5 of the largest: each side
+sums 128 float32 products per entry in its own order, through up to 64
+dependent products, and each side lies within 2e-6 of the float64 power.
+
+The member axis (a leading (g, ...) stack in one launch) is held against
+``jax.vmap`` of the reference kernel over the same stack.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import chase as jchase
+from repro.kernels import compute_probe as jprobe
+from repro.kernels import ref as jref
 from repro.kernels import stream as jstream
-from repro_torch.kernels import chase, counts, ops, ref, stream
+from repro_torch.kernels import chase, compute_probe, counts, ops, ref, stream
 
 I = dict(interpret=True)
 
@@ -205,3 +215,135 @@ def test_cpu_tensors_take_the_plain_versions_and_are_counted():
     assert not any(launches.values())
     assert plain["read_hbm"] == plain["copy_hbm"] == plain["chase_hbm"] == 1
     assert sum(plain.values()) == 3
+
+
+# ---------------------------------------------------------------------------
+# compute probe
+# ---------------------------------------------------------------------------
+
+
+def test_mxu_probe():
+    """The reference's own case, at its tolerance."""
+    a = np.eye(128, dtype=np.float32) * 0.5
+    want = jprobe.mxu_probe(jnp.asarray(a), iters=3, **I)
+    got = compute_probe.mxu_probe(torch.from_numpy(a), iters=3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jref.mxu_probe_ref(a, 3)),
+                               rtol=1e-6)
+
+
+def _radius_09(seed):
+    a = np.random.default_rng(seed).standard_normal((128, 128))
+    return (a / np.abs(np.linalg.eigvals(a)).max() * 0.9).astype(np.float32)
+
+
+@pytest.mark.parametrize("iters", [0, 1, 8, 64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mxu_probe_random(seed, iters):
+    a = _radius_09(seed)
+    want = np.asarray(jprobe.mxu_probe(jnp.asarray(a), iters=iters, **I))
+    oracle = np.asarray(jref.mxu_probe_ref(jnp.asarray(a), iters))
+    got = compute_probe.mxu_probe(torch.from_numpy(a), iters=iters).numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-5 * scale
+    assert np.abs(got - oracle).max() <= 1e-5 * scale
+    assert got.shape == (128, 128) and got.dtype == np.float32
+
+
+@pytest.mark.parametrize("call", [
+    lambda: compute_probe.mxu_probe(torch.zeros((64, 128))),
+    lambda: compute_probe.mxu_probe(torch.zeros((128, 128),
+                                                dtype=torch.float64)),
+    lambda: compute_probe.mxu_probe(torch.zeros((128, 256))[:, ::2]),
+    lambda: compute_probe.mxu_probe(torch.zeros((128, 128)), iters=-1),
+])
+def test_mxu_probe_refuses_what_the_kernel_does_not_take(call):
+    with pytest.raises(ValueError):
+        call()
+
+
+# ---------------------------------------------------------------------------
+# member axis: one launch over a (g, ...) stack = jax.vmap of the reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("g", [1, 3, 4])
+def test_read_hbm_members(g):
+    x = _arr((g, 512, 128), seed=g)
+    want = jax.vmap(lambda a: jstream.read_hbm(a, block_rows=128, **I))(
+        jnp.asarray(x))
+    got = stream.read_hbm(torch.from_numpy(x), block_rows=128)
+    assert tuple(got.shape) == (g,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-6)
+
+
+@pytest.mark.parametrize("g", [1, 3, 4])
+def test_read_vmem_members(g):
+    x = _arr((g, 256, 128), seed=g)
+    want = jax.vmap(lambda a: jstream.read_vmem(a, repeats=3, **I))(
+        jnp.asarray(x))
+    got = stream.read_vmem(torch.from_numpy(x), repeats=3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-6)
+
+
+@pytest.mark.parametrize("g", [1, 3, 4])
+def test_copy_and_rmw_members(g):
+    x = _arr((g, 256, 128), seed=g)
+    jx = jnp.asarray(x)
+    want_c = jax.vmap(lambda a: jstream.copy_hbm(a, block_rows=128, **I))(jx)
+    want_r = jax.vmap(lambda a: jstream.rmw_hbm(a, block_rows=128, **I))(jx)
+    got_c = stream.copy_hbm(torch.from_numpy(x), block_rows=128)
+    got_r = stream.rmw_hbm(torch.from_numpy(x), block_rows=128)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+
+
+@pytest.mark.parametrize("g", [1, 3, 4])
+@pytest.mark.parametrize("rf", [2 / 3, 0.5, 0.05])
+def test_mixed_hbm_members(g, rf):
+    """The block rule per member: the realised r:w split of each member
+    is the reference's."""
+    x = _arr((g, 1024, 128), seed=g)
+    ws, wout = jax.vmap(lambda a: jstream.mixed_hbm(
+        a, read_fraction=rf, block_rows=512, **I))(jnp.asarray(x))
+    gs, gout = stream.mixed_hbm(torch.from_numpy(x), read_fraction=rf,
+                                block_rows=512,
+                                seed=torch.zeros((1, 1)))
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=2e-6)
+    assert tuple(gout.shape) == tuple(wout.shape)
+    np.testing.assert_array_equal(gout.numpy(), np.asarray(wout))
+
+
+@pytest.mark.parametrize("g", [1, 3, 4])
+@pytest.mark.parametrize("n_lines", [16, 257])
+def test_chases_members(g, n_lines):
+    bufs = np.stack([chase.chain_buffer(n_lines, s) for s in range(g)])
+    for steps in (1, n_lines // 3, n_lines, 3 * n_lines):
+        jv = jax.vmap(lambda b: jchase.chase_vmem(b, n_steps=steps, **I))(
+            jnp.asarray(bufs))
+        jh = jax.vmap(lambda b: jchase.chase_hbm(b, n_steps=steps, **I))(
+            jnp.asarray(bufs))
+        gv = chase.chase_vmem(torch.from_numpy(bufs), n_steps=steps)
+        gh = chase.chase_hbm(torch.from_numpy(bufs), n_steps=steps)
+        want = ref.chase_members_ref(bufs, steps)
+        assert gv.tolist() == gh.tolist() == want
+        assert want == np.asarray(jv).tolist() == np.asarray(jh).tolist()
+
+
+def test_member_views_and_refusals():
+    """A member stack may be a strided view (the mixed stream reads the
+    first blocks of every member); copy and rmw want a contiguous stack."""
+    x = torch.from_numpy(_arr((3, 512, 128)))
+    view = x[:, :256]
+    np.testing.assert_allclose(stream.read_hbm(view, block_rows=128).numpy(),
+                               view.sum(dim=(1, 2)).numpy(), rtol=2e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        stream.copy_hbm(view, block_rows=128)
+    with pytest.raises(ValueError, match="contiguous"):
+        stream.read_hbm(x.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        stream.write_hbm(128, out=torch.zeros((2, 64, 128)))
+    with pytest.raises(ValueError, match="shared memory"):
+        chase.chase_vmem(torch.zeros((2, 512, 128), dtype=torch.int32),
+                         n_steps=1)

@@ -178,11 +178,20 @@ def test_residency_thresholds_are_the_cards():
 
 
 def test_letter_i_as_main_waits_for_its_kernel(pool_pair):
-    _, tm = pool_pair
+    """Letter ``i`` as a main activity runs the compute probe: the same
+    result as the reference's (no bytes, no transactions), through the
+    probe's plain version on the CPU."""
+    jm, tm = pool_pair
+    jw = jwl.make_workload("i", jm.pool("hbm"), 0)
     wl = workloads.make_workload("i", tm.pool("hbm"), 0)
     assert wl.alloc is None and not wl.is_memory_bound
-    with pytest.raises(NotImplementedError, match="mxu_probe"):
-        wl.run(2)
+    assert wl.description == jw.description
+    counts.reset()
+    want, got = jw.run(2), wl.run(2)
+    assert _fields(got) == _fields(want)
+    assert got.elapsed_ns > 0 and got.bytes_moved == got.transactions == 0
+    launches, plain = counts.snapshot()
+    assert plain["mxu_probe"] == 1 + 3 * 2 and not any(launches.values())
 
 
 def test_launch_bound_mark_shows_in_the_result_text(pool_pair):
@@ -192,14 +201,40 @@ def test_launch_bound_mark_shows_in_the_result_text(pool_pair):
     from repro_torch.core.coordinator import (ActivitySpec, CoreCoordinator,
                                               ExperimentConfig)
     _, tm = pool_pair
-    assert not workloads._launch_bound(tm.pool("hbm"))
     coord = CoreCoordinator(tm, tm.platform, backend="cuda", device="cpu")
     res = coord.run(ExperimentConfig(
         main=ActivitySpec("r", "hbm", 16 << 10),
         stress=ActivitySpec("w", "hbm", 16 << 10), iters=2, scenarios=2))
+    assert not res.scenarios[0].main.launch_bound
     plain = interface.format_results(res)
     assert "# note" not in plain
     res.scenarios[0].main.launch_bound = True
     marked = interface.format_results(res)
     assert marked.startswith(plain + "\n# note:")
     assert "launch" in marked.splitlines()[-1]
+
+
+@pytest.mark.parametrize("fixed,per_unit,want,marked", [
+    (5_000.0, 100.0, 100.0, False),     # the slope: the memory's time
+    (5_000.0, 0.0, 5_000.0 / 256, True),  # flat: launch-bound, as timed
+    (5_000.0, -1.0, None, True),         # falling: launch-bound
+    (200_000.0, 50.0, None, True),       # longer run < 2x the shorter
+])
+def test_on_chip_slope_rule(monkeypatch, fixed, per_unit, want, marked):
+    """The on-chip rows on the card are timed by the slope between two
+    work counts; the result is marked launch-bound only where the slope
+    is not positive or the longer run did not take twice the shorter."""
+    calls = []
+
+    def fake_timed(fn, *args, iters, on, **kw):
+        calls.append(kw["repeats"])
+        return fixed + per_unit * kw["repeats"]
+    monkeypatch.setattr(workloads, "_timed", fake_timed)
+    lo, hi = workloads.WALK_COUNTS
+    t, lb = workloads._slope_timed(None, work="repeats", counts=(lo, hi),
+                                   iters=3, on=None)
+    assert calls == [lo, hi] and lb == marked
+    if want is not None:
+        assert t == pytest.approx(want)
+    if marked:
+        assert t == pytest.approx((fixed + per_unit * lo) / lo)
