@@ -7,13 +7,16 @@ Run from the root of a checkout, with one card and no arguments:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc``, holds every kernel against its plain PyTorch version on the
-card, drives the port's two paths at the sizes a user of the toolkit
+card, drives the port's three paths at the sizes a user of the toolkit
 would call real on this card — one experiment at a time (config string ->
 MemscopeInterface -> CoreCoordinator -> workload -> kernel -> modeled
-rungs) and the characterization loop (characterize / characterize_matrix
+rungs), the characterization loop (characterize / characterize_matrix
 / characterize_surface -> run_matrix -> one member-axis launch per
-signature group -> CurveDB -> PlacementAdvisor) — checks the results, and
-times every kernel beside its bound.  One JSON object per phase goes to
+signature group -> CurveDB -> PlacementAdvisor), and the executed
+contention ladder (run_matrix on the ``spmd`` backend -> plan -> one
+persistent ladder launch per signature group, observer and stressor
+engines between barriers -> fence check -> CurveDB) — checks the results,
+and times every kernel beside its bound.  One JSON object per phase goes to
 standard output; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase makes the exit code non-zero and withholds that line.
@@ -40,15 +43,20 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device available\n")
     sys.exit(1)
 
+from repro_torch import compat  # noqa: E402
 from repro_torch.core import coordinator as coordinator_mod  # noqa: E402
 from repro_torch.core import workloads  # noqa: E402
 from repro_torch.core.characterize import (CurveDB,  # noqa: E402
                                            characterize, characterize_matrix,
-                                           characterize_surface)
+                                           characterize_surface,
+                                           curvedb_from_result)
 from repro_torch.core.coordinator import (ActivitySpec,  # noqa: E402
                                           CoreCoordinator, ExperimentConfig)
 from repro_torch.core.devicetree import H100_SXM  # noqa: E402
+from repro_torch.core.exec import fence as exec_fence  # noqa: E402
 from repro_torch.core.exec import plan as exec_plan  # noqa: E402
+from repro_torch.core.exec import program as exec_program  # noqa: E402
+from repro_torch.core.exec.dispatch import DispatchStats  # noqa: E402
 from repro_torch.core.interface import (MemscopeInterface,  # noqa: E402
                                         format_results)
 from repro_torch.core.placement import (ContentionSpec,  # noqa: E402
@@ -59,7 +67,7 @@ from repro_torch.core.scenarios import (ObserverSpec,  # noqa: E402
                                         ScenarioSpec, StressorSpec,
                                         TrafficShape)
 from repro_torch.kernels import (_build, chase, compute_probe,  # noqa: E402
-                                 counts, ref, stream)
+                                 contention, counts, ref, stream)
 
 DEV = torch.device("cuda")
 # published peaks of the H100 SXM (NVIDIA's data sheet)
@@ -72,6 +80,10 @@ G1, M256, M64, M16, K128 = 1 << 30, 256 << 20, 64 << 20, 16 << 20, 128 << 10
 PROBE_ITERS = 64               # the probe's chain, as letter `i` runs it
 CSRC = "src/repro_torch/kernels/csrc/"
 FAILURES: list = []
+# the kernels of the executed contention ladder; every other kernel is the
+# single-observer paths'
+SPMD_KERNELS = ("contention_ladder", "probe_add_one")
+OBSERVER_KERNELS = tuple(k for k in counts.KERNELS if k not in SPMD_KERNELS)
 
 
 def emit(obj) -> None:
@@ -644,7 +656,8 @@ def phase_checks(records: dict, launched: dict, plain: dict) -> None:
     checks["hop_l2_gt_shared"] = hop["m,hbm,16M"] > shared_hop_ns > 0
     checks["hop_host_gt_device_memory"] = (hop["m,host,64M"]
                                            > hop["m,hbm,256M"])
-    checks["every_kernel_launched"] = all(v > 0 for v in launched.values())
+    checks["every_kernel_launched"] = all(launched[k] > 0
+                                          for k in OBSERVER_KERNELS)
     checks["no_plain_version_on_main_path"] = not any(plain.values())
     emit({"phase": "checks", "checks": checks,
           "read_vmem_ms_by_repeats": t_r, "write_vmem_ms_by_repeats": t_w,
@@ -1056,6 +1069,382 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> list:
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the kernel-support probe; phase 9: the ladder kernel against its
+# plain version, the fence's negative case, the clock, the empty ladder
+# ---------------------------------------------------------------------------
+
+N_ENG = H100_SXM.n_engines
+SHAPES = {"b": TrafficShape.mixed(2, 1), "t": TrafficShape.strided(8)}
+# the ladder's engine values: float32 sums (r, s, b) within a relative
+# tolerance of the plain version's sums, everything else exact
+SUM_ROLES = (contention.READ, contention.MIXED)
+SKEW_NS = 10_000               # the fence negative's skew between engines
+EMPTY_STEPS = 200              # steps of the empty ladder
+# the global timer's smallest step, as phase_spmd_kernel_checks saw it; a
+# timed rung must last at least MIN_TICKS of them
+TIMER = {"tick_ns": 1000}
+MIN_TICKS = 100
+
+
+def phase_probe() -> dict:
+    x = torch.arange(8 * 128, dtype=torch.float32, device=DEV).reshape(8, 128)
+    err = float((contention.probe_add_one(x) - ref.probe_add_one_ref(x))
+                .abs().max())
+    supported = compat.kernels_supported(DEV)      # raises if it fails
+    emit({"phase": "probe", "kernels_supported": supported,
+          "max_abs_err": err})
+    if not supported or err != 0.0:
+        fail(f"probe: x + 1 off by {err}")
+    return {"max_abs_err": err, "tol": 0.0}
+
+
+def ladder_program(rows, roles, subsets=None, samples=1, kind=None):
+    """A ladder program built as the dispatcher builds one, with the
+    coordinator's geometry: one CTA an SM, sm_count // engines an
+    engine."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    return exec_program.build_program(
+        rows, len(rows[0]), kind=kind, samples=samples, subsets=subsets,
+        op_roles=roles, rows_max=max(r[2] for r in roles), device=DEV,
+        ctas_per_engine=sms // len(rows[0]), stats=DispatchStats())
+
+
+def check_ladder(prog, rtol: float, what: str) -> dict:
+    """The kernel's engine values against the plain version's on the
+    same inputs (the plain version first: the kernel's copy role
+    ping-pongs through its operand, with the same values)."""
+    want = ref.contention_ladder_ref(
+        prog.xf, prog.xi, prog.table, prog.roles, prog.layout.group_of,
+        prog.layout.leaders).outs.double().cpu().numpy()
+    out = prog.launch().to_cpu()
+    got = out.outs.double().numpy()
+    codes = prog.roles[prog.table.T, 0]            # (engines, steps)
+    tol = np.where(np.isin(codes, SUM_ROLES), rtol * np.abs(want), 0.0)
+    err = np.abs(got - want)
+    worst = np.unravel_index(np.argmax(err), err.shape)
+    fenced = prog.is_fenced(out)
+    ok = bool((err <= tol).all()) and fenced
+    if not ok:
+        fail(f"contention_ladder {what}: err above tol or unfenced")
+    # the largest error, and the tolerance of that same engine value
+    return {"what": what, "max_abs_err": float(err[worst]),
+            "tol": float(tol[worst]), "rtol_sums": rtol, "fenced": fenced,
+            "ok": ok}
+
+
+def ladder_bytes(prog, step: int = 0) -> int:
+    """Bytes the roles of one step move: each pass of a stream its rows
+    once (copy and rmw twice, the mixed stream its read and written
+    rows), a chase one 32-byte sector a hop, the idle spin none."""
+    total = 0
+    for e in range(prog.table.shape[1]):
+        code, rows, n, rd, wr = (int(v) for v in
+                                 prog.roles[prog.table[step, e]][:5])
+        line = rows * 512
+        total += n * {contention.READ: line, contention.SEEDED_WRITE: line,
+                      contention.RMW: 2 * line, contention.COPY: 2 * line,
+                      contention.MIXED: (rd + wr) * 512,
+                      contention.CHASE_GLOBAL: rows * SECTOR_BYTES,
+                      contention.CHASE_SHARED: rows * SECTOR_BYTES
+                      }.get(code, 0)
+    return total
+
+
+def rung_table(spec: ScenarioSpec, k: int):
+    """The one-step table of rung k of ``spec``'s ladder, as the planner
+    lays it out (observer on engine 0)."""
+    roles, _pools = exec_plan.rung_roles(spec, spec.observers[0],
+                                         spec.observers[0].buffers[0], k,
+                                         N_ENG)
+    return [tuple(roles)], roles
+
+
+def phase_spmd_kernel_checks() -> dict:
+    recs = []
+    for letter in "rswyxcblmti":
+        for rows in (16, 453, 4096 + 512):
+            roles = [(letter, SHAPES.get(letter), rows, 3)] + \
+                [("i", None, 1, 3)] * (N_ENG - 1)
+            recs.append(check_ladder(ladder_program([tuple(roles)], roles),
+                                     READ_RTOL_SMALL,
+                                     f"{letter} alone, {rows} rows"))
+    # the main path's rung 7 of (b) and of (a)'s chase observer, at full
+    # size, and of (d) in pinned host memory
+    at_main = []
+    for what, spec, kind in (
+            ("(b) rung 7", SPEC_B, None),
+            ("(a) l under y, rung 7", spec_a("l", "y"), None),
+            ("(d) rung 7, pinned host", SPEC_D, "pinned_host")):
+        rows, roles = rung_table(spec, N_ENG - 1)
+        prog = ladder_program(rows, roles, kind=kind)
+        at_main.append(check_ladder(prog, READ_RTOL_FULL, what))
+        del prog
+
+    # the fence's negative case: the start wait skipped, engines skewed
+    roles = [("r", None, 4096, 2)] * N_ENG
+    prog = ladder_program([tuple(roles)], roles, samples=3)
+    good = prog.launch().to_cpu()
+    bad = prog.launch(skip_start_wait=True, skew_ns=SKEW_NS).to_cpu()
+    lag = (bad.arrive.numpy().max(0) - bad.begin.numpy().min(0)).tolist()
+    stamps = np.concatenate([good.arrive.numpy().ravel(),
+                             good.begin.numpy().ravel(),
+                             good.end.numpy().ravel()])
+    steps = np.diff(np.unique(stamps))
+    tick = int(steps[steps > 0].min())
+
+    # the empty ladder (every role idle, one pass): the barriers' cost
+    roles = [("i", None, 1, 1)] * N_ENG
+    empty = ladder_program([tuple(roles)], roles, samples=EMPTY_STEPS)
+    eo = empty.launch().to_cpu()
+    per_step_ns = exec_fence._ns(eo.t1s[0]) - exec_fence._ns(eo.t0s[0])
+    empty_ms = time_ms(empty.launch, 5)
+    checks = {"every_role_alone": all(r["ok"] for r in recs),
+              "main_tables": all(r["ok"] for r in at_main),
+              "fenced_with_the_wait": prog.is_fenced(good),
+              "refused_without_it": not prog.is_fenced(bad),
+              "empty_ladder_fenced": empty.is_fenced(eo)}
+    emit({"phase": "spmd_kernel_checks", "n_role_cases": len(recs),
+          "n_ok": sum(r["ok"] for r in recs), "main_tables": at_main,
+          "fence_negative": {"skew_ns_per_engine": SKEW_NS,
+                             "last_arrival_minus_first_begin_ns": lag},
+          "globaltimer_smallest_step_ns": tick,
+          "empty_ladder": {"steps": EMPTY_STEPS, "launch_ms": empty_ms,
+                           "ms_per_step": empty_ms / EMPTY_STEPS,
+                           "stamped_step_ns_median":
+                               float(np.median(per_step_ns)),
+                           "stamped_step_ns_min": int(per_step_ns.min())},
+          "checks": checks,
+          "failed_cases": [r for r in recs if not r["ok"]]})
+    for k, ok in checks.items():
+        if not ok:
+            fail(f"spmd_kernel_checks: {k}")
+    worst = max(at_main, key=lambda r: r["max_abs_err"])
+    TIMER["tick_ns"] = tick
+    return {"max_abs_err": worst["max_abs_err"], "tol": worst["tol"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the executed contention ladder (backend "spmd")
+# ---------------------------------------------------------------------------
+
+SPMD_ITERS_A = 2               # (a): two traversals of a 256 MiB chase
+SPMD_ITERS_B = 8               # (b): 8 passes over 256 MiB for the observer
+PACK_REL = 0.15                # (c): packed within 15 % of unpacked
+RUNG7_CAP = 1.05               # (b): rung 7 may not read above rung 0
+
+
+def spec_a(obs: str, stress: str) -> ScenarioSpec:
+    """One ladder of (a)'s characterize grid, as characterize names it."""
+    return ScenarioSpec(f"hbm.{obs}|hbm.{stress}",
+                        ObserverSpec(obs, "hbm", (M256,)),
+                        (StressorSpec(stress, "hbm", M256),),
+                        iters=SPMD_ITERS_A)
+
+
+SPEC_B = ScenarioSpec("spmd.b", ObserverSpec("r", "hbm", (M256,)),
+                      (StressorSpec("w", "hbm", G1),), iters=SPMD_ITERS_B)
+SPECS_C = [ScenarioSpec(f"spmd.c.{n}", ObserverSpec("m", "hbm", (M256,)),
+                        (StressorSpec("m", "hbm", M256),), iters=1,
+                        max_stressors=1) for n in "abcd"]
+SPEC_D = ScenarioSpec("spmd.d", ObserverSpec("r", "host", (M64,)),
+                      (StressorSpec("w", "host", M256),), iters=4)
+
+
+def spmd_coord(**kw) -> CoreCoordinator:
+    # one program at a time: a program holds its operands, 24 GiB for
+    # (b)'s eight engines at 1 GiB
+    return CoreCoordinator(PoolManager(H100_SXM, DEV), H100_SXM,
+                           backend="spmd", device=DEV, spmd_cache_cap=1,
+                           **kw)
+
+
+def spmd_expected(coord, specs, mode: str, pack: bool = True):
+    """(host syncs, measured dispatches, executed rungs) the plan implies,
+    before any quality-gate re-measurement."""
+    triples = [(sp, o, b) for sp in specs for o in sp.observers
+               for b in o.buffers]
+    rungs = sum(coord._ladder_depth(sp) for sp, _o, _b in triples)
+    if mode == "rung":
+        return rungs * (1 + coord.spmd_samples), rungs, rungs
+    plan = exec_plan.build_plan(triples, coord._spmd_engines(), coord.pools,
+                                H100_SXM.n_engines,
+                                grouped=mode == "batched")
+    if mode == "batched" and pack:
+        plan = exec_plan.pack_engine_subsets(plan)
+    return len(plan.dispatches), len(plan.dispatches), rungs
+
+
+def curve(run) -> dict:
+    chase_ = run.scenarios[0].main.strategy in _CHASES
+    return {"key": run.key, "what": "ns_per_hop" if chase_ else "gbps",
+            "rungs": [s.main.latency_ns if chase_ else s.main.bandwidth_gbps
+                      for s in run.scenarios],
+            "spread_ns": run.execution.get("rung_time_spread_ns"),
+            "subset_index": run.execution.get("subset_index"),
+            "packed": run.execution.get("packed")}
+
+
+def spmd_run(name: str, coord, specs, mode: str, checks: dict, **kw):
+    """One run_matrix on the spmd backend, with the checks every curve and
+    the accounting must pass."""
+    t0 = time.perf_counter()
+    res = coord.run_matrix(specs, **kw)
+    sync()
+    seconds = time.perf_counter() - t0
+    st = res.stats
+    syncs, measures, rungs = spmd_expected(
+        coord, specs, mode, coord.spmd_pack == "auto")
+    # quality-gate re-measurements, if any, each add one honest host sync
+    checks[f"dispatches_as_planned:{name}"] = (
+        not (st.faults_injected or st.retried_dispatches
+             or st.degraded_ladders)
+        and st.host_sync_dispatches == syncs + st.noisy_remeasures
+        and st.measure_dispatches == measures and st.spmd_rungs == rungs)
+    checks[f"executed_fenced_device_cuda:{name}"] = all(
+        r.execution["executed_rungs"] == list(range(len(r.scenarios)))
+        and r.execution["fenced"] is True
+        and r.execution["timing_source"] == ("host" if mode == "rung"
+                                             else "device")
+        and r.execution["activity"] == "cuda"
+        and all(s.source == "executed" and s.main.elapsed_ns > 0
+                for s in r.scenarios)
+        for r in res.runs)
+    checks[f"rungs_last_{MIN_TICKS}_timer_steps:{name}"] = all(
+        s.main.elapsed_ns >= MIN_TICKS * TIMER["tick_ns"]
+        for r in res.runs for s in r.scenarios)
+    rec = {"name": name, "mode": mode, "pack": coord.spmd_pack,
+           "seconds": round(seconds, 2),
+           "dispatch_stats": dataclass_dict(st),
+           "planned": {"host_syncs": syncs, "measured": measures,
+                       "rungs": rungs},
+           "curves": [curve(r) for r in res.runs]}
+    return res, rec
+
+
+def phase_spmd() -> None:
+    checks, recs = {}, []
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        # (a) characterize over hbm: r/w/l observers x r/w/y stressors
+        coord = spmd_coord()
+        t0 = time.perf_counter()
+        db = characterize(coord, pools=["hbm"],
+                          obs_strategies=("r", "w", "l"),
+                          stress_strategies=("r", "w", "y"),
+                          iters=SPMD_ITERS_A)
+        sync()
+        ex = executions(db)
+        checks["a:curves"] = len(db.surfaces) == 9
+        checks["a:executed_fenced_device_cuda"] = all(
+            e["executed_rungs"] == list(range(8)) and e["fenced"] is True
+            and e["timing_source"] == "device" and e["activity"] == "cuda"
+            for e in ex)
+        checks["a:one_launch_per_signature"] = \
+            db.meta["host_sync_dispatches"] == \
+            9 + db.meta["noisy_remeasures"]
+        checks["a:curvedb_round_trip"] = round_trips(db, tmp, "spmd_a")
+        recs.append({"name": "a: characterize hbm r/w/l x r/w/y 256M",
+                     "seconds": round(time.perf_counter() - t0, 2),
+                     "meta": {k: db.meta[k] for k in (
+                         "host_sync_dispatches", "measure_dispatches",
+                         "spmd_rungs", "noisy_remeasures")},
+                     "curves": [{"key": k.to_string(), "rungs": [
+                         p.latency_ns if k.obs_strat == "l"
+                         else p.bandwidth_gbps
+                         for p in surf.n_axis_points()]}
+                         for k, surf in db.surfaces.items()]})
+        del coord, db
+
+        # (b) one ladder, three dispatch modes
+        b_runs = {}
+        for mode in ("batched", "ladder", "rung"):
+            coord = spmd_coord(spmd_dispatch=mode)
+            res, rec = spmd_run(f"b:{mode}", coord, [SPEC_B], mode, checks)
+            recs.append(rec)
+            b_runs[mode] = res
+            del coord
+        bw = [s.main.bandwidth_gbps for s in b_runs["batched"].runs[0]
+              .scenarios]
+        checks["b:rung7_not_above_rung0"] = bw[-1] <= RUNG7_CAP * bw[0]
+        checks["b:curvedb_round_trip"] = round_trips(
+            curvedb_from_result(b_runs["batched"], H100_SXM.name,
+                                backend="spmd"), tmp, "spmd_b")
+
+        # (c) four shallow ladders packed side by side vs stacked
+        packed, rec_p = spmd_run("c:packed", spmd_coord(), SPECS_C,
+                                 "batched", checks)
+        off, rec_o = spmd_run("c:off", spmd_coord(spmd_pack="off"),
+                              SPECS_C, "batched", checks)
+        recs += [rec_p, rec_o]
+        checks["c:packed_4_subsets_of_2"] = (
+            packed.stats.packed_ladders == 4
+            and packed.stats.subset_width == 2
+            and sorted(r.execution["subset_index"] for r in packed.runs)
+            == [0, 1, 2, 3])
+        worst = max(abs(a.main.latency_ns / b.main.latency_ns - 1.0)
+                    for ra, rb in zip(packed.runs, off.runs)
+                    for a, b in zip(ra.scenarios, rb.scenarios))
+        checks["c:packed_within_15pct_of_off"] = worst <= PACK_REL
+        recs.append({"name": "c: packed vs off", "worst_rel_diff": worst})
+
+        # (d) a host observer under host stressors: pinned operands
+        coord = spmd_coord()
+        res, rec = spmd_run("d:host", coord, [SPEC_D], "batched", checks)
+        recs.append(rec)
+        entry = next(iter(coord._spmd_programs.values()))
+        checks["d:operands_pinned"] = (
+            res.runs[0].execution["operand_memory_kinds"] == ["pinned_host"]
+            and entry.xf.is_pinned() and entry.xi.is_pinned()
+            and entry.dst.is_pinned())
+        del coord, entry
+    emit({"phase": "spmd", "platform": H100_SXM.name, "backend": "spmd",
+          "n_engines": N_ENG,
+          "ctas_per_engine": torch.cuda.get_device_properties(DEV)
+          .multi_processor_count // N_ENG,
+          "seconds": round(time.perf_counter() - t_phase, 2),
+          "runs": recs, "checks": checks})
+    for k, ok in checks.items():
+        if not ok:
+            fail(f"spmd: check {k}")
+
+
+def spmd_perf(at_spmd: dict, launched: dict) -> list:
+    """The two new kernels' rows of the ``kernels`` line: the ladder at
+    (b)'s rung 7 (one step; all eight engines stream), the probe."""
+    rows, roles = rung_table(SPEC_B, N_ENG - 1)
+    prog = ladder_program(rows, roles)
+    plain = lambda: ref.contention_ladder_ref(  # noqa: E731
+        prog.xf, prog.xi, prog.table, prog.roles, prog.layout.group_of,
+        prog.layout.leaders)
+    b_ms, b_by = bound(ladder_bytes(prog), 0)
+    out = [{"name": "contention_ladder", "route": "cuda",
+            "source": CSRC + "contention.cu",
+            "replaces": "src/repro/core/exec/program.py:318",
+            "launches": launched["contention_ladder"],
+            **at_spmd["contention_ladder"], "ms": time_ms(prog.launch, 5),
+            "plain_ms": time_ms(plain, 2), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "shape": "(b) rung 7: r 256 MiB x 8 passes + 7 x w 1 GiB x 2 "
+                     "passes, 8 engines x 16 CTAs",
+            "bytes": ladder_bytes(prog)}]
+    del prog
+    x = torch.arange(8 * 128, dtype=torch.float32, device=DEV).reshape(8, 128)
+    p_ms, p_by = bound(2 * x.numel() * 4, x.numel())
+    out.append({"name": "probe_add_one", "route": "cuda",
+                "source": CSRC + "contention.cu",
+                "replaces": "src/repro/compat.py:129",
+                "launches": launched["probe_add_one"],
+                **at_spmd["probe_add_one"],
+                "ms": time_ms(lambda: contention.probe_add_one(x), 200),
+                "plain_ms": time_ms(lambda: ref.probe_add_one_ref(x), 200),
+                "bound_ms": p_ms, "bound_by": p_by,
+                "library_ms": time_ms(lambda: torch.add(x, 1.0), 200),
+                "note": "launch-bound: 4 KiB in, 4 KiB out"})
+    return out
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1064,6 +1453,8 @@ def main() -> int:
     at_main = phase_kernels(rows_of(G1))
     phase_pinned()
     phase_small_reference()
+    at_spmd = {"probe_add_one": phase_probe(),
+               "contention_ladder": phase_spmd_kernel_checks()}
 
     # the two paths, each run between a reset and a read of the counts
     counts.reset()
@@ -1074,16 +1465,34 @@ def main() -> int:
     m_launched, m_plain = counts.snapshot()
     emit({"phase": "matrix_launches", "launches": m_launched,
           "plain_calls": m_plain})
-    for k in counts.KERNELS:
+    for k in OBSERVER_KERNELS:
         if m_launched[k] < 1:
             fail(f"matrix: kernel {k} was not launched")
     if any(m_plain.values()):
         fail("matrix: a plain version ran on the card's path")
 
     phase_lone(matrix)
+    del matrix
+
+    # the executed contention ladder, between a reset and a read of the
+    # counts; the probe's cache is cleared first so that the path runs its
+    # own probe, as a fresh process does
+    compat.kernels_supported.cache_clear()
+    counts.reset()
+    phase_spmd()
+    s_launched, s_plain = counts.snapshot()
+    emit({"phase": "spmd_launches", "launches": s_launched,
+          "plain_calls": s_plain})
+    for k in SPMD_KERNELS:
+        if s_launched[k] < 1:
+            fail(f"spmd: kernel {k} was not launched")
+    if any(s_plain.values()):
+        fail("spmd: a plain version ran on the card's path")
+
     phase_checks(records, launched, plain)
     kernels = phase_perf(at_main, {k: launched[k] + m_launched[k]
                                    for k in launched}, records)
+    kernels += spmd_perf(at_spmd, s_launched)
     sync()
     if FAILURES:
         sys.stderr.write("chip_smoke: %d failure(s):\n  %s\n"

@@ -5,8 +5,9 @@ pools        Memory Pool Manager (genpool analog) + upool export
 workloads    Workload Library (Table I strategies over the CUDA kernels)
 scenarios    declarative scenario DSL (traffic shapes, observers, stressors)
 simulate     closed queueing-network model of the contended rungs
-coordinator  Core Coordinator: validate, measure the observer, model rungs;
-             run_matrix over scenario matrices (exec/ pipeline)
+coordinator  Core Coordinator: validate, measure the observer, model rungs,
+             or execute them (spmd); run_matrix over scenario matrices
+             (exec/ pipeline)
 characterize performance curves + surfaces + Little's-law MLP (CurveDB)
 placement    characterization-driven Placement Advisor (upool payoff)
 counters     performance-counter analog

@@ -656,10 +656,10 @@ def _stats_meta(result: MatrixResult, backend: str) -> Dict[str, Any]:
         "spmd_rungs": result.stats.spmd_rungs,
         "host_sync_dispatches": result.stats.host_sync_dispatches,
         "program_cache_hits": result.stats.program_cache_hits,
-        # sweep-level megabatching + ahead-of-time attribution of the
-        # multi-engine path (0 until it is ported): distinct
-        # stacked-signature groups, programs actually compiled, and
-        # how many compiled ahead of time
+        # sweep-level megabatching + build attribution of the spmd
+        # backend: distinct stacked-signature groups, programs actually
+        # built, and how many compiled ahead of time (always 0 here: the
+        # ladder is one kernel, built once by nvcc)
         "spmd_groups": result.stats.spmd_groups,
         "programs_built": result.stats.programs_built,
         "aot_compiles": result.stats.aot_compiles,

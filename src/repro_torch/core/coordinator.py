@@ -1,9 +1,21 @@
-"""Core Coordinator — scenario ladders, one measured observer.
+"""Core Coordinator — scenario ladders with the barrier "sandwich".
 
 Mirrors the paper's §III-D: an *Experiment Instantiator* validates the
-configuration and binds workloads; the observed activity is measured
-alone on the card and every contended rung of the ladder comes from the
-queueing-network model (:mod:`repro_torch.core.simulate`).
+configuration and binds workloads; a *Multi-Engine Synchronizer* enforces
+the four measurement invariants.  On the card the synchronizer is one
+persistent kernel (``kernels/csrc/contention.cu``) in which an engine is
+a disjoint group of CTAs, one CTA an SM: engine 0 runs the observed
+activity, engines 1..k the stressors, and every rung sample sits between
+two barriers over global-memory counters — the paper's spin-lock
+sandwich:
+
+  (1) measurement starts only after every engine passed the start
+      barrier;
+  (2) the scenario is stable: one launch, every engine resident;
+  (3) the stop barrier completes only after every engine's activity
+      finished — measurement closes before teardown;
+  (4) the next rung sample starts only behind the previous one's stop
+      barrier, inside the same launch.
 
 Backends:
 
@@ -12,28 +24,40 @@ Backends:
               runs (its plain PyTorch version on ``device="cpu"``);
               contended rungs come from the model.  The counterpart of
               the JAX package's ``tpu`` / ``interpret`` backends.
+``spmd``      *executes* the contention ladders: observer + coupled
+              sibling observers + live stressor engines in one launch of
+              the ladder kernel, stamped by the card's ``%globaltimer``
+              (the plain version engine by engine on ``device="cpu"``).
 ``auto``      is ``cuda``.  It never resolves to ``simulate``: asked
               for the card where there is none, the coordinator raises.
 
-:meth:`CoreCoordinator.run_matrix` runs a scenario matrix on either
-backend: on ``cuda`` same-signature observers are measured together, one
-launch over a leading member axis per group (:mod:`repro_torch.core.exec`).
-The executable multi-engine contention path (observer + live stressor
-engines inside one launch, the JAX package's ``spmd`` backend) is not
-ported yet.
+:meth:`CoreCoordinator.run_matrix` runs a scenario matrix on any
+backend.  On ``cuda`` same-signature observers are measured together, one
+launch over a leading member axis per group.  On ``spmd`` the machinery
+is the explicit plan -> build -> dispatch -> assemble pipeline of
+:mod:`repro_torch.core.exec`: the default dispatch mode
+(``spmd_dispatch="batched"``) stacks same-signature ladders into ONE
+launch per group and, when the engines are enough (``spmd_pack="auto"``),
+runs several shallow ladders side by side on disjoint engine subsets of
+that launch, each subset with its own barriers.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import torch
+
+from repro_torch import compat
 from repro_torch.compat import resolve_device
 from repro_torch.core import simulate as sim
 from repro_torch.core.devicetree import Platform, detect_platform
+from repro_torch.core.exec import journal as exec_journal
 from repro_torch.core.exec import plan as exec_plan
+from repro_torch.core.exec import resilience as exec_resilience
 from repro_torch.core.exec.assemble import (MatrixResult, ScenarioResult,
                                             ScenarioRun, assemble_runs)
-from repro_torch.core.exec.dispatch import DispatchStats
+from repro_torch.core.exec.dispatch import Dispatcher, DispatchStats
 from repro_torch.core.pools import MemoryPool, PoolManager
 from repro_torch.core.scenarios import (ObserverSpec, ScenarioSpec,
                                         StressorSpec, TrafficShape)
@@ -47,7 +71,7 @@ __all__ = [
     "ValidationError",
 ]
 
-BACKENDS = ("simulate", "cuda")
+BACKENDS = ("simulate", "cuda", "spmd")
 
 # ---------------------------------------------------------------------------
 
@@ -124,12 +148,36 @@ class ValidationError(ValueError):
 
 
 class CoreCoordinator:
+    # built spmd programs kept per coordinator (LRU).  Each entry holds
+    # its placed operands (three (engines, rows, 128) tensors at the
+    # widest role), so the cap is a MEMORY bound: on the card eight
+    # engines of 1 GiB roles are 24 GiB a program.  The per-rung path
+    # needs K entries per ladder where the fused paths need one.
+    _SPMD_CACHE_CAP = 32
+
     def __init__(self, pool_mgr: Optional[PoolManager] = None,
                  platform: Optional[Platform] = None,
                  backend: str = "auto",
-                 device=None):
+                 device=None,
+                 spmd_activity: str = "auto",
+                 spmd_dispatch: str = "batched",
+                 spmd_samples: int = 3,
+                 spmd_cache_cap: Optional[int] = None,
+                 spmd_pack: str = "auto",
+                 faults=None,
+                 retry: Optional[exec_resilience.RetryPolicy] = None,
+                 quality="auto"):
         """``device`` is ``"cuda"`` (the default) or ``"cpu"``; left
-        None it is the given ``pool_mgr``'s device, else the card."""
+        None it is the given ``pool_mgr``'s device, else the card.
+
+        The ``spmd_*``, ``faults``, ``retry`` and ``quality`` arguments
+        configure the ``spmd`` backend, with the JAX package's defaults.
+        ``spmd_activity`` is what fills the rungs: ``"cuda"`` (the
+        ladder kernel, on the card) or ``"plain"`` (its plain version,
+        on ``device="cpu"``); ``"auto"`` picks by the device, and on the
+        card probes the kernels first (:func:`compat.kernels_supported`),
+        which raises instead of falling back.  Asking for ``"plain"`` on
+        the card, or ``"cuda"`` on the CPU, raises."""
         if device is None:
             device = pool_mgr.device if pool_mgr is not None else "cuda"
         self.device = resolve_device(device)
@@ -147,6 +195,93 @@ class CoreCoordinator:
             raise ValueError(f"backend must be one of {BACKENDS} or 'auto', "
                              f"got {backend!r}")
         self.backend = backend
+        if spmd_activity not in ("auto", "cuda", "plain"):
+            raise ValueError(f"spmd_activity must be 'auto', 'cuda' or "
+                             f"'plain', got {spmd_activity!r}")
+        on_card = self.device.type == "cuda"
+        if (spmd_activity == "plain" and on_card) or \
+                (spmd_activity == "cuda" and not on_card):
+            raise ValidationError(
+                f"spmd_activity={spmd_activity!r} on device "
+                f"{self.device.type!r}: the card runs the ladder kernel "
+                f"('cuda'), the CPU only its plain version ('plain'); "
+                f"nothing falls back from one to the other")
+        # sweep dispatch granularity: "batched" (default) stacks
+        # same-signature ladders into ONE launch per group, "ladder"
+        # one ladder per launch, "rung" the host-timed one-launch-per-
+        # rung path
+        if spmd_dispatch not in ("batched", "ladder", "rung"):
+            raise ValueError(f"spmd_dispatch must be 'batched', 'ladder' "
+                             f"or 'rung', got {spmd_dispatch!r}")
+        if spmd_samples < 1:
+            raise ValueError(f"spmd_samples must be >= 1, got {spmd_samples}")
+        # engine-subset width-packing (the planner transform): "auto"
+        # packs same-signature shallow ladders side by side whenever
+        # the engines are at least twice a ladder's width ("off"
+        # disables; bools accepted).  A packed launch still counts ONE
+        # host sync for its whole group.
+        if isinstance(spmd_pack, bool):
+            spmd_pack = "auto" if spmd_pack else "off"
+        if spmd_pack not in ("auto", "off"):
+            raise ValueError(f"spmd_pack must be 'auto' or 'off', got "
+                             f"{spmd_pack!r}")
+        self.spmd_activity = spmd_activity
+        self.spmd_dispatch = spmd_dispatch
+        self.spmd_samples = spmd_samples
+        self.spmd_pack = spmd_pack
+        self.spmd_cache_cap = (spmd_cache_cap if spmd_cache_cap
+                               is not None else self._SPMD_CACHE_CAP)
+        if self.spmd_cache_cap < 1:
+            raise ValueError(f"spmd_cache_cap must be >= 1, got "
+                             f"{self.spmd_cache_cap}")
+        # resilience wiring (exec.resilience): deterministic fault
+        # injection (None reads REPRO_FAULT_SPEC), retry/degradation
+        # policy, and the per-rung measurement quality gate
+        self.fault_spec = exec_resilience.resolve_faults(faults)
+        self.retry_policy = retry or exec_resilience.RetryPolicy()
+        self.quality_gate = exec_resilience.resolve_gate(quality)
+        # the spmd backend's engines: the platform's ladder width, at most
+        # one an SM, each of sm_count // engines CTAs, one on each SM
+        # (132 // 8 = 16 on an H100 SXM; the remaining SMs idle).  On the
+        # CPU the platform's width, of one "CTA" each.
+        n = max(1, self.platform.n_engines)
+        if on_card:
+            sms = torch.cuda.get_device_properties(
+                self.device).multi_processor_count
+            self._engines = min(n, sms)
+            self._ctas = max(1, sms // self._engines)
+        else:
+            self._engines, self._ctas = n, 1
+        # stage 3 of the exec pipeline: program/operand LRU, launch,
+        # fence check, decode
+        self._dispatcher = Dispatcher(
+            self.spmd_cache_cap, spmd_samples, device=self.device,
+            ctas_per_engine=self._ctas,
+            faults=(self.fault_spec.injector() if self.fault_spec
+                    else None))
+
+    def _spmd_engines(self) -> int:
+        """Engines of one ladder launch."""
+        return self._engines
+
+    def _ctas_per_engine(self) -> int:
+        """CTAs of one engine, one on each SM."""
+        return self._ctas
+
+    def _resolved_activity(self) -> str:
+        """The rung-activity implementation the spmd backend will use:
+        on the card the kernels, after the probe (which raises when they
+        do not build or run); on the CPU their plain versions."""
+        if self.device.type != "cuda":
+            return "plain"
+        compat.kernels_supported(self.device)
+        return "cuda"
+
+    # the spmd program cache (LRU, coordinator lifetime; the storage
+    # lives on the Dispatcher)
+    @property
+    def _spmd_programs(self):
+        return self._dispatcher.cache.entries
 
     # -- Experiment Instantiator ----------------------------------------
     def validate(self, cfg: ExperimentConfig) -> None:
@@ -383,7 +518,9 @@ class CoreCoordinator:
         return spec.coupled_siblings(observer)
 
     def _ladder_depth(self, spec: ScenarioSpec) -> int:
-        return exec_plan.ladder_depth(spec, self.platform.n_engines)
+        mesh = self._spmd_engines() if self.backend == "spmd" else None
+        return exec_plan.ladder_depth(spec, self.platform.n_engines,
+                                      mesh)
 
     def run_matrix(self, specs: List[ScenarioSpec], *,
                    batched: bool = True, journal=None) -> MatrixResult:
@@ -398,22 +535,37 @@ class CoreCoordinator:
         Multi-observer scenarios contribute one ladder per (observer,
         buffer) and their observers join the same signature groups.
 
-        Both backends model the contention ladder per rung; ``cuda``
-        additionally measures the uncontended observer.  Every curve's
-        ``execution`` provenance records the backend, the modeled
-        rungs, whether the observer was measured, the effective
-        ``coupled`` state, and the ``activity`` that ran the measured
-        pass: ``"cuda"`` when the hand-written kernels ran on the card,
-        ``"plain"`` when their plain PyTorch versions ran
-        (``device="cpu"``), ``"none"`` on ``simulate``.
+        Backends: ``simulate``/``cuda`` model the contention ladder per
+        rung (``cuda`` additionally measures the uncontended observer);
+        ``spmd`` *executes* every rung its engines can hold and its
+        curves carry ``source == "executed"``.  On ``spmd``
+        ``batched=True`` (with ``spmd_dispatch="batched"``) stacks
+        same-signature ladders into ONE launch per group — and
+        width-packs shallow groups onto disjoint engine subsets
+        (``spmd_pack``) — so a sweep costs one host-synchronous launch
+        per distinct signature; ``batched=False`` degrades to one launch
+        per ladder.  Every curve's ``execution`` provenance records the
+        backend, executed-vs-modeled rungs, the effective ``coupled``
+        state, and the ``activity`` that ran: ``"cuda"`` when the
+        hand-written kernels ran on the card, ``"plain"`` when their
+        plain PyTorch versions ran (``device="cpu"``), ``"none"`` on
+        ``simulate``; on ``spmd`` also the verified ``fenced`` state,
+        the ``timing_source``, ``batched``/``group_size`` and the
+        width-packing slot ``packed``/``subset_width``/``subset_index``.
 
-        ``journal=`` (crash-resumable sweeps) belongs to the executable
-        multi-engine path, which is not ported: it raises."""
-        if journal is not None:
+        Execution on ``spmd`` is resilient
+        (:mod:`repro_torch.core.exec.resilience`): a failed launch
+        retries with backoff, degrades down the
+        packed->batched->ladder->rung->modeled ladder isolated to its
+        signature group, and noisy rungs re-measure under the quality
+        gate; pass ``journal=<path>`` (fused paths) to make the sweep
+        crash-resumable via a :class:`SweepJournal` sidecar.  Other
+        backends model their rungs and have nothing to resume:
+        ``journal=`` raises there."""
+        if journal is not None and self.backend != "spmd":
             raise ValidationError(
-                "journal= requires the spmd backend, which is not ported "
-                "(the simulate and cuda backends model their rungs and "
-                "have nothing to resume)")
+                "journal= requires the spmd backend (other backends "
+                "model and have nothing to resume)")
         for spec in specs:
             self.validate_spec(spec)
         triples = [(spec, obs, b) for spec in specs
@@ -422,17 +574,39 @@ class CoreCoordinator:
                               n_ladders=len(triples))
 
         measured: Dict[int, WorkloadResult] = {}
+        executed: Dict[Tuple[int, int], WorkloadResult] = {}
+        fenced_by_triple: Dict[int, bool] = {}
+        timing_by_triple: Dict[int, Dict[str, Any]] = {}
         if self.backend == "cuda":
             activity = "cuda" if self.device.type == "cuda" else "plain"
             measured = self._measure_triples(triples, batched, stats)
+        elif self.backend == "spmd":
+            activity = self._resolved_activity()
+            executed, fenced_by_triple, timing_by_triple = \
+                self._execute_spmd(triples, stats, activity,
+                                   batched=batched, journal=journal)
         else:
             activity = "none"       # nothing executes on this backend
 
+        spmd = self.backend == "spmd"
         runs = assemble_runs(
             triples, backend=self.backend, activity=activity,
             stats=stats, depth_fn=self._ladder_depth,
-            model_fn=self._model_spec_scenario, measured=measured)
+            model_fn=self._model_spec_scenario, measured=measured,
+            executed=executed, fenced_by_triple=fenced_by_triple,
+            timing_by_triple=timing_by_triple,
+            n_engines=self._spmd_engines() if spmd else None,
+            operand_kinds_fn=self._operand_memory_kinds if spmd else None)
         return MatrixResult(runs=runs, stats=stats)
+
+    def _operand_memory_kinds(self, spec: ScenarioSpec,
+                              obs: ObserverSpec) -> List[str]:
+        return sorted(
+            {self.pools.pool(p).effective_memory_kind() or "default"
+             for p in ([obs.pool]
+                       + [o.pool for o in
+                          self._coupled_siblings(spec, obs)]
+                       + [s.pool for s in spec.stressors])})
 
     def _measure_triples(self, triples, batched: bool,
                          stats: DispatchStats) -> Dict[int, WorkloadResult]:
@@ -463,3 +637,53 @@ class CoreCoordinator:
             for i, res in zip(idxs, results):
                 measured[i] = res
         return measured
+
+    # -- the spmd backend: executable multi-engine contention -----------
+
+    def _execute_spmd(
+        self, triples, stats: DispatchStats, activity: str,
+        batched: bool = True, journal=None,
+    ) -> Tuple[Dict[Tuple[int, int], WorkloadResult], Dict[int, bool],
+               Dict[int, Dict[str, Any]]]:
+        """Execute every (spec, observer, buffer) triple's contention
+        ladder through the exec pipeline: the planner builds a
+        DispatchPlan (one launch per same-signature group when
+        ``spmd_dispatch="batched"``, per triple under ``"ladder"``),
+        width-packing re-plans shallow groups onto disjoint engine
+        subsets, and the resilient executor
+        (:mod:`repro_torch.core.exec.journal`) builds, runs, verifies the
+        fence of, retries/degrades and optionally journals each planned
+        dispatch (``"rung"`` is the host-timed one-launch-per-rung
+        path).  Returns per-(triple, rung) observer results, per-triple
+        verified fence state, and per-triple timing provenance."""
+        n_eng = self._spmd_engines()
+        if n_eng < 2:
+            raise ValidationError(
+                "spmd backend needs >= 2 engines (the platform's "
+                "n_engines and, on the card, its SMs)")
+        # the JAX package falls back to "rung" where it has no in-dispatch
+        # clock; the port always has one (%globaltimer on the card, the
+        # host's clock for the plain version)
+        dispatch = self.spmd_dispatch
+        if dispatch == "batched" and not batched:
+            dispatch = "ladder"       # megabatching explicitly disabled
+        if dispatch in ("batched", "ladder"):
+            plan = exec_plan.build_plan(
+                triples, n_eng, self.pools, self.platform.n_engines,
+                grouped=(dispatch == "batched"))
+            if dispatch == "batched":
+                stats.spmd_groups += len(plan.dispatches)
+                if self.spmd_pack == "auto":
+                    plan = exec_plan.pack_engine_subsets(plan)
+            return exec_journal.execute_plan(
+                self._dispatcher, plan, n_eng=n_eng, activity=activity,
+                mode=dispatch, stats=stats, policy=self.retry_policy,
+                gate=self.quality_gate, journal=journal)
+        if journal is not None:
+            raise ValidationError(
+                "journal= needs a fused dispatch path "
+                "(spmd_dispatch='batched' or 'ladder'), not 'rung'")
+        return exec_journal.execute_rung_path(
+            self._dispatcher, triples, n_eng=n_eng, activity=activity,
+            stats=stats, depth_fn=self._ladder_depth, pools=self.pools,
+            policy=self.retry_policy, gate=self.quality_gate)

@@ -1,18 +1,39 @@
-"""dispatch — the execution accounting of the matrix runner.
+"""dispatch — stage 3 of the spmd execution pipeline.
 
-Only :class:`DispatchStats` is ported so far: the measured observer pass
-of ``run_matrix`` (backends ``simulate`` and ``cuda``) fills its
-``n_scenarios``, ``n_ladders``, ``measure_dispatches`` and
-``model_evals``.  Every other field belongs to the executable
-multi-engine contention path (the JAX package's ``spmd`` backend, its
-program cache, ahead-of-time compiles, width-packing and resilience
-layer); they are kept, at 0, so that the accounting and the CurveDB
-``meta`` it is written into have the same fields in both packages.
-``Dispatcher`` and ``ProgramCache`` come with that path.
+Owns everything between a built program and its numbers: the
+coordinator-level program/operand LRU (:class:`ProgramCache`), the
+host-synchronous launch itself, the fence check of every launch, and the
+(waves, subsets, rungs, samples) clock decode mapping each stacked
+ladder's stamp pairs back to per-rung elapsed medians — line for line the
+JAX package's decode, on the same (n_eng, steps, 2) ``[s, ns]`` layout.
+
+:class:`DispatchStats` is the accounting ``run_matrix`` returns and
+CurveDB records, every field counted where the JAX package counts it.
+``aot_compiles`` stays 0: one kernel is built once by ``nvcc``, and no
+program is compiled on its own.
 """
 from __future__ import annotations
 
+import hashlib
+import time as _time
+from collections import OrderedDict
 from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import compat
+from repro_torch.core.exec.plan import PlannedDispatch
+from repro_torch.core.exec.program import build_ladder_entry, build_program
+
+
+def _fault_site(key: Tuple) -> str:
+    """Stable fault-injection site id for a program cache key.  The
+    key's repr is deterministic (frozen dataclasses and primitives
+    only), so the same dispatch gets the same site in every process —
+    which is what makes a seeded fault schedule byte-reproducible."""
+    return hashlib.sha256(repr(key).encode()).hexdigest()[:16]
 
 
 @dataclass
@@ -40,10 +61,9 @@ class DispatchStats:
     # sweep-level megabatching: distinct role-program signatures this
     # run stacked ladders under (0 on the non-batched paths)
     spmd_groups: int = 0
-    # spmd programs actually traced + compiled this run (cache
-    # misses), and how many of those were compiled ahead of time —
-    # together with host_sync_dispatches the dispatch-vs-compile
-    # attribution
+    # spmd programs actually built this run (cache misses: a step
+    # table and placed operands), and how many of those were compiled
+    # ahead of time (none: the ladder is one kernel, built by nvcc)
     programs_built: int = 0
     aot_compiles: int = 0
     # engine-subset width-packing: ladders that ran side by side on a
@@ -71,3 +91,171 @@ class DispatchStats:
         one-sync-per-group equalities only hold then."""
         return not (self.faults_injected or self.retried_dispatches
                     or self.degraded_ladders or self.noisy_remeasures)
+
+
+class ProgramCache:
+    """LRU over built spmd programs + their placed operands, keyed by
+    program signature.  The cap is a MEMORY bound: eviction drops the
+    evicted entry's operand tensors at once (on the card they go back to
+    the allocator) — dropping only the dict entry would leave them alive
+    for as long as anything else referred to the entry."""
+
+    def __init__(self, cap: int):
+        assert cap >= 1, cap
+        self.cap = cap
+        self.entries: "OrderedDict[Tuple, Any]" = OrderedDict()
+
+    def get(self, key: Tuple, stats: Optional[DispatchStats] = None):
+        entry = self.entries.get(key)
+        if entry is not None:
+            self.entries.move_to_end(key)
+            if stats is not None:
+                stats.program_cache_hits += 1
+        return entry
+
+    def put(self, key: Tuple, entry) -> None:
+        self.entries[key] = entry
+        self.entries.move_to_end(key)
+        while len(self.entries) > self.cap:
+            _k, evicted = self.entries.popitem(last=False)
+            evicted.drop_operands()
+
+
+class Dispatcher:
+    """Stage 3: run planned dispatches.  Holds the program LRU and the
+    per-coordinator dispatch knobs (sample count, the device, the CTAs
+    an engine); the coordinator facade delegates here."""
+
+    def __init__(self, cache_cap: int, samples: int, *, device,
+                 ctas_per_engine: int, faults=None):
+        assert samples >= 1, samples
+        self.cache = ProgramCache(cache_cap)
+        self.samples = samples
+        self.device = torch.device(device)
+        self.ctas_per_engine = ctas_per_engine
+        # where the fused path's stamps come from: "device" (the kernel's
+        # %globaltimer) or "host" (the plain version on the CPU)
+        self.clock_source = compat.device_clock_source(self.device)
+        # the fault-injection seam (exec.resilience.FaultInjector or
+        # None): consulted at the compile / dispatch / decode sites of
+        # both dispatch paths.  Deterministic — draws are pure hashes
+        # of (seed, site, phase, attempt) — and duck-typed, so this
+        # module never imports the resilience layer
+        self.faults = faults
+
+    def _fault(self, site: str, phase: str, stats: DispatchStats):
+        """Consult the fault-injection seam.  Raising phases
+        ("compile"/"dispatch") raise the injector's fault; the
+        "decode" phase returns the fault kind so the caller can
+        corrupt the decoded timings instead (a corrupted-timing fault
+        must produce bad VALUES — detection is the resilience layer's
+        validator, not an exception)."""
+        if self.faults is None:
+            return None
+        kind = self.faults.check(site, phase)
+        if kind is not None:
+            stats.faults_injected += 1
+            if phase != "decode":
+                raise self.faults.error(kind, site)
+        return kind
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- the fused/batched/packed path ---------------------------------
+
+    def run_planned(self, planned: PlannedDispatch, n_eng: int,
+                    activity: str, mode: str, stats: DispatchStats,
+                    ) -> Tuple[np.ndarray, np.ndarray, bool, bool]:
+        """Execute one planned dispatch: build (or fetch) its program,
+        run it with ONE launch the host waits for, verify the launch's
+        fence, and decode each stacked ladder's in-launch stamp pairs.
+        Returns ``(med, spread, fenced, aot)`` with ``med``/``spread``
+        of shape (group, n_scen) nanoseconds."""
+        key = planned.cache_key(mode, n_eng, activity, self.samples)
+        site = _fault_site(key)
+        entry = self.cache.get(key, stats)
+        if entry is None:
+            self._fault(site, "compile", stats)
+            entry = build_ladder_entry(planned, n_eng, self.samples, stats,
+                                       device=self.device,
+                                       ctas_per_engine=self.ctas_per_engine)
+            self.cache.put(key, entry)
+        self._fault(site, "dispatch", stats)
+        out = entry.launch().to_cpu()       # the one host sync
+        stats.host_sync_dispatches += 1
+        stats.measure_dispatches += 1
+        stats.spmd_rungs += planned.group * planned.n_scen
+        if planned.packed:
+            stats.packed_ladders += planned.group
+            stats.subset_width = max(stats.subset_width,
+                                     planned.subset_width)
+        fenced = entry.is_fenced(out)
+        # each subset's LEADER engine is its observer: its [s, ns]
+        # stamp pairs bracket each step's barrier pair, stop stamp taken
+        # after the subset's stop barrier (i.e. when its SLOWEST engine
+        # finished — paper invariant 3).  Ladder g ran in wave g//P on
+        # subset g%P; the trailing spare subsets of a ragged last wave
+        # executed but are not decoded.
+        t0s = out.t0s.numpy()
+        t1s = out.t1s.numpy()
+        k, s = planned.n_scen, self.samples
+        med = np.zeros((planned.group, k))
+        spread = np.zeros((planned.group, k), np.int64)
+        for g in range(planned.group):
+            wave, subset = planned.member_slot(g)
+            lead = subset * planned.subset_width
+            t0 = t0s[lead].reshape(planned.waves, k, s, 2)[wave]
+            t1 = t1s[lead].reshape(planned.waves, k, s, 2)[wave]
+            d = ((t1[..., 0].astype(np.int64) - t0[..., 0])
+                 * 1_000_000_000 + (t1[..., 1] - t0[..., 1]))
+            med[g] = np.median(d, axis=1)
+            spread[g] = d.max(axis=1) - d.min(axis=1)
+        if self._fault(site, "decode", stats):
+            med = -np.abs(med)      # corrupted timings: non-positive
+        return med, spread, fenced, entry.aot
+
+    # -- the host-timed per-rung path ------------------------------------
+
+    def run_rung(self, roles, n_eng: int, activity: str,
+                 kind: Optional[str], stats: DispatchStats,
+                 ) -> Tuple[float, bool, int, bool]:
+        """One rung, one launch of a one-step table: 1 warm launch + the
+        timed ``samples``, each timed on the host by ``perf_counter_ns``
+        around the launch and a synchronize (median; the returned int is
+        the spread of the samples, the bool the fence verified from
+        every timed launch's stamps).  Costs 1 + ``samples`` host syncs
+        per rung and includes the host's launch cost; the fused ladder
+        path replaces both and this path is kept for comparison and as
+        the resilience layer's per-rung floor."""
+        roles = tuple(roles)
+        # the kind joins the cache key: identical role programs from
+        # differently-placed pools must not share operands
+        key = ("rung", n_eng, activity, kind, roles)
+        site = _fault_site(key)
+        entry = self.cache.get(key, stats)
+        if entry is None:
+            self._fault(site, "compile", stats)
+            entry = build_program(
+                [roles], n_eng, kind=kind, samples=1, subsets=None,
+                op_roles=roles, rows_max=max(r[2] for r in roles),
+                device=self.device, ctas_per_engine=self.ctas_per_engine,
+                stats=stats)
+            self.cache.put(key, entry)
+        self._fault(site, "dispatch", stats)
+        entry.launch().to_cpu()                 # warm
+        samples, fenced = [], entry.fenced
+        for _ in range(self.samples):
+            t0 = _time.perf_counter_ns()
+            out = entry.launch()
+            self._sync()
+            samples.append(_time.perf_counter_ns() - t0)
+            fenced = fenced and entry.is_fenced(out.to_cpu())
+        stats.host_sync_dispatches += 1 + self.samples
+        stats.measure_dispatches += 1
+        stats.spmd_rungs += 1
+        elapsed = float(np.median(samples))
+        if self._fault(site, "decode", stats):
+            elapsed = -abs(elapsed)     # corrupted timing: non-positive
+        return elapsed, fenced, int(max(samples) - min(samples)), entry.aot

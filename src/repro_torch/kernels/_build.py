@@ -2,7 +2,8 @@
 
 A source is compiled at first use into a shared library with a plain C
 interface (seconds per file; no PyTorch headers), named after a hash of
-the source and the flags so that an edited source is rebuilt.  The
+the source, the shared headers (``csrc/*.cuh``) and the flags so that an
+edited source is rebuilt.  The
 libraries go to ``build/repro_torch/`` beside ``src/`` (git-ignored).
 A build that fails raises with ``nvcc``'s output; nothing here falls
 back to another implementation.
@@ -26,7 +27,7 @@ import torch
 from repro_torch import compat
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("stream", "chase", "compute_probe")
+SOURCES = ("stream", "chase", "compute_probe", "contention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # shared memory one block can use on an H100 SM (227 KB of the SM's 256 KB)
@@ -51,7 +52,10 @@ def build_dir() -> Path:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers every source may include count too: an edited role body
+    # rebuilds every library that holds it
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{tag}.so"
 

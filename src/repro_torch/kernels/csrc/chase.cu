@@ -18,12 +18,17 @@
 // back to back, never side by side, so the time of the launch is the sum of
 // the members' chases, as the reference's per-member split of the pass time
 // assumes.
+//
+// The chases themselves are the role bodies of roles.cuh, which the
+// contention ladder (contention.cu) runs too: one code for both.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "roles.cuh"
+
 namespace {
 
-constexpr int kLineInts = 128;
+using roles::kLineInts;
 constexpr int kStageThreads = 1024;
 
 // (D) chain in global memory (device memory or mapped pinned host memory).
@@ -32,13 +37,8 @@ constexpr int kStageThreads = 1024;
 __global__ void chase_global_kernel(const int* __restrict__ buf,
                                     long long member_stride, int members,
                                     int n_steps, int* __restrict__ out) {
-  for (int m = 0; m < members; ++m) {
-    const int* chain = buf + m * member_stride;
-    int idx = 0;
-    for (int s = 0; s < n_steps; ++s)
-      idx = __ldcg(chain + (size_t)idx * kLineInts);
-    out[m] = idx;
-  }
+  for (int m = 0; m < members; ++m)
+    out[m] = roles::chase_global(buf + m * member_stride, n_steps);
 }
 
 // (D) chain staged into shared memory by the whole block, then chased there
@@ -52,14 +52,9 @@ __global__ void chase_shared_kernel(const int4* __restrict__ buf,
   for (int m = 0; m < members; ++m) {
     const int4* chain = buf + m * member_stride;
     __syncthreads();  // the previous member's chase is done
-    for (int i = threadIdx.x; i < n_vec; i += blockDim.x) staged[i] = chain[i];
+    roles::stage_chain(staged, chain, n_vec);
     __syncthreads();
-    if (threadIdx.x == 0) {
-      const volatile int* lines = reinterpret_cast<const volatile int*>(staged);
-      int idx = 0;
-      for (int s = 0; s < n_steps; ++s) idx = lines[(size_t)idx * kLineInts];
-      out[m] = idx;
-    }
+    if (threadIdx.x == 0) out[m] = roles::chase_staged(staged, n_steps);
   }
 }
 

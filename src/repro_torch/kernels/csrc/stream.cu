@@ -24,11 +24,18 @@
 //   (-) an empty kernel, to time a bare launch, and a hold kernel that keeps
 //       the stream busy for a given time while the host enqueues the work
 //       it is followed by
+//
+// The bodies of r/s, w/y, x and c are the role bodies of roles.cuh, which
+// the contention ladder (contention.cu) runs too: one code for both.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "roles.cuh"
+
 namespace {
+
+using roles::block_sum;
 
 __device__ __forceinline__ long long global_thread() {
   return (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -38,40 +45,16 @@ __device__ __forceinline__ long long grid_threads() {
   return (long long)gridDim.x * blockDim.x;
 }
 
-// Sum over the block; the result is valid in thread 0.  Uses 128 bytes of
-// static shared memory, which the tile kernels' dynamic size leaves free.
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_part[32];
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_part[warp] = v;
-  __syncthreads();
-  const int n_warps = (blockDim.x + 31) >> 5;
-  v = (threadIdx.x < n_warps) ? warp_part[threadIdx.x] : 0.f;
-  if (warp == 0)
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // ---- (B) read: every 16 bytes loaded once, one partial sum per CTA --------
-// The loads are live only because the partial is stored.  Four independent
-// accumulators per thread keep the adds off the loads' critical path and
-// shorten each float32 summation chain.  blockIdx.y is the member.
+// The loads are live only because the partial is stored.  blockIdx.y is the
+// member.
 __global__ void read_kernel(const float4* __restrict__ x,
                             float* __restrict__ partials, long long n_vec,
                             long long member_stride) {
   x += blockIdx.y * member_stride;
   partials += (long long)blockIdx.y * gridDim.x;
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-  const long long step = grid_threads();
-#pragma unroll 4
-  for (long long i = global_thread(); i < n_vec; i += step) {
-    const float4 v = x[i];
-    a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
-  }
-  const float s = block_sum((a.x + a.y) + (a.z + a.w));
+  const float s = block_sum(
+      roles::sum_strided(x, global_thread(), n_vec, grid_threads()));
   if (threadIdx.x == 0) partials[blockIdx.x] = s;
 }
 
@@ -80,20 +63,13 @@ template <bool SEEDED>
 __global__ void write_kernel(float4* __restrict__ out, long long n_vec,
                              float value, const float* __restrict__ seed) {
   const float f = SEEDED ? value + seed[0] : value;
-  const float4 v = make_float4(f, f, f, f);
-  const long long step = grid_threads();
-  for (long long i = global_thread(); i < n_vec; i += step) out[i] = v;
+  roles::fill_strided(out, global_thread(), n_vec, grid_threads(), f);
 }
 
 // ---- (A) rmw: x + 1 into a second buffer (line read, then written) ---------
 __global__ void rmw_f32_kernel(const float4* __restrict__ x,
                                float4* __restrict__ out, long long n_vec) {
-  const long long step = grid_threads();
-  for (long long i = global_thread(); i < n_vec; i += step) {
-    float4 v = x[i];
-    v.x += 1.f; v.y += 1.f; v.z += 1.f; v.w += 1.f;
-    out[i] = v;
-  }
+  roles::add1_strided(x, out, global_thread(), n_vec, grid_threads());
 }
 
 __device__ __forceinline__ uint32_t bf16x2_add1(uint32_t packed) {
@@ -117,8 +93,7 @@ __global__ void rmw_bf16_kernel(const uint4* __restrict__ x,
 // ---- (A) copy --------------------------------------------------------------
 __global__ void copy_kernel(const uint4* __restrict__ x,
                             uint4* __restrict__ out, long long n_vec) {
-  const long long step = grid_threads();
-  for (long long i = global_thread(); i < n_vec; i += step) out[i] = x[i];
+  roles::copy_strided(x, out, global_thread(), n_vec, grid_threads());
 }
 
 // ---- (C) on-chip residency pair ---------------------------------------------

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import chase as _chase
 from repro_torch.kernels import compute_probe as _probe
+from repro_torch.kernels import contention as _contention
 from repro_torch.kernels import stream as _stream
 
 # --- stream ------------------------------------------------------------------
@@ -70,3 +71,9 @@ strided_chain_buffer = _chase.strided_chain_buffer
 
 def mxu_probe(a, *, iters: int = 64):
     return _probe.mxu_probe(a, iters=iters)
+
+
+# --- contention ladder and kernel-support probe --------------------------
+
+contention_ladder = _contention.contention_ladder
+probe_add_one = _contention.probe_add_one

@@ -105,3 +105,101 @@ def mxu_probe_ref(a: torch.Tensor, iters: int) -> torch.Tensor:
     for _ in range(iters):
         out = out @ a.to(torch.float32)
     return out
+
+
+# --- kernel-support probe ----------------------------------------------------
+
+
+def probe_add_one_ref(x: torch.Tensor) -> torch.Tensor:
+    return x + 1.0
+
+
+# --- contention ladder -------------------------------------------------------
+
+
+def role_ref(role, xf_e: torch.Tensor, xi_e: torch.Tensor) -> torch.Tensor:
+    """One engine's role of one step, as a 0-d float32: the arithmetic of
+    the JAX package's ``_pallas_branch_fn`` over its kernels' plain
+    versions, pass by pass.  ``xf_e``/``xi_e`` are the engine's operands;
+    nothing is written to them (the plain version is functional)."""
+    from repro_torch.kernels import contention as C
+
+    code, rows, n, read_rows, write_rows = (int(v) for v in role[:5])
+    acc = torch.zeros((), dtype=torch.float32, device=xf_e.device)
+    if code == C.READ:
+        for _ in range(n):
+            acc = acc * 0.5 + read_ref(xf_e[:rows])
+        return acc
+    if code == C.SEEDED_WRITE:
+        for _ in range(n):
+            seed = xf_e[0, 0] + acc * 1e-30
+            out = write_ref(rows, 1.0, xf_e.device) + seed
+            acc = acc * 0.5 + out[0, 0]
+        return acc
+    if code in (C.RMW, C.COPY):
+        x = xf_e[:rows]
+        for _ in range(n):
+            x = rmw_ref(x) if code == C.RMW else copy_ref(x)
+        return x[0, 0]
+    if code == C.MIXED:
+        for _ in range(n):
+            s = read_ref(xf_e[:read_rows])
+            out = torch.full((write_rows, 128), 1.0, dtype=torch.float32,
+                             device=xf_e.device) + xf_e[0, 0]
+            acc = acc * 0.5 + s + out[:1].sum()
+        return acc
+    if code in (C.CHASE_GLOBAL, C.CHASE_SHARED):
+        for _ in range(n):
+            acc = acc + float(chase_ref(xi_e[:rows], rows))
+        return acc
+    acc = xf_e[0, 0] * 1e-30            # idle: the memory-idle spin
+    for _ in range(n * 8):
+        acc = acc * 0.999 + 1.0
+    return acc
+
+
+def _stamp(t: int) -> List[int]:
+    return [t // 1_000_000_000, t % 1_000_000_000]
+
+
+def contention_ladder_ref(xf, xi, table, roles, group_of, leaders, *,
+                          skew_ns: int = 0, skip_start_wait: bool = False):
+    """The ladder's steps run engine by engine, group by group.  Stamps
+    come from the host's ``perf_counter_ns``, taken in an order that
+    keeps the fence: every engine of a group arrives before any begins,
+    and the leader's stop stamp follows every end.  With
+    ``skip_start_wait`` each engine arrives (``e * skew_ns`` late) just
+    before it begins, as in the kernel's negative case."""
+    import time
+
+    from repro_torch.kernels import contention as C
+
+    n_eng, steps = xf.shape[0], table.shape[0]
+    outs = torch.zeros((n_eng, steps), dtype=torch.float32, device=xf.device)
+    t0s = torch.zeros((n_eng, steps, 2), dtype=torch.int32)
+    t1s = torch.zeros_like(t0s)
+    arrive, begin, end = (torch.zeros((n_eng, steps), dtype=torch.int64)
+                          for _ in range(3))
+    groups: dict = {}
+    for e in range(n_eng):
+        groups.setdefault(int(group_of[e]), []).append(e)
+    now = time.perf_counter_ns
+    for s in range(steps):
+        for g in sorted(groups):
+            members = groups[g]
+            lead = next((e for e in members if leaders[e]), None)
+            if not skip_start_wait:
+                for e in members:
+                    arrive[e, s] = now()
+            if lead is not None:
+                t0s[lead, s] = torch.tensor(_stamp(now()))
+            for e in members:
+                if skip_start_wait:
+                    time.sleep(e * skew_ns / 1e9)
+                    arrive[e, s] = now()
+                begin[e, s] = now()
+                outs[e, s] = role_ref(roles[table[s, e]], xf[e], xi[e])
+                end[e, s] = now()
+            if lead is not None:
+                t1s[lead, s] = torch.tensor(_stamp(now()))
+    return C.LadderOut(outs, t0s, t1s, arrive, begin, end)

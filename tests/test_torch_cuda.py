@@ -12,9 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import compat
 from repro_torch.core import (characterize, coordinator, devicetree,
                               interface, pools, scenarios)
-from repro_torch.kernels import chase, compute_probe, counts, ref, stream
+from repro_torch.core.exec import fence, program
+from repro_torch.core.exec.dispatch import DispatchStats
+from repro_torch.kernels import (chase, compute_probe, contention, counts,
+                                 ref, stream)
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +183,92 @@ def test_hold_keeps_the_stream_busy(card):
     stop.synchronize()
     assert start.elapsed_time(stop) >= 2.0
     assert not any(counts.LAUNCHES.values())
+
+
+def test_probe_kernel_adds_one_exactly(card):
+    x = torch.arange(8 * 128, dtype=torch.float32, device=card)
+    out = contention.probe_add_one(x.reshape(8, 128))
+    assert torch.equal(out, x.reshape(8, 128) + 1.0)
+    assert compat.kernels_supported(card)
+    assert counts.LAUNCHES["probe_add_one"] >= 1
+    assert compat.device_clock_source(card) == "device"
+
+
+SHAPES = {"b": scenarios.TrafficShape.mixed(2, 1),
+          "t": scenarios.TrafficShape.strided(8)}
+
+
+def _ladder(card, rows, roles, subsets=None, samples=1):
+    n_eng = len(rows[0])
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    return program.build_program(
+        rows, n_eng, kind=None, samples=samples, subsets=subsets,
+        op_roles=roles, rows_max=max(r[2] for r in roles), device=card,
+        ctas_per_engine=sms // n_eng, stats=DispatchStats())
+
+
+@pytest.mark.parametrize("letter", list("rswyxcblmti"))
+@pytest.mark.parametrize("rows", [16, 453, 4096 + 512])
+def test_every_role_alone_matches_its_plain_version(card, letter, rows):
+    """One role on engine 0 of an 8-engine, one-step table, the rest
+    idle: the kernel's engine values equal the plain version's (sums to
+    2e-6, everything else exactly), and the launch is fenced."""
+    roles = [(letter, SHAPES.get(letter), rows, 3)] + \
+        [("i", None, 1, 3)] * 7
+    prog = _ladder(card, [tuple(roles)], roles)
+    out = prog.launch().to_cpu()
+    want = ref.contention_ladder_ref(
+        prog.xf.cpu(), prog.xi.cpu(), prog.table, prog.roles,
+        prog.layout.group_of, prog.layout.leaders)
+    if letter in "rsb":
+        torch.testing.assert_close(out.outs, want.outs, rtol=2e-6, atol=0)
+    else:
+        assert torch.equal(out.outs, want.outs)
+    assert prog.is_fenced(out)
+    assert counts.LAUNCHES["contention_ladder"] == 1
+    assert not any(counts.PLAIN.values())
+
+
+def test_fence_negative_on_the_card(card):
+    """The start barrier's wait skipped and the engines skewed by
+    e x 10 us: the stamps show engines beginning before the last one
+    arrived, and the launch is refused; the same program with the wait
+    is fenced.  Packed subsets barrier on their own counters."""
+    roles = [("r", None, 4096, 2)] * 8
+    prog = _ladder(card, [tuple(roles)], roles, samples=3)
+    assert prog.is_fenced(prog.launch().to_cpu())
+    bad = prog.launch(skip_start_wait=True, skew_ns=10_000).to_cpu()
+    assert not prog.is_fenced(bad)
+    lag = bad.arrive.numpy().max(0) - bad.begin.numpy().min(0)
+    assert (lag >= 60_000).all()
+    subsets = ((0, 1), (2, 3), (4, 5), (6, 7))
+    packed = _ladder(card, [tuple(roles)], roles, subsets=subsets)
+    out = packed.launch().to_cpu()
+    assert fence.measured_region_is_fenced(out, packed.layout, subsets)
+    # each subset's first engine stamps its own clock, no other engine
+    stamped = (out.t1s.numpy() != 0).any(axis=-1)
+    assert stamped[[0, 2, 4, 6]].all() and not stamped[[1, 3, 5, 7]].any()
+
+
+def test_spmd_plain_activity_on_the_card_raises(card):
+    with pytest.raises(coordinator.ValidationError, match="nothing falls"):
+        coordinator.CoreCoordinator(pools.PoolManager(devicetree.H100_SXM),
+                                    backend="spmd", spmd_activity="plain")
+
+
+def test_spmd_ladder_on_the_card(card):
+    coord = coordinator.CoreCoordinator(
+        pools.PoolManager(devicetree.H100_SXM), backend="spmd",
+        spmd_cache_cap=1)
+    spec = scenarios.ScenarioSpec(
+        "card", scenarios.ObserverSpec("r", "hbm", (16 << 20,)),
+        (scenarios.StressorSpec("w", "hbm", 16 << 20),), iters=4)
+    res = coord.run_matrix([spec])
+    ex = res.runs[0].execution
+    assert (ex["activity"], ex["timing_source"], ex["fenced"]) == \
+        ("cuda", "device", True)
+    assert ex["executed_rungs"] == list(range(8))
+    assert res.stats.host_sync_dispatches == 1 + res.stats.noisy_remeasures
+    assert counts.LAUNCHES["contention_ladder"] == \
+        res.stats.host_sync_dispatches
+    assert not any(counts.PLAIN.values())

@@ -37,7 +37,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "repro_torch.core.exec.assemble", "repro_torch.core.exec.plan",
             "repro_torch.core.exec.dispatch", "repro_torch.core.characterize",
             "repro_torch.core.placement",
-            "repro_torch.kernels.compute_probe"} <= set(mods)
+            "repro_torch.kernels.compute_probe",
+            "repro_torch.core.exec.program", "repro_torch.core.exec.fence",
+            "repro_torch.core.exec.resilience",
+            "repro_torch.core.exec.journal",
+            "repro_torch.kernels.contention"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -73,8 +77,10 @@ def test_sources_hold_nothing_forbidden(what):
 
 def test_kernel_sources_are_in_the_package():
     names = sorted(os.listdir(os.path.join(PKG, "kernels", "csrc")))
-    assert names == ["chase.cu", "compute_probe.cu", "stream.cu"]
-    assert sorted(f"{n}.cu" for n in _build.SOURCES) == names
+    assert names == ["chase.cu", "compute_probe.cu", "contention.cu",
+                     "roles.cuh", "stream.cu"]
+    assert sorted(f"{n}.cu" for n in _build.SOURCES) == \
+        [n for n in names if n.endswith(".cu")]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     gitignore = open(os.path.join(ROOT, ".gitignore")).read().split()
     assert {"build/", "__pycache__/", ".hypothesis/", "*.so"} <= \
