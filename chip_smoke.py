@@ -1252,11 +1252,10 @@ SPEC_D = ScenarioSpec("spmd.d", ObserverSpec("r", "host", (M64,)),
 
 
 def spmd_coord(**kw) -> CoreCoordinator:
-    # one program at a time: a program holds its operands, 24 GiB for
-    # (b)'s eight engines at 1 GiB
+    # the default cache: a program holds its operands (24 GiB for (b)'s
+    # eight engines at 1 GiB), and the cache evicts by their bytes
     return CoreCoordinator(PoolManager(H100_SXM, DEV), H100_SXM,
-                           backend="spmd", device=DEV, spmd_cache_cap=1,
-                           **kw)
+                           backend="spmd", device=DEV, **kw)
 
 
 def spmd_expected(coord, specs, mode: str, pack: bool = True):
@@ -1313,8 +1312,12 @@ def spmd_run(name: str, coord, specs, mode: str, checks: dict, **kw):
     checks[f"rungs_last_{MIN_TICKS}_timer_steps:{name}"] = all(
         s.main.elapsed_ns >= MIN_TICKS * TIMER["tick_ns"]
         for r in res.runs for s in r.scenarios)
+    cache = coord._dispatcher.cache
     rec = {"name": name, "mode": mode, "pack": coord.spmd_pack,
            "seconds": round(seconds, 2),
+           "cache": {"entries": len(cache.entries),
+                     "built": st.programs_built,
+                     "resident_bytes": cache.resident("cuda")},
            "dispatch_stats": dataclass_dict(st),
            "planned": {"host_syncs": syncs, "measured": measures,
                        "rungs": rungs},
@@ -1345,8 +1348,11 @@ def phase_spmd() -> None:
             db.meta["host_sync_dispatches"] == \
             9 + db.meta["noisy_remeasures"]
         checks["a:curvedb_round_trip"] = round_trips(db, tmp, "spmd_a")
+        cache = coord._dispatcher.cache
         recs.append({"name": "a: characterize hbm r/w/l x r/w/y 256M",
                      "seconds": round(time.perf_counter() - t0, 2),
+                     "cache": {"entries": len(cache.entries),
+                               "resident_bytes": cache.resident("cuda")},
                      "meta": {k: db.meta[k] for k in (
                          "host_sync_dispatches", "measure_dispatches",
                          "spmd_rungs", "noisy_remeasures")},
@@ -1355,7 +1361,7 @@ def phase_spmd() -> None:
                          else p.bandwidth_gbps
                          for p in surf.n_axis_points()]}
                          for k, surf in db.surfaces.items()]})
-        del coord, db
+        del coord, db, cache
 
         # (b) one ladder, three dispatch modes
         b_runs = {}

@@ -72,6 +72,17 @@ def main(argv=None) -> None:
                    else f"{s.main.bandwidth_gbps:10.2f} GB/s")
             print(f"   k={s.n_stressors}: {val}   [{s.source}]")
 
+    kinds = res.runs[0].execution.get("operand_memory_kinds", [])
+    if len(kinds) > 1:
+        # the JAX package's semantics, kept: operand_memory_kinds names
+        # the pools' memories, but one program holds one operand set
+        print(f"\nnote: this program mixes memories {kinds}, so, as in "
+              f"the JAX package, every operand lives in device memory: "
+              f"the host chase reads device memory (not pinned host "
+              f"memory), and a rung lasts as long as its slowest engine, "
+              f"so the coupled chase also sets the read's rung time.  "
+              f"Single-pool scenarios measure each memory on its own.")
+
     # the executed curves persist with their provenance, no re-execution
     db = curvedb_from_result(res, coord.platform.name, backend="spmd")
     path = os.path.join(tempfile.mkdtemp(), "spmd_curves.json")

@@ -148,18 +148,17 @@ class ValidationError(ValueError):
 
 
 class CoreCoordinator:
-    # built spmd programs kept per coordinator (LRU).  Each entry holds
-    # its placed operands (three (engines, rows, 128) tensors at the
-    # widest role), so the cap is a MEMORY bound: on the card eight
-    # engines of 1 GiB roles are 24 GiB a program.  The per-rung path
-    # needs K entries per ladder where the fused paths need one.
+    # built spmd programs kept per coordinator (LRU), the JAX package's
+    # count.  Each entry holds its placed operands (three (engines,
+    # rows, 128) tensors at the widest role: 24 GiB at eight 1 GiB
+    # roles), so the cache also evicts by their bytes against what the
+    # card has free, before each build (exec.dispatch.ProgramCache).
     _SPMD_CACHE_CAP = 32
 
     def __init__(self, pool_mgr: Optional[PoolManager] = None,
                  platform: Optional[Platform] = None,
                  backend: str = "auto",
                  device=None,
-                 spmd_activity: str = "auto",
                  spmd_dispatch: str = "batched",
                  spmd_samples: int = 3,
                  spmd_cache_cap: Optional[int] = None,
@@ -172,12 +171,11 @@ class CoreCoordinator:
 
         The ``spmd_*``, ``faults``, ``retry`` and ``quality`` arguments
         configure the ``spmd`` backend, with the JAX package's defaults.
-        ``spmd_activity`` is what fills the rungs: ``"cuda"`` (the
-        ladder kernel, on the card) or ``"plain"`` (its plain version,
-        on ``device="cpu"``); ``"auto"`` picks by the device, and on the
-        card probes the kernels first (:func:`compat.kernels_supported`),
-        which raises instead of falling back.  Asking for ``"plain"`` on
-        the card, or ``"cuda"`` on the CPU, raises."""
+        What fills its rungs follows from the device alone: the ladder
+        kernel on the card (after :func:`compat.kernels_supported`, which
+        raises instead of falling back), its plain version on
+        ``device="cpu"``.  The JAX package's ``spmd_activity`` has no
+        counterpart: neither can stand in for the other."""
         if device is None:
             device = pool_mgr.device if pool_mgr is not None else "cuda"
         self.device = resolve_device(device)
@@ -195,17 +193,6 @@ class CoreCoordinator:
             raise ValueError(f"backend must be one of {BACKENDS} or 'auto', "
                              f"got {backend!r}")
         self.backend = backend
-        if spmd_activity not in ("auto", "cuda", "plain"):
-            raise ValueError(f"spmd_activity must be 'auto', 'cuda' or "
-                             f"'plain', got {spmd_activity!r}")
-        on_card = self.device.type == "cuda"
-        if (spmd_activity == "plain" and on_card) or \
-                (spmd_activity == "cuda" and not on_card):
-            raise ValidationError(
-                f"spmd_activity={spmd_activity!r} on device "
-                f"{self.device.type!r}: the card runs the ladder kernel "
-                f"('cuda'), the CPU only its plain version ('plain'); "
-                f"nothing falls back from one to the other")
         # sweep dispatch granularity: "batched" (default) stacks
         # same-signature ladders into ONE launch per group, "ladder"
         # one ladder per launch, "rung" the host-timed one-launch-per-
@@ -225,7 +212,6 @@ class CoreCoordinator:
         if spmd_pack not in ("auto", "off"):
             raise ValueError(f"spmd_pack must be 'auto' or 'off', got "
                              f"{spmd_pack!r}")
-        self.spmd_activity = spmd_activity
         self.spmd_dispatch = spmd_dispatch
         self.spmd_samples = spmd_samples
         self.spmd_pack = spmd_pack
@@ -245,7 +231,7 @@ class CoreCoordinator:
         # (132 // 8 = 16 on an H100 SXM; the remaining SMs idle).  On the
         # CPU the platform's width, of one "CTA" each.
         n = max(1, self.platform.n_engines)
-        if on_card:
+        if self.device.type == "cuda":
             sms = torch.cuda.get_device_properties(
                 self.device).multi_processor_count
             self._engines = min(n, sms)

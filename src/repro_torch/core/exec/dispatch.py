@@ -14,18 +14,21 @@ program is compiled on its own.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
+import os
 import time as _time
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import compat
 from repro_torch.core.exec.plan import PlannedDispatch
-from repro_torch.core.exec.program import build_ladder_entry, build_program
+from repro_torch.core.exec.program import (build_ladder_entry, build_program,
+                                           ladder_operand_rows, operand_bytes)
 
 
 def _fault_site(key: Tuple) -> str:
@@ -93,16 +96,29 @@ class DispatchStats:
                     or self.degraded_ladders or self.noisy_remeasures)
 
 
+class ProgramMemoryError(RuntimeError):
+    """A program's operands do not fit its memory even with the cache
+    emptied: raised before anything is allocated."""
+
+
 class ProgramCache:
     """LRU over built spmd programs + their placed operands, keyed by
-    program signature.  The cap is a MEMORY bound: eviction drops the
-    evicted entry's operand tensors at once (on the card they go back to
-    the allocator) — dropping only the dict entry would leave them alive
-    for as long as anything else referred to the entry."""
+    program signature, bounded twice: at most ``cap`` entries, and on
+    the card by the bytes of their operands.  :meth:`reserve` runs
+    BEFORE a program is built: it evicts least recently used entries of
+    the same memory until the new operands fit in ``capacity(place)``
+    bytes (``None``: no byte bound, as for CPU tensors), so the peak is
+    never an old program beside a new one that does not fit with it.
+    Eviction drops the evicted entry's operand tensors at once (on the
+    card they go back to the allocator) — dropping only the dict entry
+    would leave them alive for as long as anything else referred to it."""
 
-    def __init__(self, cap: int):
+    def __init__(self, cap: int,
+                 capacity: Optional[Callable[[str, int], Optional[int]]]
+                 = None):
         assert cap >= 1, cap
         self.cap = cap
+        self.capacity = capacity
         self.entries: "OrderedDict[Tuple, Any]" = OrderedDict()
 
     def get(self, key: Tuple, stats: Optional[DispatchStats] = None):
@@ -113,12 +129,63 @@ class ProgramCache:
                 stats.program_cache_hits += 1
         return entry
 
+    def resident(self, place: str) -> int:
+        """Operand bytes the cache holds in ``place``."""
+        return sum(e.nbytes for e in self.entries.values()
+                   if e.place == place)
+
+    def _evict_oldest(self, place: Optional[str] = None) -> bool:
+        for k, e in self.entries.items():
+            if place is None or e.place == place:
+                del self.entries[k]
+                e.drop_operands()
+                return True
+        return False
+
+    def reserve(self, place: str, nbytes: int) -> None:
+        """Make room for a program of ``nbytes`` operand bytes in
+        ``place`` before it is built; raise :class:`ProgramMemoryError`
+        when it cannot fit even alone."""
+        while len(self.entries) >= self.cap:
+            self._evict_oldest()
+        if self.capacity is None:
+            return
+        held = self.resident(place)
+        cap_bytes = self.capacity(place, held)
+        if cap_bytes is None:
+            return
+        while held + nbytes > cap_bytes and self._evict_oldest(place):
+            held = self.resident(place)
+        if held + nbytes > cap_bytes:
+            raise ProgramMemoryError(
+                f"spmd program operands of {nbytes} bytes do not fit "
+                f"{place} memory ({cap_bytes} bytes usable)")
+
     def put(self, key: Tuple, entry) -> None:
         self.entries[key] = entry
         self.entries.move_to_end(key)
         while len(self.entries) > self.cap:
-            _k, evicted = self.entries.popitem(last=False)
-            evicted.drop_operands()
+            self._evict_oldest()
+
+
+def operand_capacity(device: torch.device, place: str,
+                     held: int) -> Optional[int]:
+    """Bytes the cache may hold in ``place``, given the ``held`` bytes
+    it holds there now.  On the card: what it holds, plus what the card
+    has free (the driver's free memory and the allocator's reserved but
+    unused blocks, where evicted operands go), less a margin for the
+    launch's own tensors and the rest of the process.  Pinned host
+    memory: half the host's physical memory (the pinned allocator keeps
+    what is freed, so the host's free pages say nothing).  CPU tensors:
+    no bound."""
+    if place == "cuda":
+        free, total = torch.cuda.mem_get_info(device)
+        unused = (torch.cuda.memory_reserved(device)
+                  - torch.cuda.memory_allocated(device))
+        return held + free + unused - max(1 << 30, total // 32)
+    if place == "pinned_host":
+        return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") // 2
+    return None
 
 
 class Dispatcher:
@@ -129,9 +196,12 @@ class Dispatcher:
     def __init__(self, cache_cap: int, samples: int, *, device,
                  ctas_per_engine: int, faults=None):
         assert samples >= 1, samples
-        self.cache = ProgramCache(cache_cap)
-        self.samples = samples
         self.device = torch.device(device)
+        # a partial over the device, not a closure over self: no cycle
+        # keeps a dropped dispatcher's operands alive until a collection
+        self.cache = ProgramCache(
+            cache_cap, functools.partial(operand_capacity, self.device))
+        self.samples = samples
         self.ctas_per_engine = ctas_per_engine
         # where the fused path's stamps come from: "device" (the kernel's
         # %globaltimer) or "host" (the plain version on the CPU)
@@ -159,6 +229,13 @@ class Dispatcher:
                 raise self.faults.error(kind, site)
         return kind
 
+    def _placement(self, kind: Optional[str], rows_max: int,
+                   n_eng: int) -> Tuple[str, int]:
+        """Where a program's operands will live, and their bytes."""
+        place = ("pinned_host" if kind == "pinned_host"
+                 else self.device.type)
+        return place, operand_bytes(n_eng, rows_max)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -178,6 +255,8 @@ class Dispatcher:
         entry = self.cache.get(key, stats)
         if entry is None:
             self._fault(site, "compile", stats)
+            self.cache.reserve(*self._placement(
+                planned.kind, ladder_operand_rows(planned, n_eng), n_eng))
             entry = build_ladder_entry(planned, n_eng, self.samples, stats,
                                        device=self.device,
                                        ctas_per_engine=self.ctas_per_engine)
@@ -237,9 +316,11 @@ class Dispatcher:
         entry = self.cache.get(key, stats)
         if entry is None:
             self._fault(site, "compile", stats)
+            rows_max = max(r[2] for r in roles)
+            self.cache.reserve(*self._placement(kind, rows_max, n_eng))
             entry = build_program(
                 [roles], n_eng, kind=kind, samples=1, subsets=None,
-                op_roles=roles, rows_max=max(r[2] for r in roles),
+                op_roles=roles, rows_max=rows_max,
                 device=self.device, ctas_per_engine=self.ctas_per_engine,
                 stats=stats)
             self.cache.put(key, entry)

@@ -27,7 +27,7 @@ from repro_torch.core.exec import plan as exec_plan
 from repro_torch.core.exec.assemble import observer_result
 from repro_torch.core.exec.resilience import (
     EntryOutcome, GroupExecutionError, QualityGate, RetryPolicy,
-    _Ctx, _GroupState, _NON_RETRYABLE, _attempt_rung, run_group)
+    _Ctx, _GroupState, _attempt_rung, is_fatal, run_group)
 
 log = logging.getLogger(__name__)
 
@@ -202,13 +202,8 @@ def execute_rung_path(dispatcher, triples, *, n_eng: int, activity: str,
             try:
                 elapsed, rung_fenced, spread, rung_aot = _attempt_rung(
                     ctx, roles, kind, state)
-            except _NON_RETRYABLE as exc:
-                raise GroupExecutionError(
-                    f"dispatch group (specs=[{spec.name!r}], observers="
-                    f"[{obs.pool!r}:{obs.strategy!r}], buffers=[{buf}])",
-                    exc) from exc
             except Exception as exc:
-                if not ctx.policy.modeled_floor:
+                if is_fatal(exc, activity) or not ctx.policy.modeled_floor:
                     raise GroupExecutionError(
                         f"dispatch group (specs=[{spec.name!r}], "
                         f"observers=[{obs.pool!r}:{obs.strategy!r}], "

@@ -146,6 +146,10 @@ class CompiledProgram:
         self.xf = xf
         self.xi = xi
         self.dst = _build.empty_like_placed(xf)   # pinned beside pinned
+        # where the operands live and their bytes: the cache's byte bound
+        self.place = "pinned_host" if xf.is_pinned() else xf.device.type
+        self.nbytes = sum(t.numel() * t.element_size()
+                          for t in (xf, xi, self.dst))
         self.ctas = ctas_per_engine
         self.aot = False                # nothing is compiled per program
 
@@ -193,6 +197,38 @@ def build_program(rows: Sequence[Tuple[Tuple, ...]], n_eng: int, *,
                            xf, xi, ctas_per_engine)
 
 
+def operand_bytes(n_eng: int, rows_max: int) -> int:
+    """Bytes of one program's operands: ``xf``, ``xi`` and ``dst``, each
+    (n_eng, rows_max, 128) of 4-byte elements."""
+    return 3 * n_eng * rows_max * LINE_BYTES
+
+
+def _full_width(planned: PlannedDispatch, n_eng: int):
+    """The planned rungs expanded to every engine, the roles the
+    operands are seeded from, and the widest role's rows."""
+    idle_iters = planned.rungs[0][0][3]
+    full_rungs = []
+    for roles in planned.rungs:
+        row = (list(roles) if planned.probe
+               else list(roles) * planned.n_subsets)
+        while len(row) < n_eng:
+            row.append(("i", None, 1, idle_iters))
+        full_rungs.append(tuple(row))
+    if planned.probe:
+        op_roles = merge_probe_operand_roles(full_rungs)
+        rows_max = max(r[2] for row in full_rungs for r in row)
+    else:
+        op_roles = full_rungs[-1]
+        rows_max = max(r[2] for r in op_roles)
+    return full_rungs, op_roles, rows_max
+
+
+def ladder_operand_rows(planned: PlannedDispatch, n_eng: int) -> int:
+    """The operands' rows of :func:`build_ladder_entry`'s program, known
+    before it is built."""
+    return _full_width(planned, n_eng)[2]
+
+
 def build_ladder_entry(planned: PlannedDispatch, n_eng: int, samples: int,
                        stats, *, device,
                        ctas_per_engine: int) -> CompiledProgram:
@@ -209,20 +245,7 @@ def build_ladder_entry(planned: PlannedDispatch, n_eng: int, samples: int,
     are steps [w*K*S, (w+1)*K*S): every stacked rung sample keeps its own
     barrier pair and stamp pair, and wave w+1 starts behind wave w as
     rung k+1 behind rung k."""
-    idle_iters = planned.rungs[0][0][3]
-    full_rungs = []
-    for roles in planned.rungs:
-        row = (list(roles) if planned.probe
-               else list(roles) * planned.n_subsets)
-        while len(row) < n_eng:
-            row.append(("i", None, 1, idle_iters))
-        full_rungs.append(tuple(row))
-    if planned.probe:
-        op_roles = merge_probe_operand_roles(full_rungs)
-        rows_max = max(r[2] for row in full_rungs for r in row)
-    else:
-        op_roles = full_rungs[-1]
-        rows_max = max(r[2] for r in op_roles)
+    full_rungs, op_roles, rows_max = _full_width(planned, n_eng)
     if planned.waves > 1 and not planned.probe:
         full_rungs = full_rungs * planned.waves
     return build_program(full_rungs, n_eng, kind=planned.kind,

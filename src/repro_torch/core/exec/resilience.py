@@ -32,7 +32,12 @@ with its imports re-pointed: the same env var, spellings, hash draws and
 ladder, so one seed gives the same fault schedule in both packages.  One
 change: a fused group's ``timing_source`` is the dispatcher's clock
 (``"device"`` on the card, ``"host"`` for the plain version on the CPU)
-where the reference always writes ``"device"``.
+where the reference always writes ``"device"``.  And one rule of the
+card's: with ``activity == "cuda"`` a failure the card itself raised (a
+build, a launch, a CUDA error, running out of memory) is never retried,
+degraded or modeled, but raised (:func:`is_fatal`); only injected faults
+and corrupt decoded timings walk the ladder there, so a CurveDB from the
+card holds kernel results or nothing.
 """
 from __future__ import annotations
 
@@ -96,6 +101,16 @@ def group_context(entries) -> str:
     bufs = sorted({e.buffer_bytes for e in entries})
     return (f"dispatch group (specs={specs}, observers={observers}, "
             f"buffers={bufs})")
+
+
+def is_fatal(exc: BaseException, activity: str) -> bool:
+    """True for an error no retry, degradation or modeled floor may
+    cover: a programming error anywhere, and on the card (``"cuda"``)
+    every error but an injected fault or a corrupt decoded timing."""
+    if isinstance(exc, _NON_RETRYABLE):
+        return True
+    return activity == "cuda" and not isinstance(
+        exc, (InjectedFault, _CorruptTiming))
 
 
 def classify_fault(exc: BaseException) -> str:
@@ -356,10 +371,10 @@ def _run_group(ctx: _Ctx, planned, state: _GroupState,
         med, spread, fenced, aot = _attempt_planned(ctx, planned, state)
     except GroupExecutionError:
         raise
-    except _NON_RETRYABLE as exc:
-        raise GroupExecutionError(group_context(planned.entries),
-                                  exc) from exc
     except Exception as exc:
+        if is_fatal(exc, ctx.activity):
+            raise GroupExecutionError(group_context(planned.entries),
+                                      exc) from exc
         return _degrade(ctx, planned, state, exc)
     med, spread, noisy = _apply_gate(ctx, planned, med, spread, state)
     return _pack_outcomes(ctx, planned, med, spread, fenced, aot,
@@ -376,9 +391,9 @@ def _attempt_planned(ctx: _Ctx, planned, state: _GroupState):
         try:
             med, spread, fenced, aot = ctx.dispatcher.run_planned(
                 planned, ctx.n_eng, ctx.activity, ctx.mode, ctx.stats)
-        except _NON_RETRYABLE:
-            raise
         except Exception as exc:
+            if is_fatal(exc, ctx.activity):
+                raise
             state.note(exc)
             last = exc
             continue
@@ -403,9 +418,9 @@ def _apply_gate(ctx: _Ctx, planned, med, spread, state: _GroupState):
         try:
             med2, spread2, _f, _a = ctx.dispatcher.run_planned(
                 planned, ctx.n_eng, ctx.activity, ctx.mode, ctx.stats)
-        except _NON_RETRYABLE:
-            raise
         except Exception as exc:        # a fault burned the remeasure
+            if is_fatal(exc, ctx.activity):
+                raise
             state.note(exc)
             break
         # the remeasure re-ran the SAME rungs: keep the logical
@@ -473,9 +488,9 @@ def _attempt_rung(ctx: _Ctx, roles, kind, state: _GroupState):
         try:
             elapsed, fenced, spread, aot = ctx.dispatcher.run_rung(
                 roles, ctx.n_eng, ctx.activity, kind, ctx.stats)
-        except _NON_RETRYABLE:
-            raise
         except Exception as exc:
+            if is_fatal(exc, ctx.activity):
+                raise
             state.note(exc)
             last = exc
             continue
@@ -505,11 +520,8 @@ def _run_rungs(ctx: _Ctx, planned, state: _GroupState,
                 ctx, roles, planned.kind, state)
         except GroupExecutionError:
             raise
-        except _NON_RETRYABLE as exc:
-            raise GroupExecutionError(group_context(planned.entries),
-                                      exc) from exc
         except Exception as exc:
-            if not ctx.policy.modeled_floor:
+            if is_fatal(exc, ctx.activity) or not ctx.policy.modeled_floor:
                 raise GroupExecutionError(
                     group_context(planned.entries), exc) from exc
             state.note(exc)

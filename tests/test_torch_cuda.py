@@ -15,10 +15,10 @@ import torch
 from repro_torch import compat
 from repro_torch.core import (characterize, coordinator, devicetree,
                               interface, pools, scenarios)
-from repro_torch.core.exec import fence, program
+from repro_torch.core.exec import fence, program, resilience
 from repro_torch.core.exec.dispatch import DispatchStats
-from repro_torch.kernels import (chase, compute_probe, contention, counts,
-                                 ref, stream)
+from repro_torch.kernels import (_build, chase, compute_probe, contention,
+                                 counts, ref, stream)
 
 pytestmark = pytest.mark.cuda
 
@@ -250,16 +250,25 @@ def test_fence_negative_on_the_card(card):
     assert stamped[[0, 2, 4, 6]].all() and not stamped[[1, 3, 5, 7]].any()
 
 
-def test_spmd_plain_activity_on_the_card_raises(card):
-    with pytest.raises(coordinator.ValidationError, match="nothing falls"):
-        coordinator.CoreCoordinator(pools.PoolManager(devicetree.H100_SXM),
-                                    backend="spmd", spmd_activity="plain")
+def test_a_failed_ladder_launch_raises_on_the_card(card):
+    """A launch the card refuses (more CTAs than can be co-resident) is
+    raised, not retried into host-timed or modeled rungs."""
+    coord = coordinator.CoreCoordinator(
+        pools.PoolManager(devicetree.H100_SXM), backend="spmd")
+    coord._dispatcher.ctas_per_engine = 1024
+    spec = scenarios.ScenarioSpec(
+        "refused", scenarios.ObserverSpec("r", "hbm", (1 << 20,)),
+        (scenarios.StressorSpec("w", "hbm", 1 << 20),), iters=2)
+    before = counts.LAUNCHES["contention_ladder"]
+    with pytest.raises(resilience.GroupExecutionError) as ei:
+        coord.run_matrix([spec])
+    assert isinstance(ei.value.cause, _build.KernelLaunchError)
+    assert counts.LAUNCHES["contention_ladder"] == before
 
 
 def test_spmd_ladder_on_the_card(card):
     coord = coordinator.CoreCoordinator(
-        pools.PoolManager(devicetree.H100_SXM), backend="spmd",
-        spmd_cache_cap=1)
+        pools.PoolManager(devicetree.H100_SXM), backend="spmd")
     spec = scenarios.ScenarioSpec(
         "card", scenarios.ObserverSpec("r", "hbm", (16 << 20,)),
         (scenarios.StressorSpec("w", "hbm", 16 << 20),), iters=4)

@@ -37,9 +37,11 @@ from repro_torch.core.devicetree import H100_SXM
 from repro_torch.core.exec import fence
 from repro_torch.core.exec import journal as exec_journal
 from repro_torch.core.exec import plan, program
+from repro_torch.core.exec import dispatch
 from repro_torch.core.exec import resilience as res
 from repro_torch.core.exec.dispatch import DispatchStats, ProgramCache
 from repro_torch.core.pools import PoolManager
+from repro_torch.kernels import _build
 from repro_torch.kernels import contention as kc
 from repro_torch.kernels import ref
 
@@ -412,6 +414,57 @@ def test_program_cache_eviction_drops_operands():
     assert cache.get(("k2",), st) is e2 and st.program_cache_hits == 1
 
 
+def test_program_cache_bounds_operand_bytes_before_a_build():
+    """Entries go, oldest first and only from the same memory, until the
+    new program fits; one that cannot fit alone raises before anything
+    is built."""
+    st = DispatchStats()
+    mk = lambda: program.build_program(  # noqa: E731
+        [(("r", None, 8, 1), ("i", None, 1, 1))], 2, kind=None, samples=1,
+        subsets=None, op_roles=[("r", None, 8, 1), ("i", None, 1, 1)],
+        rows_max=8, device="cpu", ctas_per_engine=1, stats=st)
+    one = program.operand_bytes(2, 8)
+    assert mk().nbytes == one and mk().place == "cpu"
+    seen = []
+
+    def capacity(place, held):
+        seen.append((place, held))
+        return 2 * one if place == "cpu" else None
+
+    cache = ProgramCache(8, capacity)
+    for k in ("a", "b"):
+        cache.reserve("cpu", one)
+        cache.put((k,), mk())
+    other = mk()
+    other.place = "pinned_host"
+    cache.put(("p",), other)
+    cache.reserve("cpu", one)           # a and b hold the room: a goes
+    assert list(cache.entries) == [("b",), ("p",)]
+    assert seen[-1] == ("cpu", 2 * one)
+    cache.reserve("pinned_host", 100 * one)     # no bound there
+    with pytest.raises(dispatch.ProgramMemoryError):
+        cache.reserve("cpu", 3 * one)
+    assert list(cache.entries) == [("p",)]
+    assert dispatch.operand_capacity(torch.device("cpu"), "cpu", 0) is None
+
+
+def test_dispatcher_reserves_before_it_builds():
+    p = _plan(names=("solo",))
+    d = dispatch.Dispatcher(4, 1, device="cpu", ctas_per_engine=1)
+    need = program.operand_bytes(
+        8, program.ladder_operand_rows(p.dispatches[0], 8))
+    d.cache.capacity = lambda place, held: need - 1
+    st = DispatchStats()
+    with pytest.raises(dispatch.ProgramMemoryError):
+        d.run_planned(p.dispatches[0], 8, "plain", "batched", st)
+    assert st.programs_built == 0
+    d.cache.capacity = lambda place, held: need
+    d.run_planned(p.dispatches[0], 8, "plain", "batched", st)
+    assert st.programs_built == 1
+    (entry,) = d.cache.entries.values()
+    assert entry.nbytes == need
+
+
 # ---------------------------------------------------------------------------
 # resilience + journal
 # ---------------------------------------------------------------------------
@@ -491,12 +544,12 @@ def _plan(names=("a", "b", "c", "d"), packed=False, bufs=None):
     return plan.pack_engine_subsets(p) if packed else p
 
 
-def _run(disp, p, policy=None, gate=None, stats=None):
+def _run(disp, p, policy=None, gate=None, stats=None, activity="plain"):
     stats = stats or DispatchStats()
     outs = []
     for planned in p.dispatches:
         outs.extend(res.run_group(
-            disp, planned, n_eng=p.n_engines, activity="plain",
+            disp, planned, n_eng=p.n_engines, activity=activity,
             mode="batched", stats=stats,
             policy=policy or res.RetryPolicy(backoff_s=0, sleep=NOOP),
             gate=gate))
@@ -578,6 +631,49 @@ def test_non_retryable_error_names_its_group():
     assert all(f"'{n}'" in str(ei.value) for n in "abcd")
     assert isinstance(ei.value.cause, ValueError)
     assert len(disp.planned_calls) == 1
+
+
+_CARD_FAILURES = (
+    _build.KernelLaunchError("contention_ladder: CUDA error 720"),
+    _build.KernelBuildError("nvcc failed on contention.cu"),
+    torch.OutOfMemoryError("CUDA out of memory"),
+    RuntimeError("CUDA error: unspecified launch failure"))
+
+
+@pytest.mark.parametrize("err", _CARD_FAILURES,
+                         ids=lambda e: type(e).__name__)
+def test_card_failures_raise_instead_of_degrading(err):
+    """On the card a failure of the card's own is raised at once: no
+    retry, no degradation, no modeled floor.  The same error from the
+    plain path on the CPU still walks the ladder."""
+    disp = FakeDispatcher(default=err)
+    with pytest.raises(res.GroupExecutionError) as ei:
+        _run(disp, _plan(packed=True), activity="cuda")
+    assert ei.value.cause is err and len(disp.planned_calls) == 1
+    assert not disp.rung_calls
+    pol = res.RetryPolicy(retries=0, backoff_s=0, sleep=NOOP)
+    triples = [(s, s.observer, BUF) for s in (_spec("solo"),)]
+    with pytest.raises(res.GroupExecutionError):
+        exec_journal.execute_rung_path(
+            FakeDispatcher(default=err), triples, n_eng=8,
+            activity="cuda", stats=DispatchStats(), depth_fn=lambda s: 2,
+            pools=PoolManager(H100_SXM, "cpu"), policy=pol)
+    outs, st = _run(FakeDispatcher(default=err), _plan(packed=True),
+                    activity="plain")
+    assert st.modeled_floor_ladders == 4
+
+
+def test_injected_faults_still_degrade_on_the_card():
+    assert res.is_fatal(ValueError("x"), "plain")
+    assert not res.is_fatal(res.InjectedFault("timeout", "s"), "cuda")
+    pol = res.RetryPolicy(retries=0, backoff_s=0, sleep=NOOP)
+    disp = FakeDispatcher(["runtime_error", "ok"])
+    outs, st = _run(disp, _plan(packed=True), policy=pol, activity="cuda")
+    assert [d.packed for d in disp.planned_calls] == [True, False]
+    assert all(o.timing["degraded_from"] == "packed" for o in outs)
+    outs, st = _run(FakeDispatcher(["corrupt", "ok"]), _plan(packed=True),
+                    activity="cuda")
+    assert st.retried_dispatches == 1 and st.degraded_ladders == 0
 
 
 def test_quality_gate_remeasures_flags_and_can_be_off():
