@@ -7,16 +7,19 @@ Run from the root of a checkout, with one card and no arguments:
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc``, holds every kernel against its plain PyTorch version on the
-card, drives the port's three paths at the sizes a user of the toolkit
+card, drives the port's four paths at the sizes a user of the toolkit
 would call real on this card — one experiment at a time (config string ->
 MemscopeInterface -> CoreCoordinator -> workload -> kernel -> modeled
 rungs), the characterization loop (characterize / characterize_matrix
 / characterize_surface -> run_matrix -> one member-axis launch per
-signature group -> CurveDB -> PlacementAdvisor), and the executed
+signature group -> CurveDB -> PlacementAdvisor), the executed
 contention ladder (run_matrix on the ``spmd`` backend -> plan -> one
 persistent ladder launch per signature group, observer and stressor
-engines between barriers -> fence check -> CurveDB) — checks the results,
-and times every kernel beside its bound.  One JSON object per phase goes to
+engines between barriers -> fence check -> CurveDB), and the kernels
+package's attention and triad entry points (``ops.flash_attention`` at the
+widths of qwen2-1.5b and gemma3-1b from ``repro_torch.configs``, 32k
+tokens, and ``ops.stream_triad`` on 1 GiB) — checks the results, and
+times every kernel beside its bound.  One JSON object per phase goes to
 standard output; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase makes the exit code non-zero and withholds that line.
@@ -44,6 +47,8 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from repro_torch import compat  # noqa: E402
+from repro_torch.configs import SHAPES as MODEL_SHAPES  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import coordinator as coordinator_mod  # noqa: E402
 from repro_torch.core import workloads  # noqa: E402
 from repro_torch.core.characterize import (CurveDB,  # noqa: E402
@@ -67,12 +72,14 @@ from repro_torch.core.scenarios import (ObserverSpec,  # noqa: E402
                                         ScenarioSpec, StressorSpec,
                                         TrafficShape)
 from repro_torch.kernels import (_build, chase, compute_probe,  # noqa: E402
-                                 contention, counts, ref, stream)
+                                 contention, counts, flash_attention, ops,
+                                 ref, stream)
 
 DEV = torch.device("cuda")
 # published peaks of the H100 SXM (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12     # dense bf16 on the tensor cores
 PCIE_GBPS = 64.0               # PCIe Gen5 x16, one direction
 SECTOR_BYTES = 32              # the least the device memory moves for a load
 # main-path sizes
@@ -83,7 +90,10 @@ FAILURES: list = []
 # the kernels of the executed contention ladder; every other kernel is the
 # single-observer paths'
 SPMD_KERNELS = ("contention_ladder", "probe_add_one")
-OBSERVER_KERNELS = tuple(k for k in counts.KERNELS if k not in SPMD_KERNELS)
+# the kernels of the attention and triad entry points
+ATTENTION_KERNELS = ("triad_hbm", "flash_attention")
+OBSERVER_KERNELS = tuple(k for k in counts.KERNELS
+                         if k not in SPMD_KERNELS + ATTENTION_KERNELS)
 
 
 def emit(obj) -> None:
@@ -222,7 +232,13 @@ def phase_kernels(main_rows: int) -> dict:
         out = stream.copy_hbm(x)
         err = float((out - x).abs().max())
         case(cases, "copy_hbm", x.shape, err, 0.0, keep=keep)
-        del out, x
+
+        # the product and the sum rounded apart on both sides: exact
+        c = uniform(rows, 7)
+        out = stream.triad_hbm(x, c, scalar=3.0)
+        err = float((out - ref.triad_ref(x, c, 3.0)).abs().max())
+        case(cases, "triad_hbm", x.shape, err, 0.0, keep=keep)
+        del out, x, c
 
     xb = uniform(512, 2).to(torch.bfloat16)
     got, want = stream.rmw_hbm(xb).float(), ref.rmw_ref(xb).float()
@@ -935,8 +951,8 @@ def dataclass_dict(obj) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def bound(bytes_: float, ops_: float):
-    by_bytes, by_ops = bytes_ / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S
+def bound(bytes_: float, ops_: float, ops_per_s: float = FP32_OPS_PER_S):
+    by_bytes, by_ops = bytes_ / HBM_BYTES_PER_S, ops_ / ops_per_s
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -1451,6 +1467,217 @@ def spmd_perf(at_spmd: dict, launched: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the attention and triad entry points — ops.flash_attention at
+# the widths of qwen2-1.5b and gemma3-1b over prefill_32k's 32k tokens, and
+# ops.stream_triad on 1 GiB
+# ---------------------------------------------------------------------------
+
+# prefill_32k's global batch of 32 is cut to 1 for the script's time limit
+ATTN_BATCH = 1
+# the reference's tolerances against its dense oracle (tests/test_kernels.py)
+ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+TILING_ATOL = 1e-5
+# the local call against the global one at gemma3-1b's widths: the work
+# ratio is about 1/32, so an admissible-range loop that works is far below
+WINDOW_SHARE_MAX = 1 / 8
+# the reference's six CASES: b, h, kvh, s, d, causal, window
+FLASH_CASES = [(1, 1, 1, 128, 64, True, 0), (2, 4, 2, 256, 64, True, 0),
+               (1, 4, 1, 256, 128, True, 0), (1, 2, 2, 256, 64, False, 0),
+               (1, 4, 2, 512, 64, True, 128), (2, 2, 1, 256, 32, True, 64)]
+TILINGS = ((128, 128), (256, 128), (128, 256), (512, 512), (96, 160),
+           (200, 200))
+
+
+def attention_calls():
+    """(label, config, causal, window) of the three full-width calls: the
+    configurations' own heads, KV heads and head dims."""
+    qwen, gemma = get_config("qwen2-1.5b"), get_config("gemma3-1b")
+    return [("qwen2-1.5b, causal", qwen, True, 0),
+            ("gemma3-1b local, causal + window", gemma, True,
+             gemma.sliding_window),
+            ("gemma3-1b global, causal", gemma, True, 0)]
+
+
+def qkv(b, h, kvh, sq, sk, d, dtype, seed=0, scale=0.5):
+    """q, k, v from a seed, made on the card."""
+    out = []
+    for i, shape in enumerate(((b, h, sq, d), (b, kvh, sk, d),
+                               (b, kvh, sk, d))):
+        g = torch.Generator(device=DEV).manual_seed(seed + i)
+        out.append((torch.randn(shape, generator=g, device=DEV) * scale)
+                   .to(dtype))
+    return out
+
+
+def admitted_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the masks admit, positions from 0."""
+    qp = np.arange(sq)
+    hi = np.minimum(sk, qp + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def attention_small_cases() -> list:
+    """The kernel against the dense oracle and the plain version at the
+    reference's small shapes: comparisons, not the counted path."""
+    cases: list = []
+    fa = flash_attention.flash_attention
+    for b, h, kvh, s_, d, causal, window in FLASH_CASES:
+        for dtype, tol in ATTN_ATOL.items():
+            q, k, v = qkv(b, h, kvh, s_, s_, d, dtype)
+            err = diff(fa(q, k, v, causal=causal, window=window),
+                       ref.attention_ref(q, k, v, causal=causal,
+                                         window=window))
+            case(cases, "flash_attention", q.shape, err, tol,
+                 {"dtype": str(dtype), "causal": causal, "window": window,
+                  "vs": "dense"})
+    # the kernel ignores block_q/block_k; the plain version runs each tiling
+    q, k, v = qkv(1, 2, 2, 512, 512, 64, torch.float32, seed=4, scale=0.3)
+    base = fa(q, k, v, causal=True)
+    for bq, bk in TILINGS:
+        err = max(diff(fa(q, k, v, causal=True, block_q=bq, block_k=bk), base),
+                  diff(ref.flash_attention_ref(q, k, v, causal=True,
+                                               block_q=bq, block_k=bk), base))
+        case(cases, "flash_attention", q.shape, err, TILING_ATOL,
+             {"tiling": [bq, bk], "vs": "the kernel, kernel and plain"})
+    # ragged lengths, then Sq != Sk both ways
+    for sq, sk, causal, window in ((192, 192, True, 0), (320, 320, True, 64),
+                                   (160, 160, False, 0), (200, 328, True, 0),
+                                   (328, 200, True, 0)):
+        q, k, v = qkv(1, 2, 2, sq, sk, 64, torch.float32, seed=1)
+        err = diff(fa(q, k, v, causal=causal, window=window),
+                   ref.attention_ref(q, k, v, causal=causal, window=window))
+        case(cases, "flash_attention", q.shape, err, ATTN_ATOL[torch.float32],
+             {"sk": sk, "causal": causal, "window": window, "vs": "dense"})
+    # rows past sk - 1 + window admit no key: 0, as the reference returns
+    q, k, v = qkv(1, 2, 1, 64, 16, 32, torch.float32)
+    got = fa(q, k, v, causal=False, window=8)
+    err = max(diff(got, ref.flash_attention_ref(q, k, v, causal=False,
+                                                window=8)),
+              float(got[:, :, 16 - 1 + 8:].abs().max()))
+    case(cases, "flash_attention", q.shape, err, ATTN_ATOL[torch.float32],
+         {"sk": 16, "causal": False, "window": 8,
+          "vs": "plain; rows with no key are 0"})
+    return cases
+
+
+def library_attention_ms(q, k, v, n: int) -> float:
+    """The yardstick, which the port never calls: one PyTorch call that
+    computes the same causal attention on the same inputs, timed as the
+    kernels are."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), n)
+
+
+def phase_attention() -> list:
+    """Drives the path through ``ops.flash_attention`` (three calls at full
+    width) and ``ops.stream_triad`` (1 GiB) between a reset and a read of
+    the counts; then holds each result against its plain version on the
+    same inputs and times both.  Returns the two kernels' rows of the
+    ``kernels`` line."""
+    small = attention_small_cases()
+    seq = MODEL_SHAPES["prefill_32k"].seq_len
+    calls = []
+    for i, (label, cfg, causal, window) in enumerate(attention_calls()):
+        q, k, v = qkv(ATTN_BATCH, cfg.n_heads, cfg.n_kv_heads, seq, seq,
+                      cfg.head_dim, torch.bfloat16, seed=10 * i)
+        calls.append((label, cfg, dict(causal=causal, window=window),
+                      (q, k, v)))
+    rows = rows_of(G1)
+    b = workloads.bw_buffer_init((rows, 128), torch.float32).to(DEV)
+    c = uniform(rows, 8)
+    sync()
+
+    counts.reset()
+    outs = [ops.flash_attention(*t, **kw) for _, _, kw, t in calls]
+    triad = ops.stream_triad(b, c, scalar=3.0)
+    sync()
+    launched, plain = counts.snapshot()
+
+    checks, recs = {}, []
+    for (label, cfg, kw, t), out in zip(calls, outs):
+        q = t[0]
+        err = diff(out, ref.flash_attention_ref(*t, **kw))
+        pairs = admitted_pairs(seq, seq, kw["causal"], kw["window"])
+        ops_ = 4 * cfg.head_dim * cfg.n_heads * ATTN_BATCH * pairs
+        # q, k and v read once, the output (q's shape) written once
+        bytes_ = sum(x.numel() for x in (q, *t)) * q.element_size()
+        b_ms, b_by = bound(bytes_, ops_, BF16_TC_OPS_PER_S)
+        fp32_ms, _ = bound(bytes_, ops_)
+        ms = time_ms(lambda: ops.flash_attention(*t, **kw), 3)
+        causal_only = kw["causal"] and not kw["window"]
+        recs.append({
+            "call": label, "config": cfg.name, "batch": ATTN_BATCH,
+            "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "seq": seq, "dtype": "bfloat16", **kw,
+            "admitted_pairs": pairs, "operations": ops_, "bytes": bytes_,
+            "max_abs_err": err, "tol": ATTN_ATOL[torch.bfloat16],
+            "finite": bool(torch.isfinite(out.float()).all()),
+            "shape_ok": tuple(out.shape) == tuple(q.shape)
+            and out.dtype == q.dtype,
+            "ms": ms,
+            "plain_ms": time_ms(lambda: ref.flash_attention_ref(*t, **kw), 1),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_fp32": fp32_ms,
+            # the library's attention call has no sliding window short of
+            # a dense 32k x 32k mask: no yardstick for the local call
+            "library_ms": library_attention_ms(*t, 3) if causal_only
+            else None,
+            "tflops": ops_ / ms / 1e9})
+        checks[f"within_tol:{label}"] = err <= ATTN_ATOL[torch.bfloat16]
+        checks[f"finite_and_shaped:{label}"] = (recs[-1]["finite"]
+                                                and recs[-1]["shape_ok"])
+    del outs, calls
+    local, glob = recs[1]["ms"], recs[2]["ms"]
+    checks["window_at_most_1/8_of_global"] = local <= WINDOW_SHARE_MAX * glob
+    triad_err = float((triad - ref.triad_ref(b, c, 3.0)).abs().max())
+    checks["triad_exact"] = triad_err == 0.0
+    for k in ATTENTION_KERNELS:
+        checks[f"launched:{k}"] = launched[k] > 0
+        checks[f"no_plain_version:{k}"] = plain[k] == 0
+    checks["small_cases"] = all(c_["ok"] for c_ in small)
+    emit({"phase": "attention", "n_small_cases": len(small),
+          "n_small_ok": sum(c_["ok"] for c_ in small),
+          "failed_small_cases": [c_ for c_ in small if not c_["ok"]],
+          "calls": recs, "window_over_global": local / glob,
+          "launches": {k: launched[k] for k in ATTENTION_KERNELS},
+          "plain_calls": {k: plain[k] for k in ATTENTION_KERNELS},
+          "checks": checks})
+    for k_, ok in checks.items():
+        if not ok:
+            fail(f"attention: check {k_}")
+
+    nbytes = rows * 512
+    t_ms, t_by = bound(3 * nbytes, 2 * rows * 128)
+    main = recs[0]
+    return [
+        {"name": "triad_hbm", "route": "cuda", "source": CSRC + "stream.cu",
+         "replaces": "src/repro/kernels/stream.py:174",
+         "launches": launched["triad_hbm"], "max_abs_err": triad_err,
+         "tol": 0.0, "ms": time_ms(lambda: ops.stream_triad(b, c), 20),
+         "plain_ms": time_ms(lambda: ref.triad_ref(b, c, 3.0), 20),
+         "bound_ms": t_ms, "bound_by": t_by,
+         "library_ms": time_ms(lambda: torch.add(b, c, alpha=3.0), 20),
+         "shape": "b, c, out (2097152, 128) f32, 1 GiB each"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": CSRC + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:96",
+         "launches": launched["flash_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in recs),
+         "tol": ATTN_ATOL[torch.bfloat16],
+         **{k_: main[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "bound_ms_fp32")},
+         "shape": "the qwen2-1.5b call; every call under calls",
+         "calls": [{k_: r[k_] for k_ in (
+             "call", "ms", "plain_ms", "bound_ms", "bound_by",
+             "bound_ms_fp32", "library_ms", "max_abs_err", "tflops")}
+             for r in recs]}]
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1495,10 +1722,15 @@ def main() -> int:
     if any(s_plain.values()):
         fail("spmd: a plain version ran on the card's path")
 
+    # the attention and triad entry points: the phase resets and reads the
+    # counts around its own path
+    attention_rows = phase_attention()
+
     phase_checks(records, launched, plain)
     kernels = phase_perf(at_main, {k: launched[k] + m_launched[k]
                                    for k in launched}, records)
     kernels += spmd_perf(at_spmd, s_launched)
+    kernels += attention_rows
     sync()
     if FAILURES:
         sys.stderr.write("chip_smoke: %d failure(s):\n  %s\n"

@@ -12,7 +12,8 @@ from typing import Dict, Tuple
 
 KERNELS = ("read_hbm", "write_hbm", "write_hbm_seeded", "rmw_hbm",
            "copy_hbm", "read_vmem", "write_vmem", "chase_vmem", "chase_hbm",
-           "mxu_probe", "contention_ladder", "probe_add_one")
+           "mxu_probe", "contention_ladder", "probe_add_one", "triad_hbm",
+           "flash_attention")
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -1,4 +1,5 @@
-// Sequential bandwidth kernels (strategy letters r/s/w/y/x/c/b) for sm_90a.
+// Sequential bandwidth kernels (strategy letters r/s/w/y/x/c/b, and the
+// STREAM triad) for sm_90a.
 //
 // Plain C interface, loaded with ctypes.  Every entry point launches on the
 // stream it is given, does not synchronise, allocates nothing, and returns
@@ -17,7 +18,8 @@
 // the pass time assumes.
 //
 // Four designs:
-//   (A) grid-stride stream of 16-byte accesses: write, write_seeded, rmw, copy
+//   (A) grid-stride stream of 16-byte accesses: write, write_seeded, rmw,
+//       copy, triad
 //   (B) the same stream with a block reduction to one partial per CTA: read
 //   (C) a CTA keeps its tile in shared memory and walks it `repeats` times:
 //       read_tile / write_tile (the on-chip residency pair)
@@ -94,6 +96,36 @@ __global__ void rmw_bf16_kernel(const uint4* __restrict__ x,
 __global__ void copy_kernel(const uint4* __restrict__ x,
                             uint4* __restrict__ out, long long n_vec) {
   roles::copy_strided(x, out, global_thread(), n_vec, grid_threads());
+}
+
+// ---- (A) triad: b + scalar * c into a third buffer ---------------------------
+// Two roundings, as the plain version takes them: the product, then the sum
+// (a fused multiply-add would round once and differ).  Four units of each
+// operand are loaded before their four stores.
+__device__ __forceinline__ float4 triad4(float4 b, float4 c, float s) {
+  return make_float4(__fadd_rn(b.x, __fmul_rn(s, c.x)),
+                     __fadd_rn(b.y, __fmul_rn(s, c.y)),
+                     __fadd_rn(b.z, __fmul_rn(s, c.z)),
+                     __fadd_rn(b.w, __fmul_rn(s, c.w)));
+}
+
+__global__ void triad_kernel(const float4* __restrict__ b,
+                             const float4* __restrict__ c,
+                             float4* __restrict__ out, long long n_vec,
+                             float scalar) {
+  const long long step = grid_threads();
+  long long i = global_thread();
+  for (; i + 3 * step < n_vec; i += 4 * step) {
+    float4 vb[4], vc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      vb[k] = b[i + k * step];
+      vc[k] = c[i + k * step];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[i + k * step] = triad4(vb[k], vc[k], scalar);
+  }
+  for (; i < n_vec; i += step) out[i] = triad4(b[i], c[i], scalar);
 }
 
 // ---- (C) on-chip residency pair ---------------------------------------------
@@ -223,6 +255,13 @@ int repro_copy_hbm(const void* x, void* out, long long n_vec, int grid,
                    void* stream) {
   copy_kernel<<<grid, kStreamThreads, 0, (cudaStream_t)stream>>>(
       (const uint4*)x, (uint4*)out, n_vec);
+  return (int)cudaGetLastError();
+}
+
+int repro_triad_hbm(const void* b, const void* c, void* out, long long n_vec,
+                    float scalar, int grid, void* stream) {
+  triad_kernel<<<grid, kStreamThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)b, (const float4*)c, (float4*)out, n_vec, scalar);
   return (int)cudaGetLastError();
 }
 

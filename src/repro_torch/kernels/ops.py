@@ -9,6 +9,7 @@ from __future__ import annotations
 from repro_torch.kernels import chase as _chase
 from repro_torch.kernels import compute_probe as _probe
 from repro_torch.kernels import contention as _contention
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import stream as _stream
 
 # --- stream ------------------------------------------------------------------
@@ -35,6 +36,10 @@ def stream_write_seeded(seed, *, rows: int, block_rows: int = 512, out=None):
 
 def stream_copy(x, *, block_rows: int = 512):
     return _stream.copy_hbm(x, block_rows=block_rows)
+
+
+def stream_triad(b, c, *, scalar: float = 3.0, block_rows: int = 512):
+    return _stream.triad_hbm(b, c, scalar=scalar, block_rows=block_rows)
 
 
 def stream_mixed(x, *, read_fraction: float, block_rows: int = 512,
@@ -77,3 +82,13 @@ def mxu_probe(a, *, iters: int = 64):
 
 contention_ladder = _contention.contention_ladder
 probe_add_one = _contention.probe_add_one
+
+
+# --- flash attention -----------------------------------------------------------
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    sm_scale=None, block_q: int = 128, block_k: int = 128):
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  sm_scale=sm_scale, block_q=block_q,
+                                  block_k=block_k)

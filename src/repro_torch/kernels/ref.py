@@ -7,7 +7,7 @@ member, what ``jax.vmap`` of the reference kernel gives.  Copy and rmw are
 elementwise and take any leading axes as they are."""
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +77,12 @@ def mixed_ref(x: torch.Tensor, read_fraction: float, value: float = 1.0,
                        dtype=torch.float32, device=x.device))
 
 
+def triad_ref(b: torch.Tensor, c: torch.Tensor,
+              scalar: float = 3.0) -> torch.Tensor:
+    """STREAM triad, two roundings: ``scalar * c``, then ``b +`` it."""
+    return b + scalar * c
+
+
 # --- chase -----------------------------------------------------------------
 
 
@@ -105,6 +111,100 @@ def mxu_probe_ref(a: torch.Tensor, iters: int) -> torch.Tensor:
     for _ in range(iters):
         out = out @ a.to(torch.float32)
     return out
+
+
+# --- flash attention ---------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                    window: int) -> torch.Tensor:
+    """Which (query, key) pairs are admitted; both positions count from 0."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    return mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,H,Sq,D); k,v: (B,KVH,Sk,D) -> (B,H,Sq,D).  The dense oracle:
+    the whole (Sq, Sk) score matrix, so small shapes only.  A row with no
+    admissible key gets the mean of v (a softmax over equal scores)."""
+    h, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    g = h // k.shape[1]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    k = k.repeat_interleave(g, dim=1)
+    v = v.repeat_interleave(g, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    mask = _attention_mask(torch.arange(sq, device=q.device),
+                           torch.arange(k.shape[2], device=q.device),
+                           causal, window)
+    s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        sm_scale: Optional[float] = None, block_q: int = 128,
+                        block_k: int = 128) -> torch.Tensor:
+    """The JAX package's online-softmax algorithm (``_flash_body``) in
+    PyTorch: a loop over KV blocks, each applied to every query block whose
+    skip predicates admit it, all those rows at once.  Memory is O(S·block)
+    for the scores and O(S·D) for the accumulator, so it runs at 32k
+    tokens.  Every rule of the Pallas body holds: masked scores are
+    ``NEG_INF`` and their ``p`` is 0, accumulation is float32 for any
+    input dtype, head ``h`` reads KV head ``h·KVH // H``, causal and window
+    positions both count from 0 (also when Sq != Sk), and a row with no
+    admissible key returns 0 (the reference divides by 1 where ``l == 0``).
+    A padded KV tail contributes nothing there, so only the real keys of
+    the last block are taken here."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    n_k = -(-sk // block_k)
+    qf = q.float().reshape(b, kvh, g, sq, d)
+    m = torch.full((b, kvh, g, sq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, g, sq, d), dtype=torch.float32,
+                      device=q.device)
+    q_pos = torch.arange(sq, device=q.device)
+    for ik in range(n_k):
+        k0, k1 = ik * block_k, min((ik + 1) * block_k, sk)
+        # the query blocks iq whose predicates run this KV block:
+        # causal  ik*bk <= iq*bq + bq - 1
+        # window  ik*bk + bk - 1 > iq*bq - window
+        iq_lo = max(0, -(-(k0 - block_q + 1) // block_q)) if causal else 0
+        iq_hi = (-(-(k0 + block_k - 1 + window) // block_q) if window
+                 else -(-sq // block_q))
+        r0, r1 = iq_lo * block_q, min(iq_hi * block_q, sq)
+        if r0 >= r1:
+            continue
+        kf = k[:, :, None, k0:k1].float()               # (b, kvh, 1, bk, d)
+        vf = v[:, :, None, k0:k1].float()
+        s = qf[..., r0:r1, :] @ kf.transpose(-1, -2) * scale
+        mask = _attention_mask(q_pos[r0:r1],
+                               torch.arange(k0, k1, device=q.device),
+                               causal, window)
+        s = torch.where(mask, s, NEG_INF)
+        m_prev = m[..., r0:r1, :]
+        m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m_prev - m_new)
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        l[..., r0:r1, :] = l[..., r0:r1, :] * alpha + p.sum(-1, keepdim=True)
+        m[..., r0:r1, :] = m_new
+        acc[..., r0:r1, :] = acc[..., r0:r1, :] * alpha + p @ vf
+    safe = torch.where(l == 0.0, 1.0, l)
+    return (acc / safe).reshape(b, h, sq, d).to(q.dtype)
 
 
 # --- kernel-support probe ----------------------------------------------------

@@ -1,4 +1,5 @@
-"""Sequential bandwidth microbenchmark kernels (the paper's r/w/s/x/y/c/b).
+"""Sequential bandwidth microbenchmark kernels (the paper's r/w/s/x/y/c/b,
+and the STREAM triad).
 
 The wrappers of ``csrc/stream.cu``.  On the ZCU102 the paper's
 distinction is cacheable vs. non-cacheable *instructions*; on this card
@@ -233,6 +234,37 @@ def copy_hbm(x: torch.Tensor, *,
             out.data_ptr(), n_vec, _stream_grid(n_vec, dev),
             _build.current_stream(dev))
     counts.LAUNCHES["copy_hbm"] += 1
+    return out
+
+
+def triad_hbm(b: torch.Tensor, c: torch.Tensor, *, scalar: float = 3.0,
+              block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
+    """STREAM triad: ``b + scalar * c`` into a new buffer.
+
+    Replaces ``repro/kernels/stream.py:triad_hbm``.  Bound by bytes: each
+    line of ``b`` and ``c`` read once, each line of the result written
+    once.  Design (A): a grid-stride stream of 16-byte units, four of each
+    operand in flight a thread; the product and the sum are rounded apart
+    (no fused multiply-add), so the kernel agrees with the plain version
+    exactly.  ``b`` and ``c`` are (rows, 128) float32 of one shape."""
+    for t, what in ((b, "triad_hbm: b"), (c, "triad_hbm: c")):
+        _build.check_buffer(t, dtypes=(torch.float32,), what=what)
+    if b.shape != c.shape:
+        raise ValueError(f"triad_hbm: b {tuple(b.shape)} and c "
+                         f"{tuple(c.shape)} differ")
+    _grid_blocks(b.shape[0], block_rows)
+    if b.device != c.device or b.is_pinned() != c.is_pinned():
+        raise ValueError("triad_hbm: b and c must lie in the same memory")
+    if not _build.launches_kernel(b):
+        counts.PLAIN["triad_hbm"] += 1
+        return ref.triad_ref(b, c, scalar)
+    dev = _build.compute_device(b)
+    out = _build.empty_like_placed(b)
+    n_vec = b.numel() // 4
+    _launch("repro_triad_hbm", (_VP, _VP, _VP, _LL, _F, _I, _VP),
+            b.data_ptr(), c.data_ptr(), out.data_ptr(), n_vec, float(scalar),
+            _stream_grid(n_vec, dev), _build.current_stream(dev))
+    counts.LAUNCHES["triad_hbm"] += 1
     return out
 
 

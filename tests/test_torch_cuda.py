@@ -18,7 +18,7 @@ from repro_torch.core import (characterize, coordinator, devicetree,
 from repro_torch.core.exec import fence, program, resilience
 from repro_torch.core.exec.dispatch import DispatchStats
 from repro_torch.kernels import (_build, chase, compute_probe, contention,
-                                 counts, ref, stream)
+                                 counts, flash_attention, ref, stream)
 
 pytestmark = pytest.mark.cuda
 
@@ -281,3 +281,69 @@ def test_spmd_ladder_on_the_card(card):
     assert counts.LAUNCHES["contention_ladder"] == \
         res.stats.host_sync_dispatches
     assert not any(counts.PLAIN.values())
+
+
+@pytest.mark.parametrize("rows", [8, 1024, 4096 + 8])
+def test_triad_matches_plain_version_exactly(card, rows):
+    b, c = _arr(rows, 1).to(card), _arr(rows, 2).to(card)
+    # the product and the sum rounded apart on both sides
+    assert torch.equal(stream.triad_hbm(b, c, scalar=3.0, block_rows=8),
+                       ref.triad_ref(b, c, 3.0))
+    assert counts.LAUNCHES["triad_hbm"] == 1 and not any(counts.PLAIN.values())
+
+
+def _qkv(card, b, h, kvh, sq, sk, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal(shape) * 0.5)
+                             .astype(np.float32)).to(card, dtype)
+            for shape in ((b, h, sq, d), (b, kvh, sk, d), (b, kvh, sk, d))]
+
+
+# b, h, kvh, sq, sk, d, causal, window: the reference's six CASES, the
+# ragged set, Sq != Sk both ways, rows with no admissible key, and every
+# head dim the kernel takes
+FLASH_CASES = [
+    (1, 1, 1, 128, 128, 64, True, 0), (2, 4, 2, 256, 256, 64, True, 0),
+    (1, 4, 1, 256, 256, 128, True, 0), (1, 2, 2, 256, 256, 64, False, 0),
+    (1, 4, 2, 512, 512, 64, True, 128), (2, 2, 1, 256, 256, 32, True, 64),
+    (1, 2, 2, 192, 192, 64, True, 0), (1, 2, 2, 320, 320, 64, True, 64),
+    (1, 2, 2, 160, 160, 64, False, 0), (1, 4, 2, 200, 328, 64, True, 0),
+    (1, 4, 2, 328, 200, 128, False, 96), (1, 2, 1, 64, 16, 32, False, 8),
+    (1, 4, 2, 96, 96, 16, True, 0), (1, 4, 1, 130, 130, 256, True, 40),
+]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_the_dense_oracle(card, case, dtype, atol):
+    """The kernel against the dense oracle (the reference's tolerances:
+    2e-5 float32, 2e-2 bfloat16), and against the plain version; float32
+    products on the plain side without TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, kvh, sq, sk, d, causal, window = case
+    q, k, v = _qkv(card, b, h, kvh, sq, sk, d, dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), plain.float(), atol=atol, rtol=0)
+    if sk >= sq or causal:       # every row has an admissible key
+        dense = ref.attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), dense.float(), atol=atol,
+                                   rtol=0)
+    else:                        # the rows past sk - 1 + window: 0
+        assert not got[:, :, sk - 1 + window:].float().abs().max()
+    assert counts.LAUNCHES["flash_attention"] == 1
+    assert not any(counts.PLAIN.values())
+
+
+def test_flash_attention_refuses_on_the_card(card):
+    q, k, v = _qkv(card, 1, 2, 1, 64, 64, 96, torch.float32)
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash_attention.flash_attention(q, k, v)
+    q, k, v = (t.half() for t in _qkv(card, 1, 2, 1, 64, 64, 64,
+                                      torch.float32))
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention.flash_attention(q, k, v)
+    assert not any(counts.LAUNCHES.values()) and not any(counts.PLAIN.values())

@@ -347,3 +347,45 @@ def test_member_views_and_refusals():
     with pytest.raises(ValueError, match="shared memory"):
         chase.chase_vmem(torch.zeros((2, 512, 128), dtype=torch.int32),
                          n_steps=1)
+
+
+@pytest.mark.parametrize("rows,block", [(512, 128), (1024, 512)])
+@pytest.mark.parametrize("scalar", [3.0, -0.7])
+def test_triad_hbm(rows, block, scalar):
+    b, c = _arr((rows, 128), 1), _arr((rows, 128), 2)
+    want = jstream.triad_hbm(jnp.asarray(b), jnp.asarray(c), scalar=scalar,
+                             block_rows=block, **I)
+    counts.reset()
+    got = ops.stream_triad(torch.from_numpy(b), torch.from_numpy(c),
+                           scalar=scalar, block_rows=block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
+    # the plain version rounds the product and the sum apart, as the
+    # kernel does
+    np.testing.assert_array_equal(
+        got.numpy(), (np.float32(scalar) * c + b).astype(np.float32))
+    assert counts.PLAIN["triad_hbm"] == 1 and not any(counts.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("b,c", [
+    ((512, 128), (256, 128)),
+    ((512, 64), (512, 64)),
+    ((2, 512, 128), (2, 512, 128)),
+])
+def test_triad_refuses_what_the_kernel_does_not_take(b, c):
+    with pytest.raises(ValueError):
+        stream.triad_hbm(torch.zeros(b), torch.zeros(c), block_rows=128)
+
+
+def test_triad_refuses_operands_in_two_memories():
+    with pytest.raises(ValueError, match="same memory"):
+        stream.triad_hbm(torch.zeros((512, 128)),
+                         torch.zeros((512, 128), device="meta"))
+
+
+def test_triad_refuses_other_dtypes_and_ragged_blocks():
+    with pytest.raises(TypeError):
+        stream.triad_hbm(torch.zeros((512, 128), dtype=torch.bfloat16),
+                         torch.zeros((512, 128), dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        stream.triad_hbm(torch.zeros((384, 128)), torch.zeros((384, 128)),
+                         block_rows=256)
