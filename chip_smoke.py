@@ -1477,6 +1477,17 @@ def spmd_perf(at_spmd: dict, launched: dict) -> list:
 ATTN_BATCH = 1
 # the reference's tolerances against its dense oracle (tests/test_kernels.py)
 ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the full-width bf16 calls are also held elementwise to a limit scaled to
+# the values compared, |got - want| <= BF16_RTOL |want| + BF16_FLOOR: one
+# bf16 rounding (2^-8..2^-7 of the value) is the most two float32 results
+# that agree may differ by once both are rounded; and to a normalised
+# error ||got - want|| / ||want|| <= NORM_TOL
+BF16_RTOL, BF16_FLOOR, NORM_TOL = 2.0 ** -7, 2.0 ** -12, 1e-2
+# q and k drawn at sqrt(3): scores of std 3 whatever the head dim (the
+# softmax scale is D^-1/2), so each row's softmax is peaked and a key left
+# out of the sum shows in the output; v at 0.5 keeps every output under
+# 4, where a bf16 rounding is below ATTN_ATOL's 2e-2
+PEAKED_QK, V_SCALE = 3.0 ** 0.5, 0.5
 TILING_ATOL = 1e-5
 # the local call against the global one at gemma3-1b's widths: the work
 # ratio is about 1/32, so an admissible-range loop that works is far below
@@ -1485,6 +1496,9 @@ WINDOW_SHARE_MAX = 1 / 8
 FLASH_CASES = [(1, 1, 1, 128, 64, True, 0), (2, 4, 2, 256, 64, True, 0),
                (1, 4, 1, 256, 128, True, 0), (1, 2, 2, 256, 64, False, 0),
                (1, 4, 2, 512, 64, True, 128), (2, 2, 1, 256, 32, True, 64)]
+# gemma3's head dim 256 at small size, global and (ragged) local, at the
+# peaked scale
+D256_CASES = [(1, 4, 1, 256, 256, True, 0), (1, 4, 1, 320, 256, True, 64)]
 TILINGS = ((128, 128), (256, 128), (128, 256), (512, 512), (96, 160),
            (200, 200))
 
@@ -1499,13 +1513,15 @@ def attention_calls():
             ("gemma3-1b global, causal", gemma, True, 0)]
 
 
-def qkv(b, h, kvh, sq, sk, d, dtype, seed=0, scale=0.5):
-    """q, k, v from a seed, made on the card."""
+def qkv(b, h, kvh, sq, sk, d, dtype, seed=0, scale=0.5, v_scale=None):
+    """q, k, v from a seed, made on the card: q and k at ``scale``, v at
+    ``v_scale`` (default ``scale``)."""
     out = []
-    for i, shape in enumerate(((b, h, sq, d), (b, kvh, sk, d),
-                               (b, kvh, sk, d))):
+    for i, (shape, sc) in enumerate((((b, h, sq, d), scale),
+                                     ((b, kvh, sk, d), scale),
+                                     ((b, kvh, sk, d), v_scale or scale))):
         g = torch.Generator(device=DEV).manual_seed(seed + i)
-        out.append((torch.randn(shape, generator=g, device=DEV) * scale)
+        out.append((torch.randn(shape, generator=g, device=DEV) * sc)
                    .to(dtype))
     return out
 
@@ -1522,29 +1538,48 @@ def diff(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def scaled_errors(got: torch.Tensor, want: torch.Tensor):
+    """(the largest |got - want| / (BF16_RTOL |want| + BF16_FLOOR), which
+    must be at most 1; ||got - want|| / ||want||)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    worst = float((d / (BF16_RTOL * w.abs() + BF16_FLOOR)).max())
+    return worst, float(d.norm() / w.norm())
+
+
+def window_mask(sq: int, sk: int, window: int) -> torch.Tensor:
+    """The (Sq, Sk) bool mask of causal + window, positions from 0."""
+    qp = torch.arange(sq, device=DEV)[:, None]
+    kp = torch.arange(sk, device=DEV)[None, :]
+    return (kp <= qp) & (kp > qp - window)
+
+
 def attention_small_cases() -> list:
     """The kernel against the dense oracle and the plain version at the
     reference's small shapes: comparisons, not the counted path."""
     cases: list = []
     fa = flash_attention.flash_attention
-    for b, h, kvh, s_, d, causal, window in FLASH_CASES:
+    for (b, h, kvh, s_, d, causal, window), scales in (
+            [(c_, (0.5, None)) for c_ in FLASH_CASES]
+            + [(c_, (PEAKED_QK, V_SCALE)) for c_ in D256_CASES]):
         for dtype, tol in ATTN_ATOL.items():
-            q, k, v = qkv(b, h, kvh, s_, s_, d, dtype)
+            q, k, v = qkv(b, h, kvh, s_, s_, d, dtype, scale=scales[0],
+                          v_scale=scales[1])
             err = diff(fa(q, k, v, causal=causal, window=window),
                        ref.attention_ref(q, k, v, causal=causal,
                                          window=window))
             case(cases, "flash_attention", q.shape, err, tol,
                  {"dtype": str(dtype), "causal": causal, "window": window,
                   "vs": "dense"})
-    # the kernel ignores block_q/block_k; the plain version runs each tiling
+    # the kernel ignores block_q/block_k: the plain version at each tiling
+    # against the kernel
     q, k, v = qkv(1, 2, 2, 512, 512, 64, torch.float32, seed=4, scale=0.3)
     base = fa(q, k, v, causal=True)
     for bq, bk in TILINGS:
-        err = max(diff(fa(q, k, v, causal=True, block_q=bq, block_k=bk), base),
-                  diff(ref.flash_attention_ref(q, k, v, causal=True,
-                                               block_q=bq, block_k=bk), base))
+        err = diff(ref.flash_attention_ref(q, k, v, causal=True,
+                                           block_q=bq, block_k=bk), base)
         case(cases, "flash_attention", q.shape, err, TILING_ATOL,
-             {"tiling": [bq, bk], "vs": "the kernel, kernel and plain"})
+             {"tiling": [bq, bk], "vs": "the kernel, plain at this tiling"})
     # ragged lengths, then Sq != Sk both ways
     for sq, sk, causal, window in ((192, 192, True, 0), (320, 320, True, 64),
                                    (160, 160, False, 0), (200, 328, True, 0),
@@ -1566,12 +1601,16 @@ def attention_small_cases() -> list:
     return cases
 
 
-def library_attention_ms(q, k, v, n: int) -> float:
+def library_attention_ms(q, k, v, n: int, mask=None) -> float:
     """The yardstick, which the port never calls: one PyTorch call that
-    computes the same causal attention on the same inputs, timed as the
-    kernels are."""
+    computes the same attention on the same inputs, timed as the kernels
+    are: causal by its flag, or, for a window, under the dense bool
+    ``mask`` the caller built beforehand (the library has no window)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), n)
+    if mask is None:
+        return time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                    enable_gqa=True), n)
+    return time_ms(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), n)
 
 
 def phase_attention() -> list:
@@ -1585,7 +1624,8 @@ def phase_attention() -> list:
     calls = []
     for i, (label, cfg, causal, window) in enumerate(attention_calls()):
         q, k, v = qkv(ATTN_BATCH, cfg.n_heads, cfg.n_kv_heads, seq, seq,
-                      cfg.head_dim, torch.bfloat16, seed=10 * i)
+                      cfg.head_dim, torch.bfloat16, seed=10 * i,
+                      scale=PEAKED_QK, v_scale=V_SCALE)
         calls.append((label, cfg, dict(causal=causal, window=window),
                       (q, k, v)))
     rows = rows_of(G1)
@@ -1602,7 +1642,10 @@ def phase_attention() -> list:
     checks, recs = {}, []
     for (label, cfg, kw, t), out in zip(calls, outs):
         q = t[0]
-        err = diff(out, ref.flash_attention_ref(*t, **kw))
+        want = ref.flash_attention_ref(*t, **kw)
+        err = diff(out, want)
+        worst, norm_err = scaled_errors(out, want)
+        del want
         pairs = admitted_pairs(seq, seq, kw["causal"], kw["window"])
         ops_ = 4 * cfg.head_dim * cfg.n_heads * ATTN_BATCH * pairs
         # q, k and v read once, the output (q's shape) written once
@@ -1610,25 +1653,31 @@ def phase_attention() -> list:
         b_ms, b_by = bound(bytes_, ops_, BF16_TC_OPS_PER_S)
         fp32_ms, _ = bound(bytes_, ops_)
         ms = time_ms(lambda: ops.flash_attention(*t, **kw), 3)
-        causal_only = kw["causal"] and not kw["window"]
+        # the library's call for a window: a dense (S, S) bool mask, 1 GiB
+        # at 32k, built here, outside the timed region
+        mask = (window_mask(seq, seq, kw["window"]) if kw["window"]
+                else None)
         recs.append({
             "call": label, "config": cfg.name, "batch": ATTN_BATCH,
             "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
             "head_dim": cfg.head_dim, "seq": seq, "dtype": "bfloat16", **kw,
             "admitted_pairs": pairs, "operations": ops_, "bytes": bytes_,
             "max_abs_err": err, "tol": ATTN_ATOL[torch.bfloat16],
+            "scaled_err": worst, "norm_err": norm_err,
             "finite": bool(torch.isfinite(out.float()).all()),
             "shape_ok": tuple(out.shape) == tuple(q.shape)
             and out.dtype == q.dtype,
             "ms": ms,
             "plain_ms": time_ms(lambda: ref.flash_attention_ref(*t, **kw), 1),
             "bound_ms": b_ms, "bound_by": b_by, "bound_ms_fp32": fp32_ms,
-            # the library's attention call has no sliding window short of
-            # a dense 32k x 32k mask: no yardstick for the local call
-            "library_ms": library_attention_ms(*t, 3) if causal_only
-            else None,
+            "library_ms": library_attention_ms(*t, 3, mask),
+            "library_call": "SDPA, enable_gqa, " + (
+                "attn_mask (S, S) bool" if kw["window"] else "is_causal"),
             "tflops": ops_ / ms / 1e9})
+        del mask
         checks[f"within_tol:{label}"] = err <= ATTN_ATOL[torch.bfloat16]
+        checks[f"within_scaled_tol:{label}"] = worst <= 1.0
+        checks[f"within_norm_tol:{label}"] = norm_err <= NORM_TOL
         checks[f"finite_and_shaped:{label}"] = (recs[-1]["finite"]
                                                 and recs[-1]["shape_ok"])
     del outs, calls
@@ -1674,7 +1723,8 @@ def phase_attention() -> list:
          "shape": "the qwen2-1.5b call; every call under calls",
          "calls": [{k_: r[k_] for k_ in (
              "call", "ms", "plain_ms", "bound_ms", "bound_by",
-             "bound_ms_fp32", "library_ms", "max_abs_err", "tflops")}
+             "bound_ms_fp32", "library_ms", "library_call", "max_abs_err",
+             "scaled_err", "norm_err", "tflops")}
              for r in recs]}]
 
 

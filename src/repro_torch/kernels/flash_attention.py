@@ -90,7 +90,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     one CTA per (64-row query tile, head, batch) walking only its
     admissible KV tiles, float32 FMAs on the CUDA cores (see the note in
     the CUDA source).  ``block_q``/``block_k`` keep the reference's
-    signature and tile the plain version; the kernel's tiles are its own."""
+    signature and tile only the plain version: on the card they have no
+    effect, the kernel's tiles are its own."""
     _check_args(q, k, v, window, block_q, block_k)
     if not _build.launches_kernel(q):
         counts.PLAIN["flash_attention"] += 1

@@ -128,6 +128,23 @@ def test_flash_ref_ragged_sequence(s, causal, window):
                                        window=window).numpy(), atol=F32_ATOL)
 
 
+@pytest.mark.parametrize("s,causal,window", [(256, True, 0), (320, True, 64)])
+def test_flash_ref_head_dim_256_peaked(s, causal, window):
+    """gemma3's head dim, with q and k drawn so that the scores have a std
+    of 3 and each row's softmax is peaked: a key left out of the sum would
+    show in the output."""
+    arrays = _qkv(1, 4, 1, s, s, 256, seed=8, scale=3.0 ** 0.5)
+    arrays[2] *= 0.5 / 3.0 ** 0.5
+    (jq, jk, jv), (q, k, v) = _both(arrays)
+    want = jflash.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                  **I)
+    got = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL)
+    np.testing.assert_allclose(
+        got.numpy(), ref.attention_ref(q, k, v, causal=causal,
+                                       window=window).numpy(), atol=F32_ATOL)
+
+
 @pytest.mark.parametrize("sq,sk,causal,window", [(200, 328, True, 0),
                                                  (328, 200, True, 0),
                                                  (160, 96, False, 48)])
