@@ -80,6 +80,8 @@ DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12     # dense bf16 on the tensor cores
+TF32_TC_OPS_PER_S = 495e12     # dense TF32 on the tensor cores
+SMS = 132                      # streaming multiprocessors
 PCIE_GBPS = 64.0               # PCIe Gen5 x16, one direction
 SECTOR_BYTES = 32              # the least the device memory moves for a load
 # main-path sizes
@@ -320,11 +322,13 @@ def phase_kernels(main_rows: int) -> dict:
     return at_main
 
 
-# The probe against its plain version: float32 products in full float32
-# on both sides (main() sets torch.backends.cuda.matmul.allow_tf32 False).
-# Powers of 0.5 * I are exact; on a random operand of spectral radius 0.9
-# each side sums every entry's 128 products in its own order, through 64
-# dependent products: each entry within 1e-5 of the largest.
+# The probe against its plain version: the kernel's products in 3xTF32
+# (22 of float32's 24 bits a term), the plain version's in full float32
+# (main() sets torch.backends.cuda.matmul.allow_tf32 False).  Powers of
+# 0.5 * I are exact (0.5 splits with lo = 0); on a random operand of
+# spectral radius 0.9 each side sums every entry's 128 products in its own
+# order and precision, through 64 dependent products: each entry within
+# 1e-5 of the largest.
 PROBE_RTOL_EXACT = 1e-6
 PROBE_TOL_RANDOM = 1e-5
 
@@ -974,6 +978,8 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> list:
     chain_big = torch.from_numpy(chain_host).to(DEV)
     probe_a = radius_09(0)
     probe_ops = PROBE_ITERS * 2 * 128 ** 3
+    # the probe's products as it runs them: three TF32 passes (3xTF32)
+    probe_tc_ops = 3 * probe_ops
 
     def host_ms(fn) -> float:
         t0 = time.perf_counter()
@@ -1069,6 +1075,17 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> list:
             rec["ns_per_hop"] = ms * 1e6 / ops_
         elif name == "mxu_probe":
             rec["tflops"] = ops_ / ms / 1e9
+            # the operations it does: 3 TF32 passes on the tensor cores;
+            # the float32 bound and one SM's share beside it
+            rec["bound_ms"], rec["bound_by"] = bound(
+                bytes_, probe_tc_ops, TF32_TC_OPS_PER_S)
+            rec["bound_ms_fp32"] = b_ms
+            rec["bound_ms_one_sm"] = bound(
+                bytes_, probe_tc_ops, TF32_TC_OPS_PER_S / SMS)[0]
+            # per product: the chain's 64 against matrix_power's 7 by
+            # repeated squaring (floor(log2 65) + popcount(65) - 1)
+            rec["ms_per_product"] = ms / PROBE_ITERS
+            rec["library_ms_per_product"] = rec["library_ms"] / 7
         else:
             rec["gbps"] = bytes_ / ms / 1e6
         kernels.append(rec)
@@ -1080,8 +1097,10 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> list:
                   "behind a hold of the stream; host_enqueue_ms is the "
                   "host's cost of one call of the wrapper; "
                   "bound_ms from the published 3.35 TB/s and 67 TFLOP/s "
-                  "fp32; launches over the main path and the matrix "
-                  "phase; float32 products without TF32"})
+                  "fp32, the probe's from 495 TFLOP/s TF32 for its three "
+                  "passes; launches over the main path and the matrix "
+                  "phase; float32 products without TF32 in the plain "
+                  "versions"})
     return kernels
 
 
@@ -1501,6 +1520,18 @@ FLASH_CASES = [(1, 1, 1, 128, 64, True, 0), (2, 4, 2, 256, 64, True, 0),
 D256_CASES = [(1, 4, 1, 256, 256, True, 0), (1, 4, 1, 320, 256, True, 64)]
 TILINGS = ((128, 128), (256, 128), (128, 256), (512, 512), (96, 160),
            (200, 200))
+# bf16 at the tensor-core kernel's tile edges (128 query rows a CTA; 128
+# keys a tile, 64 at D 256), at the peaked scale: b, h, kvh, sq, sk, d,
+# causal, window.  Sq 200 and 130; Sk ragged at 320 and 257 (the TMA's zero
+# fill); Sq != Sk both ways; D 16 and 32; windows narrower than a tile; rows
+# with no key
+TC_EDGE_CASES = [
+    (1, 4, 2, 200, 200, 128, True, 0), (1, 4, 1, 130, 130, 256, True, 0),
+    (1, 2, 2, 320, 320, 64, True, 0), (1, 2, 1, 257, 257, 128, False, 0),
+    (1, 4, 2, 200, 328, 128, True, 0), (1, 4, 2, 328, 200, 64, False, 0),
+    (1, 4, 2, 192, 192, 16, True, 0), (2, 2, 1, 160, 160, 32, True, 0),
+    (1, 2, 1, 384, 384, 256, True, 40), (1, 4, 2, 384, 384, 128, True, 64),
+    (1, 2, 1, 200, 16, 32, False, 8)]
 
 
 def attention_calls():
@@ -1598,7 +1629,52 @@ def attention_small_cases() -> list:
     case(cases, "flash_attention", q.shape, err, ATTN_ATOL[torch.float32],
          {"sk": 16, "causal": False, "window": 8,
           "vs": "plain; rows with no key are 0"})
+    tc_edge_cases(cases)
     return cases
+
+
+def tc_edge_cases(cases: list) -> None:
+    """The bf16 tensor-core kernel at its tile edges: against the dense
+    oracle at 2e-2 (rows with no key: 0, as the plain version), and
+    against the FMA kernel on the same inputs within one bf16 rounding."""
+    fa = flash_attention
+    for b, h, kvh, sq, sk, d, causal, window in TC_EDGE_CASES:
+        q, k, v = qkv(b, h, kvh, sq, sk, d, torch.bfloat16, seed=7,
+                      scale=PEAKED_QK, v_scale=V_SCALE)
+        kw = dict(causal=causal, window=window)
+        before = counts.INSTANCES["flash_attention:wgmma_bf16"]
+        got = fa.flash_attention(q, k, v, **kw)
+        ran_tc = counts.INSTANCES["flash_attention:wgmma_bf16"] == before + 1
+        no_key = not causal and sq > sk - 1 + window and window > 0
+        if no_key:
+            err = max(diff(got, ref.flash_attention_ref(q, k, v, **kw)),
+                      float(got[:, :, sk - 1 + window:].abs().max()))
+        else:
+            err = diff(got, ref.attention_ref(q, k, v, **kw))
+        extra = {"dtype": "bfloat16", "sq": sq, "sk": sk, "causal": causal,
+                 "window": window, "ran_wgmma_bf16": ran_tc,
+                 "vs": "plain; rows with no key are 0" if no_key
+                 else "dense"}
+        case(cases, "flash_attention", q.shape,
+             err if ran_tc else math.inf, ATTN_ATOL[torch.bfloat16], extra)
+        worst, _ = scaled_errors(got, fa.run_instance("fma_f32", q, k, v,
+                                                      **kw))
+        case(cases, "flash_attention", q.shape, worst, 1.0,
+             {**extra, "vs": "the fma_f32 kernel, in bf16 roundings "
+                             "(2^-7 |want| + 2^-12)"})
+
+
+def sass_counts(library: str, opcodes) -> dict:
+    """How often each opcode stands in the built library's SASS, read
+    with the cuobjdump beside the nvcc that built it."""
+    cuobjdump = os.path.join(os.path.dirname(compat.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.compile_source(library))],
+                          capture_output=True, text=True, check=True).stdout
+    words = sass.split()
+    return {op: sum(1 for w in words if w.split(".")[0] == op)
+            for op in opcodes}
 
 
 def library_attention_ms(q, k, v, n: int, mask=None) -> float:
@@ -1634,13 +1710,19 @@ def phase_attention() -> list:
     sync()
 
     counts.reset()
-    outs = [ops.flash_attention(*t, **kw) for _, _, kw, t in calls]
+    outs, instances = [], []
+    for _, _, kw, t in calls:
+        before = dict(counts.INSTANCES)
+        outs.append(ops.flash_attention(*t, **kw))
+        instances.append([k_.split(":")[1] for k_, n_ in
+                          counts.INSTANCES.items() if n_ > before[k_]])
     triad = ops.stream_triad(b, c, scalar=3.0)
     sync()
     launched, plain = counts.snapshot()
+    by_instance = dict(counts.INSTANCES)
 
     checks, recs = {}, []
-    for (label, cfg, kw, t), out in zip(calls, outs):
+    for (label, cfg, kw, t), out, ran in zip(calls, outs, instances):
         q = t[0]
         want = ref.flash_attention_ref(*t, **kw)
         err = diff(out, want)
@@ -1659,6 +1741,7 @@ def phase_attention() -> list:
                 else None)
         recs.append({
             "call": label, "config": cfg.name, "batch": ATTN_BATCH,
+            "instance": ran[0] if len(ran) == 1 else ran,
             "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
             "head_dim": cfg.head_dim, "seq": seq, "dtype": "bfloat16", **kw,
             "admitted_pairs": pairs, "operations": ops_, "bytes": bytes_,
@@ -1680,6 +1763,7 @@ def phase_attention() -> list:
         checks[f"within_norm_tol:{label}"] = norm_err <= NORM_TOL
         checks[f"finite_and_shaped:{label}"] = (recs[-1]["finite"]
                                                 and recs[-1]["shape_ok"])
+        checks[f"instance_wgmma_bf16:{label}"] = ran == ["wgmma_bf16"]
     del outs, calls
     local, glob = recs[1]["ms"], recs[2]["ms"]
     checks["window_at_most_1/8_of_global"] = local <= WINDOW_SHARE_MAX * glob
@@ -1689,11 +1773,21 @@ def phase_attention() -> list:
         checks[f"launched:{k}"] = launched[k] > 0
         checks[f"no_plain_version:{k}"] = plain[k] == 0
     checks["small_cases"] = all(c_["ok"] for c_ in small)
+    # the products on the tensor cores, as the built SASS shows them:
+    # HGMMA (wgmma) in the bf16 flash kernel, HMMA (mma.sync) in the probe
+    sass = {"flash_attention_tc": sass_counts("flash_attention_tc",
+                                              ("HGMMA", "HMMA")),
+            "compute_probe": sass_counts("compute_probe",
+                                         ("HGMMA", "HMMA"))}
+    checks["sass_hgmma:flash_attention_tc"] = \
+        sass["flash_attention_tc"]["HGMMA"] > 0
+    checks["sass_hmma:compute_probe"] = sass["compute_probe"]["HMMA"] > 0
     emit({"phase": "attention", "n_small_cases": len(small),
           "n_small_ok": sum(c_["ok"] for c_ in small),
           "failed_small_cases": [c_ for c_ in small if not c_["ok"]],
           "calls": recs, "window_over_global": local / glob,
           "launches": {k: launched[k] for k in ATTENTION_KERNELS},
+          "launches_by_instance": by_instance, "sass": sass,
           "plain_calls": {k: plain[k] for k in ATTENTION_KERNELS},
           "checks": checks})
     for k_, ok in checks.items():
@@ -1713,7 +1807,10 @@ def phase_attention() -> list:
          "library_ms": time_ms(lambda: torch.add(b, c, alpha=3.0), 20),
          "shape": "b, c, out (2097152, 128) f32, 1 GiB each"},
         {"name": "flash_attention", "route": "cuda",
-         "source": CSRC + "flash_attention.cu",
+         "source": CSRC + "flash_attention_tc.cu",
+         "instances": {"wgmma_bf16": CSRC + "flash_attention_tc.cu",
+                       "fma_f32": CSRC + "flash_attention.cu"},
+         "launches_by_instance": by_instance,
          "replaces": "src/repro/kernels/flash_attention.py:96",
          "launches": launched["flash_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in recs),
@@ -1722,7 +1819,7 @@ def phase_attention() -> list:
                                     "library_ms", "bound_ms_fp32")},
          "shape": "the qwen2-1.5b call; every call under calls",
          "calls": [{k_: r[k_] for k_ in (
-             "call", "ms", "plain_ms", "bound_ms", "bound_by",
+             "call", "instance", "ms", "plain_ms", "bound_ms", "bound_by",
              "bound_ms_fp32", "library_ms", "library_call", "max_abs_err",
              "scaled_err", "norm_err", "tflops")}
              for r in recs]}]
@@ -1731,7 +1828,7 @@ def phase_attention() -> list:
 def main() -> int:
     smi = phase_device()
     phase_build()
-    # float32 products in full float32 on both sides of every comparison
+    # the plain versions' float32 products in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     at_main = phase_kernels(rows_of(G1))
     phase_pinned()

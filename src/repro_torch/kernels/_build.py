@@ -28,7 +28,7 @@ from repro_torch import compat
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("stream", "chase", "compute_probe", "contention",
-           "flash_attention")
+           "flash_attention", "flash_attention_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # shared memory one block can use on an H100 SM (227 KB of the SM's 256 KB)

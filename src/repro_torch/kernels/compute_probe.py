@@ -22,14 +22,15 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def mxu_probe(a: torch.Tensor, *, iters: int = 64) -> torch.Tensor:
-    """a: (128, 128) float32.  Returns a^(iters+1), in full float32.
+    """a: (128, 128) float32.  Returns a^(iters+1) to float32 accuracy.
 
     Replaces ``repro/kernels/compute_probe.py:mxu_probe``.  Bound by
     operations: ``iters * 2 * 128**3`` float32 operations, dependent
-    from one product to the next.  Design: one CTA of 256 threads, an
-    8 x 8 register tile each, ``a`` and the running product in shared
-    memory (see the note in the CUDA source).  For a CPU tensor the
-    plain version, :func:`repro_torch.kernels.ref.mxu_probe_ref`."""
+    from one product to the next.  Design: one CTA on one SM, each
+    product as 3xTF32 on ``mma.sync`` (hi*hi + hi*lo + lo*hi), ``a`` and
+    the running product in shared memory (see the note in the CUDA
+    source).  For a CPU tensor the plain version,
+    :func:`repro_torch.kernels.ref.mxu_probe_ref`."""
     if tuple(a.shape) != (N, N) or a.dtype != torch.float32:
         raise ValueError(f"mxu_probe: want a ({N}, {N}) float32 operand, got "
                          f"{tuple(a.shape)} {a.dtype}")

@@ -1,7 +1,11 @@
-// Flash attention (online softmax, causal + sliding window, GQA) for sm_90a.
+// Flash attention (online softmax, causal + sliding window, GQA) for sm_90a:
+// the float32 instance, on FMAs.
 //
 // Replaces src/repro/kernels/flash_attention.py:96 (flash_attention; its
-// pallas_call at :131).  q (B, H, Sq, D); k, v (B, KVH, Sk, D); out
+// pallas_call at :131) for float32 inputs; bfloat16 calls go to the
+// tensor-core kernel, csrc/flash_attention_tc.cu.  This kernel also builds
+// for bfloat16, so that a check can hold the tensor-core kernel against it
+// on the same inputs.  q (B, H, Sq, D); k, v (B, KVH, Sk, D); out
 // (B, H, Sq, D) in q's dtype, float32 or bfloat16; D in {16, 32, 64, 128,
 // 256}.  Head h reads KV head h * KVH / H.  Causal and window positions both
 // count from 0 (top-left alignment, also when Sq != Sk): key j is admitted
@@ -17,9 +21,7 @@
 // gemma3-1b local (window 512) 6.82e10, 0.069 ms (0.050 ms by bytes).  This
 // kernel runs its products as float32 FMAs on the CUDA cores (67 TFLOP/s:
 // 49 ms is its own floor for the qwen2 call), because an f32 input must hold
-// 2e-5 of the dense oracle and TF32 keeps about three digits.  Tensor cores
-// (mma.sync / wgmma on bf16, with TMA-fed double buffering) are a later
-// version's work.
+// 2e-5 of the dense oracle and TF32 keeps about three digits.
 //
 // Design: one CTA of 256 threads (16 x 16) per (64-row query tile, head,
 // batch).  The query tile is staged once in shared memory as float32; then

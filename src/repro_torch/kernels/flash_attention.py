@@ -1,6 +1,6 @@
 """Flash attention (online softmax, causal + sliding window, GQA).
 
-The wrapper of ``csrc/flash_attention.cu``, the port of
+The wrapper of the two CUDA kernels that port
 ``repro/kernels/flash_attention.py:flash_attention``: blockwise attention
 that never materialises the (Sq, Sk) score matrix in device memory.  GQA
 maps head ``h`` to KV head ``h·KVH // H`` (no repeated KV), and an
@@ -10,14 +10,20 @@ is O(S·W) in operations and bytes.
 Layout: q (B, H, Sq, D); k, v (B, KVH, Sk, D); H % KVH == 0; the output
 (B, H, Sq, D) in q's dtype.  Accumulation is float32 for any input dtype.
 
-A CUDA tensor launches the kernel or raises: the kernel takes float32 and
-bfloat16 and head dims 16, 32, 64, 128 and 256 (every configuration's head
-dim and ``reduced()``'s), and :func:`kernel_refusal` says why it would not
-take other inputs.  Only a CPU tensor takes the plain version,
+The dtype picks the kernel by a fixed table, :data:`INSTANCE`: bfloat16
+goes to ``csrc/flash_attention_tc.cu`` (``wgmma_bf16``: both products on
+Hopper's tensor cores, K/V through TMA), float32 to
+``csrc/flash_attention.cu`` (``fma_f32``: float32 FMAs on the CUDA cores,
+because a float32 input must hold 2e-5 of the dense oracle and TF32 keeps
+about three digits).  Neither stands in for the other: a launch that fails
+raises.  A CUDA tensor launches its kernel or raises: the kernels take
+head dims 16, 32, 64, 128 and 256 (every configuration's head dim and
+``reduced()``'s), and :func:`kernel_refusal` says why they would not take
+other inputs.  Only a CPU tensor takes the plain version,
 :func:`repro_torch.kernels.ref.flash_attention_ref`, which runs the
-reference's algorithm at the given ``block_q``/``block_k``.  The kernel
-picks its own tiles for the card; the result does not depend on the tiling,
-as the reference's contract says.
+reference's algorithm at the given ``block_q``/``block_k``.  The kernels
+pick their own tiles for the card; the result does not depend on the
+tiling, as the reference's contract says.
 """
 from __future__ import annotations
 
@@ -30,6 +36,15 @@ from repro_torch.kernels import _build, counts, ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel each dtype runs on the card: a fixed table, not a fallback
+INSTANCE = {torch.bfloat16: "wgmma_bf16", torch.float32: "fma_f32"}
+# instance -> (source under csrc/, C entry point, dtypes it takes); the
+# FMA kernel is also built for bfloat16, so that a check can hold the
+# tensor-core kernel against it on the same inputs
+_ENTRY = {"wgmma_bf16": ("flash_attention_tc", "repro_flash_attention_tc",
+                         (torch.bfloat16,)),
+          "fma_f32": ("flash_attention", "repro_flash_attention",
+                      (torch.float32, torch.bfloat16))}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -86,12 +101,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,H,Sq,D); k,v: (B,KVH,Sk,D) -> (B,H,Sq,D).
 
     Replaces ``repro/kernels/flash_attention.py:flash_attention``.  Bound
-    by operations: ``4·D`` a head and admitted (query, key) pair.  Design:
-    one CTA per (64-row query tile, head, batch) walking only its
-    admissible KV tiles, float32 FMAs on the CUDA cores (see the note in
-    the CUDA source).  ``block_q``/``block_k`` keep the reference's
-    signature and tile only the plain version: on the card they have no
-    effect, the kernel's tiles are its own."""
+    by operations: ``4·D`` a head and admitted (query, key) pair.  On the
+    card the kernel is ``INSTANCE[q.dtype]`` (see the notes in the CUDA
+    sources).  ``block_q``/``block_k`` keep the reference's signature and
+    tile only the plain version: on the card they have no effect, the
+    kernels' tiles are their own."""
     _check_args(q, k, v, window, block_q, block_k)
     if not _build.launches_kernel(q):
         counts.PLAIN["flash_attention"] += 1
@@ -99,6 +113,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                        sm_scale=sm_scale, block_q=block_q,
                                        block_k=block_k)
     refusal = kernel_refusal(q, k, v)
+    if refusal is not None:
+        raise ValueError(f"flash_attention: the kernel does not take {refusal}")
+    return run_instance(INSTANCE[q.dtype], q, k, v, causal=causal,
+                        window=window, sm_scale=sm_scale)
+
+
+def run_instance(instance: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, *, causal: bool = True, window: int = 0,
+                 sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Launches the named kernel on card tensors.  :func:`flash_attention`
+    calls it with ``INSTANCE[q.dtype]``; a check calls it by name to hold
+    one kernel against the other on the same inputs.  Raises on what the
+    kernel does not take, and on a failed launch."""
+    if instance not in _ENTRY:
+        raise ValueError(f"flash_attention: no instance {instance!r}; "
+                         f"there are {sorted(_ENTRY)}")
+    source, entry, dtypes = _ENTRY[instance]
+    _check_args(q, k, v, window, 1, 1)
+    refusal = kernel_refusal(q, k, v)
+    if refusal is None and q.dtype not in dtypes:
+        refusal = f"dtype {q.dtype} in the {instance} kernel"
     if refusal is not None:
         raise ValueError(f"flash_attention: the kernel does not take {refusal}")
     b, h, sq, d = q.shape
@@ -109,12 +144,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window = min(window, sq)
     dev = _build.compute_device(q)
     out = _build.empty_like_placed(q)
-    fn = _build.bind("flash_attention", "repro_flash_attention",
+    fn = _build.bind(source, entry,
                      (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _F, _VP))
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               _DTYPE_CODE[q.dtype], b, h, kvh, sq, sk, d, int(bool(causal)),
               window, float(scale), _build.current_stream(dev))
-    _build.check_launch("flash_attention", "flash_attention", code)
+    _build.check_launch(source, "flash_attention", code)
     counts.LAUNCHES["flash_attention"] += 1
+    counts.INSTANCES[f"flash_attention:{instance}"] += 1
     return out

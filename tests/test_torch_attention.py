@@ -254,3 +254,49 @@ def test_kernel_head_dims_cover_every_config(d):
     # on the CPU only the memory stands in the way: pageable host tensors
     assert flash_attention.kernel_refusal(q, k, v) == \
         "q in pageable host memory"
+
+
+def test_the_dtype_picks_the_kernel_by_a_fixed_table():
+    """bfloat16 runs the tensor-core kernel, float32 the FMA kernel: one
+    entry each, both sources in the build, nothing else to fall back to."""
+    from repro_torch.kernels import _build
+    assert flash_attention.INSTANCE == {torch.bfloat16: "wgmma_bf16",
+                                        torch.float32: "fma_f32"}
+    entry = flash_attention._ENTRY
+    assert entry["wgmma_bf16"][:2] == ("flash_attention_tc",
+                                       "repro_flash_attention_tc")
+    assert entry["fma_f32"][:2] == ("flash_attention",
+                                    "repro_flash_attention")
+    assert entry["wgmma_bf16"][2] == (torch.bfloat16,)
+    assert set(flash_attention.INSTANCE.values()) == set(entry)
+    assert {e[0] for e in entry.values()} <= set(_build.SOURCES)
+    assert set(counts.INSTANCES) == {f"flash_attention:{i}" for i in entry}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float64])
+@pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 96, 128, 256, 512])
+def test_kernel_refusal_is_unchanged_for_every_head_dim_and_dtype(d, dtype):
+    """The same reasons as before the tensor-core kernel: the dtype first,
+    then the head dim, then (here, on the CPU) the memory."""
+    q, k, v = (torch.zeros(s, dtype=dtype) for s in
+               ((1, 2, 64, d), (1, 1, 64, d), (1, 1, 64, d)))
+    got = flash_attention.kernel_refusal(q, k, v)
+    if dtype not in (torch.float32, torch.bfloat16):
+        assert got == f"dtype {dtype} (the kernel takes float32 and bfloat16)"
+    elif d not in (16, 32, 64, 128, 256):
+        assert got == f"head dim {d} (the kernel takes (16, 32, 64, 128, 256))"
+    else:
+        assert got == "q in pageable host memory"
+
+
+def test_run_instance_refuses_before_the_device():
+    q, k, v = (torch.zeros(s, dtype=torch.bfloat16) for s in
+               ((1, 2, 64, 64), (1, 1, 64, 64), (1, 1, 64, 64)))
+    counts.reset()
+    with pytest.raises(ValueError, match="no instance"):
+        flash_attention.run_instance("tf32", q, k, v)
+    with pytest.raises(ValueError, match="pageable host memory"):
+        flash_attention.run_instance("wgmma_bf16", q, k, v)
+    assert not any(counts.LAUNCHES.values()) and not any(counts.PLAIN.values())
+    assert not any(counts.INSTANCES.values())

@@ -99,18 +99,22 @@ def test_interface_on_the_card_launches_kernels(card):
         "pinned_host"
 
 
-def test_mxu_probe_matches_plain_version(card):
+@pytest.mark.parametrize("iters", [0, 1, 3, 8, 64])
+def test_mxu_probe_matches_plain_version(card, iters):
+    """The chain at the lengths letter i runs, held to the reference's
+    limits: powers of 0.5 * I exactly (0.5 splits into TF32 with lo = 0),
+    the radius-0.9 operand within 1e-5 of the largest entry (128 products
+    an entry in another order and precision, iters times over)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     a = torch.eye(128, device=card) * 0.5
-    torch.testing.assert_close(compute_probe.mxu_probe(a, iters=3),
-                               ref.mxu_probe_ref(a, 3), rtol=1e-6, atol=0)
+    torch.testing.assert_close(compute_probe.mxu_probe(a, iters=iters),
+                               ref.mxu_probe_ref(a, iters), rtol=1e-6, atol=0)
     r = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (128, 128))).float()
     r = (r / torch.linalg.eigvals(r.double()).abs().max() * 0.9).float()
     r = r.to(card)
-    want = ref.mxu_probe_ref(r, 64)
-    # 128 float32 products an entry, summed in another order, 64 times over
-    got = compute_probe.mxu_probe(r, iters=64)
+    want = ref.mxu_probe_ref(r, iters)
+    got = compute_probe.mxu_probe(r, iters=iters)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert counts.LAUNCHES["mxu_probe"] == 2 and not any(counts.PLAIN.values())
 
@@ -335,7 +339,61 @@ def test_flash_attention_matches_the_dense_oracle(card, case, dtype, atol):
     else:                        # the rows past sk - 1 + window: 0
         assert not got[:, :, sk - 1 + window:].float().abs().max()
     assert counts.LAUNCHES["flash_attention"] == 1
+    assert counts.INSTANCES[
+        f"flash_attention:{flash_attention.INSTANCE[dtype]}"] == 1
     assert not any(counts.PLAIN.values())
+
+
+# b, h, kvh, sq, sk, d, causal, window: the tensor-core kernel's tile edges
+# (128 query rows a CTA; 128 keys a tile, 64 at D 256): Sq 200 and 130, Sk
+# ragged at 320 and 257, Sq != Sk both ways, D 16 and 32, windows narrower
+# than a tile, rows with no key
+TC_EDGE_CASES = [
+    (1, 4, 2, 200, 200, 128, True, 0), (1, 4, 1, 130, 130, 256, True, 0),
+    (1, 2, 2, 320, 320, 64, True, 0), (1, 2, 1, 257, 257, 128, False, 0),
+    (1, 4, 2, 200, 328, 128, True, 0), (1, 4, 2, 328, 200, 64, False, 0),
+    (1, 4, 2, 192, 192, 16, True, 0), (2, 2, 1, 160, 160, 32, True, 0),
+    (1, 2, 1, 384, 384, 256, True, 40), (1, 4, 2, 384, 384, 128, True, 64),
+    (1, 2, 1, 200, 16, 32, False, 8),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:6] + TC_EDGE_CASES)
+def test_flash_tc_kernel_matches_the_dense_oracle(card, case):
+    """bf16 runs the wgmma kernel: against the dense oracle at 2e-2 (rows
+    with no key: 0, as the plain version), and against the FMA kernel on
+    the same inputs within one bf16 rounding (2^-7 |want| + 2^-12)."""
+    b, h, kvh, sq, sk, d, causal, window = case
+    q, k, v = _qkv(card, b, h, kvh, sq, sk, d, torch.bfloat16, seed=3)
+    kw = dict(causal=causal, window=window)
+    got = flash_attention.flash_attention(q, k, v, **kw)
+    assert counts.INSTANCES["flash_attention:wgmma_bf16"] == 1
+    if causal or not window or sq <= sk - 1 + window:
+        want = ref.attention_ref(q, k, v, **kw)
+    else:                        # the rows past sk - 1 + window: 0
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        assert not got[:, :, sk - 1 + window:].float().abs().max()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    fma = flash_attention.run_instance("fma_f32", q, k, v, **kw).float()
+    assert float(((got.float() - fma).abs()
+                  / (2.0 ** -7 * fma.abs() + 2.0 ** -12)).max()) <= 1.0
+    assert counts.INSTANCES["flash_attention:fma_f32"] == 1
+    assert not any(counts.PLAIN.values())
+
+
+def test_a_bf16_call_the_kernel_cannot_take_raises(card):
+    """No fallback from the tensor-core kernel: a non-contiguous k, or a
+    float32 call sent to the bf16 kernel by name, raises and launches
+    nothing."""
+    q, k, v = _qkv(card, 1, 2, 1, 128, 128, 64, torch.bfloat16)
+    k_t = k.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="k is not contiguous"):
+        flash_attention.flash_attention(q, k_t, v)
+    with pytest.raises(ValueError, match="wgmma_bf16"):
+        flash_attention.run_instance("wgmma_bf16", q.float(), k.float(),
+                                     v.float())
+    assert not any(counts.LAUNCHES.values()) and not any(counts.PLAIN.values())
+    assert not any(counts.INSTANCES.values())
 
 
 def test_flash_attention_refuses_on_the_card(card):

@@ -129,7 +129,8 @@ def test_library_attention_only_in_the_yardstick():
 def test_kernel_sources_are_in_the_package():
     names = sorted(os.listdir(os.path.join(PKG, "kernels", "csrc")))
     assert names == ["chase.cu", "compute_probe.cu", "contention.cu",
-                     "flash_attention.cu", "roles.cuh", "stream.cu"]
+                     "flash_attention.cu", "flash_attention_tc.cu",
+                     "roles.cuh", "stream.cu"]
     assert sorted(f"{n}.cu" for n in _build.SOURCES) == \
         [n for n in names if n.endswith(".cu")]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
