@@ -112,20 +112,29 @@ class Platform:
 # shared memory usable by one block on each of the 132 SMs, 989 TFLOP/s
 # dense bf16, PCIe Gen5 x16 (64 GB/s each way), NVLink 450 GB/s each way.
 #
-# MODELING ESTIMATES (not measured, not published): every
-# ``base_latency_ns``, every ``max_mlp``, every port's ``queue_entries``,
-# the bandwidth of the shared-memory and L2 nodes and of the "noc",
-# "core" and "l2bank" ports, and the host pool's size.  They are chosen so
-# that one engine reaches a plausible share of a module's peak and an
-# 8-engine ladder saturates it.  ``chip_smoke.py`` prints the measured
-# chase latencies and stream rates of each memory; PERF.md records them.
+# MEASURED (``chip_smoke.py``'s dependent-load chases on an NVIDIA H100
+# 80GB HBM3 at a 700.00 W power limit, PERF.md): the ``base_latency_ns``
+# of ``hbm`` (341 ns a hop over 256 MiB), ``l2`` (146 ns over 16 MiB),
+# ``vmem`` (14.4 ns over 128 KiB staged in shared memory) and ``host``
+# (1228 ns over 64 MiB of pinned host memory).
+#
+# MODELING ESTIMATES (not measured, not published): the ``peer`` latency,
+# every ``max_mlp``, every port's ``queue_entries``, the bandwidth of the
+# shared-memory and L2 nodes and of the "noc", "core" and "l2bank" ports,
+# and the host pool's size.  They are chosen so that one engine reaches a
+# plausible share of a module's peak and an 8-engine ladder saturates it.
+# ``chip_smoke.py`` prints the measured chase latencies and stream rates
+# of each memory; PERF.md records them.
 #
 # ``n_engines`` is the contention-ladder width (an engine is a group of
 # SMs, 132 / 8 = 16.5 SMs each), not the SM count.  ``line_bytes`` is
 # 512 — one (1, 128) float32 row — so bytes_moved, transactions and
 # curve keys compare across the two packages.  The ``vmem`` node keeps
-# the JAX package's pool name so that config strings port: here it is
-# the shared memory of one SM.
+# the JAX package's pool name so that config strings port: here it is the
+# shared memory of the SMs, which the on-chip read and write spread a
+# buffer over (33 000 GB/s, about 132 SMs x 128 B a clock at 1.98 GHz),
+# and of one SM for the on-chip chase.  Its size stays one SM's (227 KB):
+# the residency threshold that picks the on-chip kernels.
 # ---------------------------------------------------------------------------
 
 SMEM_PER_SM_BYTES = SMEM_PER_BLOCK_BYTES     # 227 KB a block can use
@@ -137,14 +146,15 @@ H100_SXM = Platform(
     line_bytes=512,
     peak_flops=989e12 / 8,
     memories={
-        "hbm": MemoryNode("hbm", "hbm", 80 * 10**9, 3350.0, 650.0,
+        # base latencies measured (see above); the rest modeled
+        "hbm": MemoryNode("hbm", "hbm", 80 * 10**9, 3350.0, 341.0,
                           port="noc", max_mlp=1024, memory_kind="device"),
         "vmem": MemoryNode("vmem", "vmem", SMEM_PER_SM_BYTES, 33_000.0,
-                           30.0, port="core", max_mlp=64,
+                           14.4, port="core", max_mlp=64,
                            memory_kind=None),
-        "l2": MemoryNode("l2", "cache", L2_BYTES, 7_000.0, 270.0,
+        "l2": MemoryNode("l2", "cache", L2_BYTES, 7_000.0, 146.0,
                          port="l2bank", max_mlp=512, memory_kind=None),
-        "host": MemoryNode("host", "host", 64 << 30, 64.0, 1_800.0,
+        "host": MemoryNode("host", "host", 64 << 30, 64.0, 1_228.0,
                            port="pcie", max_mlp=64,
                            memory_kind="pinned_host"),
         "peer": MemoryNode("peer", "peer", 80 * 10**9, 450.0, 2_000.0,

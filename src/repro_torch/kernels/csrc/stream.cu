@@ -13,16 +13,17 @@
 // x + m * member_stride (in 16-byte units; a stack may be a strided view):
 // the port of the reference's jax.vmap over a leading member axis.  The
 // stream spreads every member's blocks over the whole card in one launch;
-// the on-chip read walks the members back to back in each CTA, so its time
-// is the sum of the members' walks, as the reference's per-member split of
-// the pass time assumes.
+// the on-chip read spreads each member over the same CTAs and walks the
+// members back to back in each CTA, so its time is the sum of the members'
+// walks, as the reference's per-member split of the pass time assumes.
 //
 // Four designs:
 //   (A) grid-stride stream of 16-byte accesses: write, write_seeded, rmw,
 //       copy, triad
 //   (B) the same stream with a block reduction to one partial per CTA: read
-//   (C) a CTA keeps its tile in shared memory and walks it `repeats` times:
-//       read_tile / write_tile (the on-chip residency pair)
+//   (C) the buffer spread over the shared memory of up to every SM, each
+//       CTA walking its slice `repeats` times: read_tile / write_tile (the
+//       on-chip residency pair); the read sums its partials in the launch
 //   (-) an empty kernel, to time a bare launch, and a hold kernel that keeps
 //       the stream busy for a given time while the host enqueues the work
 //       it is followed by
@@ -129,57 +130,167 @@ __global__ void triad_kernel(const float4* __restrict__ b,
 }
 
 // ---- (C) on-chip residency pair ---------------------------------------------
-// CTA b owns vectors [b*tile_vec, min(n_vec, (b+1)*tile_vec)).  The tile is
-// loaded into (or built in) dynamic shared memory once and walked `repeats`
-// times with no global traffic.  The empty asm with a "memory" clobber at
-// the end of each walk tells the compiler that shared memory may have been
-// read and changed there: without it the repeated loads of an unchanged
-// tile are hoisted out of the loop and all but the last of the repeated
-// stores are deleted, and the kernel would time nothing.  The read walks
-// member 0's tile, then member 1's, ...: one partial per (member, CTA).
+// Replaces repro/kernels/stream.py:read_vmem and :write_vmem, which hold the
+// buffer in the VMEM of the TPU's one TensorCore: all of that chip.  Here
+// the buffer is spread over the shared memory of up to every SM: CTA b owns
+// vectors [b*slice_vec, min(n_vec, (b+1)*slice_vec)) in its dynamic shared
+// memory (the wrapper's `vmem_layout` picks the slice and the grid), with
+// kVmemThreads threads.  One
+// CTA an SM: each asks for at least kOneCtaPerSmBytes, so that two never fit
+// on one SM and every CTA walks its slice at a whole SM's rate.
+// Bound: walks x bytes over the shared memory of the SMs spanned (128 B a
+// clock each, 33.45 TB/s over 132 SMs at 1.98 GHz), plus the tile once
+// through the buffer's memory.
+//
+// The slice is loaded into (or built in) shared memory once and walked
+// `repeats` times with no global traffic.  A walk moves 8 bytes a thread an
+// access, so that a slice of 1 KiB keeps 4 warps busy, one on each of the
+// SM's four schedulers: a warp reaches only about half of its share of the
+// SM's shared-memory rate (tools/stream_ab.py on an H100).  The walks'
+// accesses are volatile PTX (ld/st.volatile.shared, each thread at the
+// 32-bit shared address of its own slot, computed once), so no compiler may
+// merge, hoist or delete a repeated load or store; the empty asm with a
+// "memory" clobber after each walk (each group of kWalks walks in the read)
+// keeps the rest of the code from being moved across them.
+//
+// A slice of a few KiB is one or two slots a thread, so a walk at a time
+// would be bound by the load's latency, not by the shared memory: the read
+// issues kWalks walks' loads of a slot before their adds, each walk into
+// its own accumulator.
+//
+// The read ends in the same launch: each CTA stores one partial a member;
+// the last CTA to finish (a ticket taken by one release-acquire atomic, in
+// place of __threadfence and an atomicAdd: 0.3 us less a call on an H100,
+// tools/stream_ab.py) sums them in a fixed order and resets the ticket.
+// One launch a call, and the same bits from call to call.  The members of a
+// stack run back to back in each CTA, so the launch takes the sum of their
+// walks.
+constexpr int kWalks = 8;
+// two CTAs would need 2 x (116 KiB + 1 KiB reserved) of the SM's 228 KiB
+constexpr int kOneCtaPerSmBytes = 116 * 1024;
+// threads a CTA: 4 warps, one a scheduler.  tools/stream_ab.py's layout
+// sweep rebuilds this file with -DREPRO_VMEM_THREADS=N to try another count.
+#ifndef REPRO_VMEM_THREADS
+#define REPRO_VMEM_THREADS 128
+#endif
+constexpr int kVmemThreads = REPRO_VMEM_THREADS;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ float2 lds_volatile(uint32_t a) {
+  float2 v;
+  asm volatile("ld.volatile.shared.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void sts_volatile(uint32_t a, float f) {
+  asm volatile("st.volatile.shared.v2.f32 [%0], {%1, %1};"
+               :: "r"(a), "f"(f) : "memory");
+}
+
+__device__ __forceinline__ int slice_len(long long n_vec, int slice_vec) {
+  const long long left = n_vec - (long long)blockIdx.x * slice_vec;
+  return left < slice_vec ? (int)left : slice_vec;
+}
+
+// This thread's share of `repeats` walks of the n 8-byte slots of tile:
+// each of its slots read `repeats` times.
+__device__ __forceinline__ float walk_sum(const float2* tile, int n,
+                                          int repeats) {
+  float2 a[kWalks];
+#pragma unroll
+  for (int w = 0; w < kWalks; ++w) a[w] = make_float2(0.f, 0.f);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const uint32_t slot = smem_addr(tile + i);
+    int r = 0;
+    for (; r + kWalks <= repeats; r += kWalks) {
+      float2 v[kWalks];
+#pragma unroll
+      for (int w = 0; w < kWalks; ++w) v[w] = lds_volatile(slot);
+#pragma unroll
+      for (int w = 0; w < kWalks; ++w) {
+        a[w].x += v[w].x;
+        a[w].y += v[w].y;
+      }
+      asm volatile("" ::: "memory");
+    }
+    for (; r < repeats; ++r) {
+      const float2 v = lds_volatile(slot);
+      a[0].x += v.x;
+      a[0].y += v.y;
+      asm volatile("" ::: "memory");
+    }
+  }
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWalks; ++w) t += a[w].x + a[w].y;
+  return t;
+}
+
 __global__ void read_tile_kernel(const float4* __restrict__ x,
                                  float* __restrict__ partials,
+                                 float* __restrict__ out,
+                                 unsigned int* __restrict__ ticket,
                                  long long n_vec, long long member_stride,
-                                 int members, int tile_vec, int repeats) {
+                                 int members, int slice_vec, int repeats) {
   extern __shared__ float4 tile[];
-  const long long base = (long long)blockIdx.x * tile_vec;
-  const long long left = n_vec - base;
-  const int n = left < tile_vec ? (int)left : tile_vec;
+  __shared__ bool last;
+  const long long base = (long long)blockIdx.x * slice_vec;
+  const int n = slice_len(n_vec, slice_vec);
   for (int m = 0; m < members; ++m) {
     const float4* xm = x + m * member_stride + base;
-    // the previous member's walks and reduction are done before its tile
+    // the previous member's walks and reduction are done before its slice
     // is overwritten
     __syncthreads();
     for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = xm[i];
     __syncthreads();
-    float acc = 0.f;
-    for (int r = 0; r < repeats; ++r) {
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const float4 v = tile[i];
-        a.x += v.x; a.y += v.y; a.z += v.z; a.w += v.w;
-      }
-      acc += (a.x + a.y) + (a.z + a.w);
-      asm volatile("" ::: "memory");
-    }
-    acc = block_sum(acc);
-    if (threadIdx.x == 0) partials[(long long)m * gridDim.x + blockIdx.x] = acc;
+    const float s = block_sum(
+        walk_sum(reinterpret_cast<const float2*>(tile), 2 * n, repeats));
+    if (threadIdx.x == 0) partials[(long long)m * gridDim.x + blockIdx.x] = s;
   }
+  if (threadIdx.x == 0) {
+    // release: the partials this thread stored are visible before its
+    // ticket; acquire: the last CTA sees every other CTA's partials
+    unsigned int t;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(t) : "l"(ticket) : "memory");
+    last = t == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // each warp sums a member's partials: lane l takes CTAs l, l + 32, ...
+  // in order, then the lanes fold in a fixed tree
+  const int lane = threadIdx.x & 31;
+  for (int m = threadIdx.x >> 5; m < members; m += blockDim.x >> 5) {
+    const float* p = partials + (long long)m * gridDim.x;
+    float s = 0.f;
+    for (int c = lane; c < (int)gridDim.x; c += 32) s += __ldcg(p + c);
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) out[m] = s;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;   // ready for the next launch
 }
 
 __global__ void write_tile_kernel(float4* __restrict__ out, long long n_vec,
-                                  int tile_vec, int repeats) {
+                                  int slice_vec, int repeats) {
   extern __shared__ float4 tile[];
-  const long long base = (long long)blockIdx.x * tile_vec;
-  const long long left = n_vec - base;
-  const int n = left < tile_vec ? (int)left : tile_vec;
-  for (int r = 0; r < repeats; ++r) {
-    const float f = (float)r;
-    const float4 v = make_float4(f, f, f, f);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = v;
-    asm volatile("" ::: "memory");
+  const long long base = (long long)blockIdx.x * slice_vec;
+  const int n = slice_len(n_vec, slice_vec);
+  const float2* tile2 = reinterpret_cast<const float2*>(tile);
+  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
+    const uint32_t slot = smem_addr(tile2 + i);
+    float f = 0.f;      // float(r), exact below 2^24
+#pragma unroll 4
+    for (int r = 0; r < repeats; ++r, f += 1.f) {
+      sts_volatile(slot, f);
+      asm volatile("" ::: "memory");
+    }
   }
-  // each thread stores the entries it wrote itself: no barrier needed
+  __syncthreads();   // the slice is stored in 16-byte units
   for (int i = threadIdx.x; i < n; i += blockDim.x) out[base + i] = tile[i];
 }
 
@@ -196,7 +307,6 @@ __global__ void hold_kernel(long long ns) {
 }
 
 constexpr int kStreamThreads = 256;
-constexpr int kTileThreads = 1024;
 
 template <typename K>
 int allow_dynamic_smem(K kernel, size_t bytes) {
@@ -265,28 +375,52 @@ int repro_triad_hbm(const void* b, const void* c, void* out, long long n_vec,
   return (int)cudaGetLastError();
 }
 
-// partials: (members, ceil(n_vec / tile_vec)) floats
-int repro_read_vmem(const void* x, void* partials, long long n_vec,
-                    long long member_stride, int members, int tile_vec,
-                    int repeats, void* stream) {
-  const size_t smem = (size_t)tile_vec * sizeof(float4);
+// The dynamic shared memory a CTA of the on-chip pair asks for.
+int repro_vmem_smem_bytes(int slice_vec) {
+  const int bytes = slice_vec * (int)sizeof(float4);
+  return bytes > kOneCtaPerSmBytes ? bytes : kOneCtaPerSmBytes;
+}
+
+// CTAs of the on-chip pair that fit on one SM at a slice of slice_vec:
+// the read's kernel (write 0) or the write's (write 1); < 0 on an error.
+int repro_vmem_ctas_per_sm(int write, int slice_vec) {
+  const int smem = repro_vmem_smem_bytes(slice_vec);
+  int rc = write ? allow_dynamic_smem(write_tile_kernel, smem)
+                 : allow_dynamic_smem(read_tile_kernel, smem);
+  if (rc) return -rc;
+  int n = 0;
+  rc = write ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, write_tile_kernel, kVmemThreads, smem)
+             : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &n, read_tile_kernel, kVmemThreads, smem);
+  return rc ? -rc : n;
+}
+
+// grid = ceil(n_vec / slice_vec) CTAs of kVmemThreads; partials: (members,
+// grid) floats of scratch; out: (members,) floats; ticket: one zeroed
+// unsigned int, left zeroed, that no other launch uses at the same time.
+int repro_read_vmem(const void* x, void* partials, void* out, void* ticket,
+                    long long n_vec, long long member_stride, int members,
+                    int slice_vec, int repeats, void* stream) {
+  const int smem = repro_vmem_smem_bytes(slice_vec);
   const int rc = allow_dynamic_smem(read_tile_kernel, smem);
   if (rc) return rc;
-  const int grid = (int)((n_vec + tile_vec - 1) / tile_vec);
-  read_tile_kernel<<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(
-      (const float4*)x, (float*)partials, n_vec, member_stride, members,
-      tile_vec, repeats);
+  const int grid = (int)((n_vec + slice_vec - 1) / slice_vec);
+  read_tile_kernel<<<grid, kVmemThreads, smem, (cudaStream_t)stream>>>(
+      (const float4*)x, (float*)partials, (float*)out,
+      (unsigned int*)ticket, n_vec, member_stride, members, slice_vec,
+      repeats);
   return (int)cudaGetLastError();
 }
 
-int repro_write_vmem(void* out, long long n_vec, int tile_vec, int repeats,
+int repro_write_vmem(void* out, long long n_vec, int slice_vec, int repeats,
                      void* stream) {
-  const size_t smem = (size_t)tile_vec * sizeof(float4);
+  const int smem = repro_vmem_smem_bytes(slice_vec);
   const int rc = allow_dynamic_smem(write_tile_kernel, smem);
   if (rc) return rc;
-  const int grid = (int)((n_vec + tile_vec - 1) / tile_vec);
-  write_tile_kernel<<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(
-      (float4*)out, n_vec, tile_vec, repeats);
+  const int grid = (int)((n_vec + slice_vec - 1) / slice_vec);
+  write_tile_kernel<<<grid, kVmemThreads, smem, (cudaStream_t)stream>>>(
+      (float4*)out, n_vec, slice_vec, repeats);
   return (int)cudaGetLastError();
 }
 

@@ -7,9 +7,9 @@ it is **which kernel runs**:
 
 * ``*_hbm``  — a grid-stride stream over the whole buffer: every byte
   travels between the buffer's memory and the SMs exactly once.
-* ``*_vmem`` — each CTA keeps its tile of the buffer in shared memory
-  and walks it ``repeats`` times: after one load (or before one store)
-  the traffic stays on chip.
+* ``*_vmem`` — the buffer is spread over the shared memory of up to
+  every SM, and each CTA walks its slice ``repeats`` times: after one
+  load (or before one store) the traffic stays on chip.
 
 A wrapper launches its kernel for a CUDA tensor, or for a pinned host
 tensor when a card is present (the kernel then streams over PCIe).  Only
@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,6 +45,9 @@ CTAS_PER_SM = 8           # grid-stride streams: a few CTAs on each SM
 # Largest tile one CTA keeps in shared memory: what a block can use, less
 # one line for the reduction's static scratch.  453 whole lines.
 SMEM_TILE_ROWS = (_build.SMEM_PER_BLOCK_BYTES - 512) // (LANE * 4)
+# The on-chip pair's slices (vmem_layout): at least this many rows a CTA,
+# chosen by tools/stream_ab.py's layout sweep on an H100.
+VMEM_MIN_SLICE_ROWS = 2
 
 _VP, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_float)
@@ -317,10 +320,39 @@ def mixed_hbm(x: torch.Tensor, *, read_fraction: float,
 # ---------------------------------------------------------------------------
 
 
-def _tile_rows(rows: int) -> int:
-    """Rows a CTA keeps in shared memory: the whole buffer when it fits
-    one SM, else tiles of ``SMEM_TILE_ROWS`` over as many CTAs."""
-    return min(rows, SMEM_TILE_ROWS)
+class VmemLayout(NamedTuple):
+    """The on-chip pair's launch: ``ctas`` CTAs, CTA b holding rows
+    [b * slice_rows, min(rows, (b + 1) * slice_rows)) in its shared
+    memory."""
+    ctas: int
+    slice_rows: int
+
+
+def vmem_layout(rows: int, sm_count: int) -> VmemLayout:
+    """Spread ``rows`` over the shared memory of up to ``sm_count`` SMs,
+    one CTA an SM, at least ``VMEM_MIN_SLICE_ROWS`` rows a CTA (a smaller
+    slice is walked at the loop's latency, not the shared memory's rate).
+    A buffer larger than ``sm_count`` tiles of ``SMEM_TILE_ROWS`` takes as
+    many CTAs of that tile as it needs."""
+    if rows < 1 or sm_count < 1:
+        raise ValueError(f"vmem_layout: rows {rows}, sm_count {sm_count}")
+    slice_rows = min(rows, SMEM_TILE_ROWS,
+                     max(VMEM_MIN_SLICE_ROWS, -(-rows // sm_count)))
+    return VmemLayout(-(-rows // slice_rows), slice_rows)
+
+
+# The ticket of each (card, stream): the read's last CTA finds out that it
+# is last by it and sets it back to 0, so launches in one stream share it
+# and launches in two streams never do.
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(dev: torch.device, stream_: int) -> torch.Tensor:
+    key = (dev.index, stream_)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
 
 
 def read_vmem(x: torch.Tensor, *, repeats: int = 16) -> torch.Tensor:
@@ -328,13 +360,16 @@ def read_vmem(x: torch.Tensor, *, repeats: int = 16) -> torch.Tensor:
     from the buffer's memory); returns ``sum(x) * repeats``, one a member
     for a (g, rows, 128) stack.
 
-    Replaces ``repro/kernels/stream.py:read_vmem``.  Bound by bytes
-    (R*512 read once) for the card, by shared-memory bandwidth for what
-    it is built to time.  Design (C): each CTA loads its tile into
-    dynamic shared memory once, then sums it ``repeats`` times; a
-    compiler barrier in the loop keeps the re-reads from being hoisted.
-    The members of a stack run back to back in each CTA, so the launch
-    takes the sum of their walks."""
+    Replaces ``repro/kernels/stream.py:read_vmem``.  Bound by the shared
+    memory of the SMs it spans (``repeats`` x R*512 bytes), plus R*512
+    read once from the buffer's memory.  Design (C): the rows are spread
+    over up to every SM (:func:`vmem_layout`); each CTA loads its slice
+    into dynamic shared memory once, then sums it ``repeats`` times with
+    several walks in flight; a compiler barrier at each walk keeps the
+    re-reads from being hoisted.  The last CTA to finish sums the
+    partials in a fixed order: one launch a call, the same bits every
+    call.  The members of a stack run back to back in each CTA, so the
+    launch takes the sum of their walks."""
     _build.check_buffer(x, dtypes=(torch.float32,), what="read_vmem",
                         members=True)
     if repeats < 1:
@@ -344,15 +379,17 @@ def read_vmem(x: torch.Tensor, *, repeats: int = 16) -> torch.Tensor:
         return ref.read_vmem_ref(x, repeats)
     dev = _build.compute_device(x)
     g, rows, stride = _build.member_layout(x)
-    tile_rows = _tile_rows(rows)
-    n_ctas = -(-rows // tile_rows)
-    partials = torch.empty((g, n_ctas), dtype=torch.float32, device=dev)
-    _launch("repro_read_vmem", (_VP, _VP, _LL, _LL, _I, _I, _I, _VP),
-            x.data_ptr(), partials.data_ptr(), rows * LANE // 4,
-            stride // 4, g, tile_rows * (LANE // 4), repeats,
-            _build.current_stream(dev))
+    lay = vmem_layout(rows, _sm_count(dev))
+    partials = torch.empty((g, lay.ctas), dtype=torch.float32, device=dev)
+    out = torch.empty(g, dtype=torch.float32, device=dev)
+    st = _build.current_stream(dev)
+    _launch("repro_read_vmem",
+            (_VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _VP),
+            x.data_ptr(), partials.data_ptr(), out.data_ptr(),
+            _ticket(dev, st).data_ptr(), rows * LANE // 4, stride // 4, g,
+            lay.slice_rows * (LANE // 4), repeats, st)
     counts.LAUNCHES["read_vmem"] += 1
-    return partials.sum(dim=-1) if x.dim() == 3 else partials.sum()
+    return out if x.dim() == 3 else out[0]
 
 
 def write_vmem(shape_rows: int, *, repeats: int = 16, device="cuda",
@@ -360,10 +397,11 @@ def write_vmem(shape_rows: int, *, repeats: int = 16, device="cuda",
     """Re-write an on-chip buffer ``repeats`` times with ``float(i)``,
     then store it once: every element ends as ``repeats - 1``.
 
-    Replaces ``repro/kernels/stream.py:write_vmem``.  Bound by bytes
-    (rows*512 written once) for the card, by shared-memory bandwidth for
-    what it is built to time.  Design (C), with the same compiler
-    barrier so that no repeated store is deleted.  Destination as in
+    Replaces ``repro/kernels/stream.py:write_vmem``.  Bound by the shared
+    memory of the SMs it spans (``repeats`` x rows*512 bytes), plus
+    rows*512 written once to the destination.  Design (C), spread over
+    the SMs as :func:`read_vmem` is, with the same compiler barrier so
+    that no repeated store is deleted.  Destination as in
     :func:`write_hbm`."""
     if repeats < 1:
         raise ValueError("write_vmem: repeats must be >= 1")
@@ -372,10 +410,10 @@ def write_vmem(shape_rows: int, *, repeats: int = 16, device="cuda",
         counts.PLAIN["write_vmem"] += 1
         return dst.copy_(ref.write_vmem_ref(shape_rows, repeats))
     dev = _build.compute_device(dst)
+    lay = vmem_layout(shape_rows, _sm_count(dev))
     _launch("repro_write_vmem", (_VP, _LL, _I, _I, _VP),
-            dst.data_ptr(), dst.numel() // 4,
-            _tile_rows(shape_rows) * (LANE // 4), repeats,
-            _build.current_stream(dev))
+            dst.data_ptr(), dst.numel() // 4, lay.slice_rows * (LANE // 4),
+            repeats, _build.current_stream(dev))
     counts.LAUNCHES["write_vmem"] += 1
     return dst
 

@@ -8,6 +8,8 @@ fixture, never at import).  On a machine with a card:
 
 ``chip_smoke.py`` makes the same comparisons at the main path's sizes.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -117,6 +119,48 @@ def test_mxu_probe_matches_plain_version(card, iters):
     got = compute_probe.mxu_probe(r, iters=iters)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert counts.LAUNCHES["mxu_probe"] == 2 and not any(counts.PLAIN.values())
+
+
+@pytest.mark.parametrize("rows", [256, 2048 + 8])
+@pytest.mark.parametrize("g", [1, 3, 4])
+def test_read_vmem_members_spread_over_the_sms(card, g, rows):
+    """The on-chip read of a (g, rows, 128) stack, each member spread over
+    the SMs' shared memory: within 1e-5 of the float64 sums (float32
+    partials in another order), one launch, and the same bits on every
+    call (the partials are summed in a fixed order)."""
+    x = torch.stack([_arr(rows, s) for s in range(g)]).to(card)
+    want = x.double().sum(dim=(1, 2))
+    got = stream.read_vmem(x, repeats=8)
+    torch.testing.assert_close(got.double(), 8 * want, rtol=1e-5, atol=0)
+    for _ in range(9):
+        assert torch.equal(stream.read_vmem(x, repeats=8), got)
+    one = stream.read_vmem(x[0], repeats=8)
+    assert one.dim() == 0
+    assert float(one) == pytest.approx(8 * float(want[0]), rel=1e-5)
+    assert counts.LAUNCHES["read_vmem"] == 11
+    assert not any(counts.PLAIN.values())
+
+
+@pytest.mark.parametrize("repeats", [1, 2, 7, 8, 9, 2048])
+@pytest.mark.parametrize("rows", [1, 3, 8, 257, 453, 2048 + 8, 132 * 453 + 40])
+def test_write_vmem_leaves_repeats_minus_one(card, rows, repeats):
+    """Every element of the on-chip write is exactly ``repeats - 1`` at
+    ragged sizes: a last slice shorter than the others, a buffer larger
+    than the SMs' tiles."""
+    out = torch.full((rows, 128), -1.0, device=card)
+    assert stream.write_vmem(rows, repeats=repeats, out=out) is out
+    assert torch.equal(out, ref.write_vmem_ref(rows, repeats, card))
+    assert counts.LAUNCHES["write_vmem"] == 1
+
+
+@pytest.mark.parametrize("rows", [1, 256, 453, 2048 + 8])
+def test_one_cta_of_the_on_chip_pair_an_sm(card, rows):
+    """The card itself fits one CTA of the read's and of the write's
+    kernel on an SM at the slice the wrapper gives them."""
+    lay = stream.vmem_layout(rows, stream._sm_count(card))
+    occ = _build.bind("stream", "repro_vmem_ctas_per_sm",
+                      (ctypes.c_int, ctypes.c_int))
+    assert [occ(w, lay.slice_rows * 32) for w in (0, 1)] == [1, 1]
 
 
 @pytest.mark.parametrize("g", [1, 3, 4])

@@ -143,6 +143,51 @@ def test_read_write_vmem(repeats):
     np.testing.assert_array_equal(gotw.numpy(), np.asarray(wantw))
 
 
+def _slices(rows, lay):
+    """The rows each CTA holds, as the kernels index them: CTA b owns
+    [b * slice_rows, min(rows, (b + 1) * slice_rows))."""
+    return [(b * lay.slice_rows, min(rows, (b + 1) * lay.slice_rows))
+            for b in range(lay.ctas)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8, 1])
+@pytest.mark.parametrize("rows", [8, 256, 453, 2048 + 8, 132 * 453 + 40])
+def test_vmem_layout_covers_the_rows_once(rows, sms):
+    """The on-chip pair's launch layout: every row in exactly one slice,
+    no slice above one SM's tile, one CTA an SM for a buffer that fits the
+    SMs' shared memory, and a ragged last slice that is not empty."""
+    lay = stream.vmem_layout(rows, sms)
+    sl = _slices(rows, lay)
+    covered = np.zeros(rows, dtype=int)
+    for lo, hi in sl:
+        assert 0 <= lo < hi <= rows
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert 1 <= lay.slice_rows <= stream.SMEM_TILE_ROWS
+    assert all(hi - lo <= lay.slice_rows for lo, hi in sl)
+    if rows <= sms * stream.SMEM_TILE_ROWS:
+        assert lay.ctas <= sms
+    else:
+        assert lay.slice_rows == stream.SMEM_TILE_ROWS
+    # a slice of at least the least rows, when the buffer has them
+    assert lay.slice_rows >= min(rows, stream.VMEM_MIN_SLICE_ROWS)
+
+
+def test_vmem_layout_at_the_card_shapes():
+    """The layouts the main path and chip_smoke.py's on-chip cases launch
+    on an H100's 132 SMs."""
+    got = {rows: tuple(stream.vmem_layout(rows, 132))
+           for rows in (8, 256, 453, 2048 + 8)}
+    assert got == {8: (4, 2), 256: (128, 2), 453: (114, 4), 2056: (129, 16)}
+    # the last slice of 453 rows is one row; of 2056 rows, 8
+    assert _slices(453, stream.vmem_layout(453, 132))[-1] == (452, 453)
+    assert _slices(2056, stream.vmem_layout(2056, 132))[-1] == (2048, 2056)
+    with pytest.raises(ValueError):
+        stream.vmem_layout(0, 132)
+    with pytest.raises(ValueError):
+        stream.vmem_layout(8, 0)
+
+
 @pytest.mark.parametrize("n_lines", [2, 16, 64, 257])
 @pytest.mark.parametrize("seed", [0, 3])
 def test_chase_vmem(n_lines, seed):
