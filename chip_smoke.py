@@ -251,6 +251,8 @@ def phase_kernels(main_rows: int) -> dict:
     case(cases, "rmw_hbm", xb.shape, float((got - want).abs().max()),
          1e-2 * float(want.abs().max()), {"dtype": "bfloat16", "rtol": 1e-2})
 
+    rmw_cases(cases)
+
     # mixed: the five ratios of the reference's own test, then the main
     # path's split
     for rows, blk, rfs in ((1024, 128, (1.0, 2 / 3, 0.5, 1 / 3, 0.0)),
@@ -323,6 +325,39 @@ def phase_kernels(main_rows: int) -> dict:
           "launches": {k: launched[k] - before[k] for k in launched},
           "cases": cases})
     return at_main
+
+
+def rmw_cases(cases: list) -> None:
+    """``rmw_hbm`` exactly ``x + 1`` (bf16: one rounding of the float32
+    sum, as the plain version rounds it) at 1, 3 and 513 rows (a short
+    last chunk), on a 3-member stack and on pinned host buffers, f32 and
+    bf16; each call one launch of the kernel, and nothing plain, into a
+    new buffer in the memory of its input."""
+    inputs = []
+    for dt in (torch.float32, torch.bfloat16):
+        for rows in (1, 3, 513):
+            inputs.append(uniform(rows, rows).to(dt))
+        inputs.append(uniform(3 * 513, 9).to(dt).reshape(3, 513, 128))
+        for rows in (1, 513):
+            inputs.append(torch.empty((rows, 128), dtype=dt, pin_memory=True)
+                          .copy_(uniform(rows, 10 + rows).to(dt).cpu()))
+    for x in inputs:
+        launches, plain = counts.LAUNCHES["rmw_hbm"], counts.PLAIN["rmw_hbm"]
+        out = stream.rmw_hbm(x, block_rows=1)
+        sync()
+        launched = (counts.LAUNCHES["rmw_hbm"] == launches + 1
+                    and counts.PLAIN["rmw_hbm"] == plain)
+        fresh = (out.data_ptr() != x.data_ptr() and out.is_cuda == x.is_cuda
+                 and out.is_pinned() == x.is_pinned())
+        want = x.to(DEV) + 1
+        err = float((out.to(DEV).float() - want.float()).abs().max())
+        memory = "pinned host" if x.is_pinned() else "device"
+        case(cases, "rmw_hbm", x.shape, err, 0.0,
+             {"dtype": str(x.dtype).split(".")[1], "memory": memory,
+              "launched": launched, "new_buffer": fresh})
+        if not (launched and fresh):
+            fail(f"rmw_hbm {list(x.shape)} {x.dtype} in {memory} memory: "
+                 f"launched {launched}, new buffer in its memory {fresh}")
 
 
 # The probe against its plain version: the kernel's products in 3xTF32
@@ -1046,8 +1081,9 @@ def bound(bytes_: float, ops_: float, ops_per_s: float = FP32_OPS_PER_S):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_perf(at_main: dict, launched: dict, records: dict) -> list:
-    """``launched``: each kernel's launches over the two paths' runs."""
+def phase_perf(at_main: dict, launched: dict, records: dict) -> tuple:
+    """``launched``: each kernel's launches over the two paths' runs.
+    Returns the kernels' rows and this run's empty launch in ms."""
     rows = rows_of(G1)
     nbytes = rows * 512
     x = workloads.bw_buffer_init((rows, 128), torch.float32).to(DEV)
@@ -1197,7 +1233,7 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> list:
                   "x 1.98 GHz of shared memory; launches over the main "
                   "path and the matrix phase; float32 products without "
                   "TF32 in the plain versions"})
-    return kernels
+    return kernels, empty_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1218,16 +1254,37 @@ TIMER = {"tick_ns": 1000}
 MIN_TICKS = 100
 
 
-def phase_probe() -> dict:
+def probe_sass() -> dict:
+    """The global loads and stores of the probe's kernel in its SASS: the
+    design is one 16-byte load and one 16-byte store a thread."""
+    mem = [w for w in sass_words("contention", "add_one_kernel")
+           if w.split(".")[0] in ("LDG", "STG")]
+    return {"LDG": sum(w.startswith("LDG") for w in mem),
+            "STG": sum(w.startswith("STG") for w in mem),
+            "LDG.128": sum(w.startswith("LDG") and ".128" in w for w in mem),
+            "STG.128": sum(w.startswith("STG") and ".128" in w for w in mem),
+            "opcodes": mem}
+
+
+def phase_probe() -> tuple:
+    """The probe against its plain version, exact; returns its case and
+    its SASS counts."""
     x = torch.arange(8 * 128, dtype=torch.float32, device=DEV).reshape(8, 128)
     err = float((contention.probe_add_one(x) - ref.probe_add_one_ref(x))
                 .abs().max())
     supported = compat.kernels_supported(DEV)      # raises if it fails
+    sass = probe_sass()
+    one_each = (sass["LDG"] == sass["LDG.128"] == 1
+                and sass["STG"] == sass["STG.128"] == 1)
     emit({"phase": "probe", "kernels_supported": supported,
-          "max_abs_err": err})
+          "max_abs_err": err, "sass": sass,
+          "one_128_bit_load_and_store": one_each})
     if not supported or err != 0.0:
         fail(f"probe: x + 1 off by {err}")
-    return {"max_abs_err": err, "tol": 0.0}
+    if not one_each:
+        fail(f"probe: SASS has {sass['opcodes']}, want one LDG.E.128 and "
+             "one STG.E.128")
+    return {"max_abs_err": err, "tol": 0.0}, sass
 
 
 def ladder_program(rows, roles, subsets=None, samples=1, kind=None):
@@ -1547,9 +1604,10 @@ def phase_spmd() -> None:
             fail(f"spmd: check {k}")
 
 
-def spmd_perf(at_spmd: dict, launched: dict) -> list:
+def spmd_perf(at_spmd: dict, launched: dict, empty_ms: float) -> list:
     """The two new kernels' rows of the ``kernels`` line: the ladder at
-    (b)'s rung 7 (one step; all eight engines stream), the probe."""
+    (b)'s rung 7 (one step; all eight engines stream), the probe, whose
+    floor is this run's empty launch (``empty_ms``, the perf phase's)."""
     rows, roles = rung_table(SPEC_B, N_ENG - 1)
     prog = ladder_program(rows, roles)
     plain = lambda: ref.contention_ladder_ref(  # noqa: E731
@@ -1578,7 +1636,10 @@ def spmd_perf(at_spmd: dict, launched: dict) -> list:
                 "plain_ms": time_ms(lambda: ref.probe_add_one_ref(x), 200),
                 "bound_ms": p_ms, "bound_by": p_by,
                 "library_ms": time_ms(lambda: torch.add(x, 1.0), 200),
-                "note": "launch-bound: 4 KiB in, 4 KiB out"})
+                "launch_floor_ms": empty_ms,
+                "sass": at_spmd["probe_sass"],
+                "note": "launch-bound: 4 KiB in, 4 KiB out; "
+                        "launch_floor_ms is this run's empty launch"})
     return out
 
 
@@ -1760,15 +1821,24 @@ def tc_edge_cases(cases: list) -> None:
                              "(2^-7 |want| + 2^-12)"})
 
 
-def sass_counts(library: str, opcodes) -> dict:
-    """How often each opcode stands in the built library's SASS, read
-    with the cuobjdump beside the nvcc that built it."""
+def sass_words(library: str, function: str = "") -> list:
+    """The words of the built library's SASS, read with the cuobjdump
+    beside the nvcc that built it; with ``function``, only those of the
+    kernels whose (mangled) name holds it."""
     cuobjdump = os.path.join(os.path.dirname(compat.nvcc_path()),
                              "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass",
                            str(_build.compile_source(library))],
                           capture_output=True, text=True, check=True).stdout
-    words = sass.split()
+    if function:
+        sass = " ".join(f for f in sass.split("Function :")[1:]
+                        if function in f.split()[0])
+    return sass.split()
+
+
+def sass_counts(library: str, opcodes) -> dict:
+    """How often each opcode stands in the built library's SASS."""
+    words = sass_words(library)
     return {op: sum(1 for w in words if w.split(".")[0] == op)
             for op in opcodes}
 
@@ -1929,7 +1999,8 @@ def main() -> int:
     at_main = phase_kernels(rows_of(G1))
     phase_pinned()
     phase_small_reference()
-    at_spmd = {"probe_add_one": phase_probe(),
+    probe_case, sass = phase_probe()
+    at_spmd = {"probe_add_one": probe_case, "probe_sass": sass,
                "contention_ladder": phase_spmd_kernel_checks()}
 
     walk_us = phase_on_chip()
@@ -1972,9 +2043,9 @@ def main() -> int:
     attention_rows = phase_attention()
 
     phase_checks(records, launched, plain)
-    kernels = phase_perf(at_main, {k: launched[k] + m_launched[k]
-                                   for k in launched}, records)
-    kernels += spmd_perf(at_spmd, s_launched)
+    kernels, empty_ms = phase_perf(at_main, {k: launched[k] + m_launched[k]
+                                             for k in launched}, records)
+    kernels += spmd_perf(at_spmd, s_launched, empty_ms)
     kernels += attention_rows
     sync()
     if FAILURES:

@@ -179,7 +179,7 @@ def probe_add_one(x: torch.Tensor) -> torch.Tensor:
 
     Replaces the ``pallas_call`` of ``repro/compat.py:pallas_supported``.
     Bound by the launch: 4 KiB read and 4 KiB written.  Design: one CTA
-    of 256 threads, one element a thread and step."""
+    of 256 threads, each one 16-byte load and one 16-byte store."""
     if tuple(x.shape) != (8, LANE) or x.dtype != torch.float32 or \
             not x.is_contiguous():
         raise ValueError("probe_add_one: want a contiguous (8, 128) float32 "

@@ -313,11 +313,18 @@ __global__ void __launch_bounds__(kThreads, 1) ladder_kernel(const Ladder L) {
   }
 }
 
-__global__ void add_one_kernel(const float* __restrict__ x,
-                               float* __restrict__ out, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x)
-    out[i] = x[i] + 1.0f;
+// The kernel-support probe (replaces the pallas_call of
+// repro/compat.py:pallas_supported): out = x + 1 on one (8, 128) float32
+// block.  Bound by the launch (4 KiB in, 4 KiB out), so the body is one
+// memory round trip: kProbeThreads threads, each one 16-byte read-only load
+// and one 16-byte store; no loop.
+constexpr int kProbeThreads = 256;
+
+__global__ void __launch_bounds__(kProbeThreads)
+    add_one_kernel(const float4* __restrict__ x, float4* __restrict__ out) {
+  float4 v = __ldg(x + threadIdx.x);
+  v.x += 1.0f; v.y += 1.0f; v.z += 1.0f; v.w += 1.0f;
+  out[threadIdx.x] = v;
 }
 
 }  // namespace
@@ -382,9 +389,11 @@ int repro_contention_ladder(void* xf, const void* xi, void* dst,
   return (int)cudaGetLastError();
 }
 
+// n: the block's floats, 4 * kProbeThreads and nothing else
 int repro_probe_add_one(const void* x, void* out, int n, void* stream) {
-  add_one_kernel<<<1, 256, 0, (cudaStream_t)stream>>>((const float*)x,
-                                                      (float*)out, n);
+  if (n != 4 * kProbeThreads) return (int)cudaErrorInvalidValue;
+  add_one_kernel<<<1, kProbeThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (float4*)out);
   return (int)cudaGetLastError();
 }
 

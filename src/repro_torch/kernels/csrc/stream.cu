@@ -17,19 +17,23 @@
 // members back to back in each CTA, so its time is the sum of the members'
 // walks, as the reference's per-member split of the pass time assumes.
 //
-// Four designs:
-//   (A) grid-stride stream of 16-byte accesses: write, write_seeded, rmw,
-//       copy, triad
+// Five designs:
+//   (A) grid-stride stream of 16-byte accesses: write, write_seeded, copy,
+//       triad
 //   (B) the same stream with a block reduction to one partial per CTA: read
 //   (C) the buffer spread over the shared memory of up to every SM, each
 //       CTA walking its slice `repeats` times: read_tile / write_tile (the
 //       on-chip residency pair); the read sums its partials in the launch
+//   (D) one chunk a CTA, through one TMA bulk copy into shared memory and
+//       one back: rmw
 //   (-) an empty kernel, to time a bare launch, and a hold kernel that keeps
 //       the stream busy for a given time while the host enqueues the work
 //       it is followed by
 //
-// The bodies of r/s, w/y, x and c are the role bodies of roles.cuh, which
-// the contention ladder (contention.cu) runs too: one code for both.
+// The bodies of r/s, w/y and c are the role bodies of roles.cuh, which the
+// contention ladder (contention.cu) runs too: one code for both.  The
+// ladder's x and in-place w run roles.cuh's add1_strided; rmw (D) here is a
+// design of its own.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +50,10 @@ __device__ __forceinline__ long long global_thread() {
 
 __device__ __forceinline__ long long grid_threads() {
   return (long long)gridDim.x * blockDim.x;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
 // ---- (B) read: every 16 bytes loaded once, one partial sum per CTA --------
@@ -69,11 +77,50 @@ __global__ void write_kernel(float4* __restrict__ out, long long n_vec,
   roles::fill_strided(out, global_thread(), n_vec, grid_threads(), f);
 }
 
-// ---- (A) rmw: x + 1 into a second buffer (line read, then written) ---------
-__global__ void rmw_f32_kernel(const float4* __restrict__ x,
-                               float4* __restrict__ out, long long n_vec) {
-  roles::add1_strided(x, out, global_thread(), n_vec, grid_threads());
-}
+// ---- (D) rmw: x + 1 into a new buffer, one chunk a CTA -------------------
+// Replaces repro/kernels/stream.py:rmw_hbm.  Bound by bytes: each 16-byte
+// unit read once and written once (2 GiB for a 1 GiB buffer: 0.641 ms at
+// 3.35 TB/s).  Design (A)'s grid stride put a thread's four units 4.3 MB
+// apart, and its reads and writes mixed at 85 % of the bound where each
+// alone streams at 93 %.
+//
+// The chunk rule (stream.rmw_grid, stream.rmw_chunk): the buffer is cut into
+// chunks of kRmwChunkVec units, the last one short, and CTA b owns chunk b.
+// The grid is one CTA a chunk, so the CTAs resident at any moment (4 of
+// 512 threads an SM) work on one window of neighbouring chunks that sweeps
+// the buffer once: the reads, and the writes, of the whole card stay in a
+// few MB.  One wave of persistent CTAs, each walking a contiguous range
+// (through a ring of 4 x 32 KiB bulk copies) or chunks a grid apart, mixed
+// the reads and writes worse (tools/stream_ab.py on an H100, PERF.md).
+//
+// Thread 0 fills the CTA's chunk in shared memory with one 1-D TMA bulk
+// copy (cp.async.bulk, completion on an mbarrier), every thread adds 1 to
+// its units in shared memory, and thread 0 writes the chunk back with one
+// bulk store.  The SM's 4 chunks (40 KiB) are its bytes in flight,
+// whatever the registers.  Of 4-32 KiB chunks at 128-1024 threads, 10 KiB
+// x 512 threads was at or near the fastest on every card tried; 32-36 KiB
+// in flight an SM was too few, 56 KiB or more too many (tools/stream_ab.py
+// --rmw-build).  The bulk copies read and write pinned host memory too
+// (over PCIe, through the same pointer).
+//
+// No L2 eviction hints: with an L2::evict_first policy on the loads and
+// stores the steady state gained under 0.1 %, and lines that other kernels
+// left in L2 at normal priority outlived the stream's evict_first lines, so
+// the first calls after other work ran about 1 % slower (PERF.md).
+//
+// f32 and bf16 move the same bytes; only the +1 differs (bf16: one
+// rounding of the float32 sum).  tools/stream_ab.py rebuilds this file with
+// -DREPRO_RMW_CHUNK_KIB or -DREPRO_RMW_THREADS to try another chunk.
+#ifndef REPRO_RMW_CHUNK_KIB
+#define REPRO_RMW_CHUNK_KIB 10
+#endif
+#ifndef REPRO_RMW_THREADS
+#define REPRO_RMW_THREADS 512
+#endif
+constexpr int kRmwChunkBytes = REPRO_RMW_CHUNK_KIB * 1024;
+constexpr int kRmwChunkVec = kRmwChunkBytes / 16;
+constexpr int kRmwThreads = REPRO_RMW_THREADS;
+static_assert(kRmwChunkBytes <= 48 * 1024, "a chunk is static shared memory");
 
 __device__ __forceinline__ uint32_t bf16x2_add1(uint32_t packed) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&packed);
@@ -82,15 +129,94 @@ __device__ __forceinline__ uint32_t bf16x2_add1(uint32_t packed) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__global__ void rmw_bf16_kernel(const uint4* __restrict__ x,
-                                uint4* __restrict__ out, long long n_vec) {
-  const long long step = grid_threads();
-  for (long long i = global_thread(); i < n_vec; i += step) {
-    uint4 v = x[i];
-    v.x = bf16x2_add1(v.x); v.y = bf16x2_add1(v.y);
-    v.z = bf16x2_add1(v.z); v.w = bf16x2_add1(v.w);
-    out[i] = v;
+struct AddOneF32 {
+  __device__ __forceinline__ static uint4 apply(uint4 v) {
+    return make_uint4(__float_as_uint(__uint_as_float(v.x) + 1.f),
+                      __float_as_uint(__uint_as_float(v.y) + 1.f),
+                      __float_as_uint(__uint_as_float(v.z) + 1.f),
+                      __float_as_uint(__uint_as_float(v.w) + 1.f));
   }
+};
+
+struct AddOneBf16 {
+  __device__ __forceinline__ static uint4 apply(uint4 v) {
+    return make_uint4(bf16x2_add1(v.x), bf16x2_add1(v.y), bf16x2_add1(v.z),
+                      bf16x2_add1(v.w));
+  }
+};
+
+// units of this CTA's chunk
+__device__ __forceinline__ int chunk_len(long long n_vec) {
+  const long long left = n_vec - (long long)blockIdx.x * kRmwChunkVec;
+  return left < kRmwChunkVec ? (int)left : kRmwChunkVec;
+}
+
+// Waits for the mbarrier's first phase to complete.  A wait longer than
+// 10 s can only be a lost arrival: it traps, so that a fault is reported
+// instead of a card that never finishes.
+__device__ __forceinline__ void mbar_wait(uint32_t bar) {
+  uint64_t t0 = 0;
+  for (uint32_t spins = 1;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(0u) : "memory");
+    if (done) return;
+    if ((spins & 0xffff) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 10000000000ull) __trap();
+    }
+  }
+}
+
+// global -> shared, `bytes` completing on the mbarrier `bar` (initialised
+// for one arrival: this thread's arrive.expect_tx)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// shared -> global; returns once the store has read the shared memory
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kRmwThreads)
+    rmw_bulk_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+                    long long n_vec) {
+  __shared__ __align__(128) uint4 chunk[kRmwChunkVec];
+  __shared__ __align__(8) uint64_t full;
+  const long long base = (long long)blockIdx.x * kRmwChunkVec;
+  const int len = chunk_len(n_vec);
+  const uint32_t buf = smem_addr(chunk), bar = smem_addr(&full);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk_load(buf, x + base, len * 16, bar);
+  }
+  __syncthreads();   // the mbarrier is initialised before anyone waits on it
+  mbar_wait(bar);
+  for (int i = threadIdx.x; i < len; i += kRmwThreads)
+    chunk[i] = Op::apply(chunk[i]);
+  // this thread's stores to the chunk are visible to the bulk store
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) bulk_store(out + base, buf, len * 16);
 }
 
 // ---- (A) copy --------------------------------------------------------------
@@ -174,10 +300,6 @@ constexpr int kOneCtaPerSmBytes = 116 * 1024;
 #define REPRO_VMEM_THREADS 128
 #endif
 constexpr int kVmemThreads = REPRO_VMEM_THREADS;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ float2 lds_volatile(uint32_t a) {
   float2 v;
@@ -347,17 +469,20 @@ int repro_write_hbm(void* out, long long n_vec, float value, const void* seed,
   return (int)cudaGetLastError();
 }
 
-int repro_rmw_hbm_f32(const void* x, void* out, long long n_vec, int grid,
-                      void* stream) {
-  rmw_f32_kernel<<<grid, kStreamThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)x, (float4*)out, n_vec);
-  return (int)cudaGetLastError();
-}
+// The bytes of an rmw chunk (stream.rmw_grid).
+int repro_rmw_chunk_bytes() { return kRmwChunkBytes; }
 
-int repro_rmw_hbm_bf16(const void* x, void* out, long long n_vec, int grid,
-                       void* stream) {
-  rmw_bf16_kernel<<<grid, kStreamThreads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)x, (uint4*)out, n_vec);
+// grid: one CTA a chunk (stream.rmw_grid); bf16: the element type (0
+// float32).
+int repro_rmw_hbm(const void* x, void* out, long long n_vec, int grid,
+                  int bf16, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    rmw_bulk_kernel<AddOneBf16><<<grid, kRmwThreads, 0, st>>>(
+        (const uint4*)x, (uint4*)out, n_vec);
+  else
+    rmw_bulk_kernel<AddOneF32><<<grid, kRmwThreads, 0, st>>>(
+        (const uint4*)x, (uint4*)out, n_vec);
   return (int)cudaGetLastError();
 }
 

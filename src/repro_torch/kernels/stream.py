@@ -5,8 +5,9 @@ The wrappers of ``csrc/stream.cu``.  On the ZCU102 the paper's
 distinction is cacheable vs. non-cacheable *instructions*; on this card
 it is **which kernel runs**:
 
-* ``*_hbm``  — a grid-stride stream over the whole buffer: every byte
-  travels between the buffer's memory and the SMs exactly once.
+* ``*_hbm``  — a stream over the whole buffer (a grid stride; for rmw one
+  chunk a CTA): every byte travels between the buffer's memory and the
+  SMs exactly once.
 * ``*_vmem`` — the buffer is spread over the shared memory of up to
   every SM, and each CTA walks its slice ``repeats`` times: after one
   load (or before one store) the traffic stays on chip.
@@ -195,14 +196,39 @@ def _elementwise(x: torch.Tensor, dtypes, block_rows: int, what: str):
     _grid_blocks(x.shape[-2], block_rows)
 
 
+def rmw_grid(n_vec: int, chunk_vec: int) -> int:
+    """CTAs of the rmw kernel: one a chunk of ``chunk_vec`` 16-byte units,
+    the last chunk short (:func:`rmw_chunk`)."""
+    if n_vec < 1 or chunk_vec < 1:
+        raise ValueError(f"rmw_grid: n_vec {n_vec}, chunk_vec {chunk_vec}")
+    return -(-n_vec // chunk_vec)
+
+
+def rmw_chunk(b: int, n_vec: int, chunk_vec: int) -> Tuple[int, int]:
+    """The units [begin, end) that CTA ``b`` of the rmw kernel reads and
+    writes: the rule ``csrc/stream.cu`` (D) applies, restated."""
+    begin = b * chunk_vec
+    return begin, min(begin + chunk_vec, n_vec)
+
+
+@functools.lru_cache(maxsize=None)
+def _rmw_chunk_vec() -> int:
+    return _build.library("stream").repro_rmw_chunk_bytes() // 16
+
+
 def rmw_hbm(x: torch.Tensor, *,
             block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
     """Write-allocate (x): every line read, modified (+1), and written
     to a NEW buffer, as the reference's ``pallas_call`` does.
 
     Replaces ``repro/kernels/stream.py:rmw_hbm``.  Bound by bytes: each
-    line read once and written once.  Design (A).  f32 and bf16.  A
-    stack of members is one elementwise stream over all of them."""
+    line read once and written once.  Design (D): one CTA a 10 KiB chunk
+    (:func:`rmw_grid`), which one TMA bulk copy brings into shared memory
+    and one takes back, so the CTAs on the card at any moment sweep one
+    window of the buffer.  f32 and bf16 (one rounding).  A stack of
+    members is one stream over all of them.  The output lies where ``x``
+    does: on its card, or in pinned host memory, which the bulk copies
+    read and write over PCIe."""
     _elementwise(x, (torch.float32, torch.bfloat16), block_rows, "rmw_hbm")
     if not _build.launches_kernel(x):
         counts.PLAIN["rmw_hbm"] += 1
@@ -210,10 +236,10 @@ def rmw_hbm(x: torch.Tensor, *,
     dev = _build.compute_device(x)
     out = _build.empty_like_placed(x)
     n_vec = x.numel() * x.element_size() // 16
-    fn = ("repro_rmw_hbm_f32" if x.dtype == torch.float32
-          else "repro_rmw_hbm_bf16")
-    _launch(fn, (_VP, _VP, _LL, _I, _VP), x.data_ptr(), out.data_ptr(),
-            n_vec, _stream_grid(n_vec, dev), _build.current_stream(dev))
+    _launch("repro_rmw_hbm", (_VP, _VP, _LL, _I, _I, _VP),
+            x.data_ptr(), out.data_ptr(), n_vec,
+            rmw_grid(n_vec, _rmw_chunk_vec()),
+            int(x.dtype == torch.bfloat16), _build.current_stream(dev))
     counts.LAUNCHES["rmw_hbm"] += 1
     return out
 

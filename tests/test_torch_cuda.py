@@ -65,6 +65,25 @@ def test_streams_match_plain_versions(card, rows):
     assert launches["read_hbm"] == 1 and launches["rmw_hbm"] == 2
 
 
+@pytest.mark.parametrize("shape", [(1, 128), (3, 128), (513, 128),
+                                   (3, 513, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pinned", [False, True])
+def test_rmw_is_x_plus_one_exactly(card, shape, dtype, pinned):
+    """Ragged rows (a short last chunk), a stack, pinned host memory and
+    device memory, both dtypes: one launch, a new buffer in the input's
+    memory, exactly x + 1."""
+    x = torch.from_numpy(np.random.default_rng(shape[-2]).uniform(
+        0.5, 1.5, size=shape).astype(np.float32)).to(dtype)
+    x = x.pin_memory() if pinned else x.to(card)
+    out = stream.rmw_hbm(x, block_rows=1)
+    torch.cuda.synchronize()
+    assert out.data_ptr() != x.data_ptr()
+    assert out.is_cuda == (not pinned) and out.is_pinned() == pinned
+    assert torch.equal(out.to(card), x.to(card) + 1)
+    assert counts.LAUNCHES["rmw_hbm"] == 1 and not any(counts.PLAIN.values())
+
+
 @pytest.mark.parametrize("n_lines", [2, 16, 64, 257, 453])
 def test_chases_match_plain_version(card, n_lines):
     host = chase.chain_buffer(n_lines, 3)
@@ -240,6 +259,15 @@ def test_probe_kernel_adds_one_exactly(card):
     assert compat.kernels_supported(card)
     assert counts.LAUNCHES["probe_add_one"] >= 1
     assert compat.device_clock_source(card) == "device"
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_probe_adds_one_exactly_to_random_values(card, seed):
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (8, 128)).astype(np.float32)).to(card)
+    assert torch.equal(contention.probe_add_one(x), x + 1.0)
+    assert counts.LAUNCHES["probe_add_one"] == 1
+    assert not any(counts.PLAIN.values())
 
 
 SHAPES = {"b": scenarios.TrafficShape.mixed(2, 1),

@@ -89,6 +89,48 @@ def test_rmw_hbm(rows, dtype):
         np.testing.assert_allclose(got.float().numpy(), want32, rtol=1e-2)
 
 
+@pytest.mark.parametrize("shape", [(1, 128), (3, 128), (513, 128),
+                                   (3, 513, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmw_hbm_ragged_rows_and_stacks(shape, dtype):
+    """Any whole number of rows, down to 1, and a member stack: exact in
+    both dtypes (bf16: each side rounds the float32 sum once)."""
+    x = _arr(shape, seed=shape[-2])
+    rows = shape[-2]
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    fn = lambda a: jstream.rmw_hbm(a, block_rows=rows, **I)  # noqa: E731
+    want = jax.vmap(fn)(jx) if len(shape) == 3 else fn(jx)
+    got = stream.rmw_hbm(tx, block_rows=rows)
+    assert got.shape == tx.shape and got.dtype == tx.dtype
+    assert got.data_ptr() != tx.data_ptr()
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("chunk_vec", [1, 384, 512])
+@pytest.mark.parametrize("n_vec", [1, 2, 32, 96, 383, 384, 385, 513 * 32,
+                                   3 * 513 * 32, 1 << 20])
+def test_rmw_chunks_cover_every_unit_once(n_vec, chunk_vec):
+    """The kernel's chunk rule: one CTA a chunk, chunks back to back from
+    unit 0, each non-empty, the last one ending at the buffer's end (short
+    where the chunk does not divide it)."""
+    grid = stream.rmw_grid(n_vec, chunk_vec)
+    ranges = [stream.rmw_chunk(b, n_vec, chunk_vec) for b in range(grid)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_vec
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(0 < e - b <= chunk_vec for b, e in ranges)
+    assert all(e - b == chunk_vec for b, e in ranges[:-1])
+    assert ranges[-1][1] - ranges[-1][0] == n_vec - (grid - 1) * chunk_vec
+
+
+def test_rmw_grid_refuses_an_empty_buffer():
+    with pytest.raises(ValueError):
+        stream.rmw_grid(0, 512)
+    with pytest.raises(ValueError):
+        stream.rmw_grid(512, 0)
+
+
 @pytest.mark.parametrize("rows", [128, 1024])
 def test_copy_hbm(rows):
     x = _arr((rows, 128))

@@ -2,21 +2,35 @@
 
 Each ``--variant name=DIR`` names a directory holding a ``stream.cu`` (and
 the headers it includes).  Every variant is built with the repo's nvcc
-flags, then ``read_hbm``, ``write_hbm``, ``rmw_hbm`` (f32) and ``copy_hbm``
-run on the same buffer in turns: within a round the variants go in one
-order, in the next round in the reverse order, so that a drift of the
-card's clocks or power falls on all of them alike.  Each launch is timed
-with CUDA events; a round keeps the median of ``--reps`` launches, and
-the result is the median over rounds with each variant's time relative
-to the first variant's in the same round.
+flags, then ``read_hbm``, ``write_hbm``, ``rmw_hbm`` (f32, and bf16 as
+``rmw_hbm_bf16``) and ``copy_hbm`` run on buffers of the same bytes in
+turns: within a round the variants go in one order, in the next round in
+the reverse order, so that a drift of the card's clocks or power falls on
+all of them alike.  ``--reps`` calls run back to back behind a hold of the
+stream (twice the host's cost of enqueueing them), between two CUDA
+events, so the card and not the host sets the pace; the result is the
+median over rounds of the ms a call, with each variant's time relative to
+the first variant's in the same round.
+
+Each variant's ``rmw_hbm`` is called as its own wrapper calls it, into a
+new tensor: a ``stream.cu`` that exports ``repro_rmw_chunk_bytes``
+(design (D), one chunk a CTA) with ``kernels/stream.py:rmw_grid`` over
+the chunk that the library reports, one from before it (design (A), a
+grid stride) with the grid rule of that wrapper.  ``--rmw-build
+LABEL=FLAGS`` (repeatable) rebuilds each design-(D) variant with the nvcc
+defines FLAGS (comma-separated, e.g.
+``-DREPRO_RMW_CHUNK_KIB=16,-DREPRO_RMW_THREADS=512``) as a variant of its
+own (``name@LABEL``), to pick the chunk.
+``--library`` times the PyTorch calls that compute the same functions in
+the same rounds, as the variant ``library``: ``x + 1`` for both rmw
+dtypes and ``x.clone()`` for the copy (yardsticks only; the port never
+calls them).
 
 The on-chip pair, ``read_vmem`` and ``write_vmem``, runs in the same
 rounds on a 128 KiB buffer (the main path's) at 8 and 2048 walks, each
 call as its wrapper makes it: a ``stream.cu`` of before the spread design
 (one SM's tile, the partials summed by a second kernel) is called as
-that wrapper called it.  A call is too short to
-time alone, so ``--reps`` calls run back to back behind a hold of the
-stream, between two events; the slope between the walk counts gives the
+that wrapper called it.  The slope between the walk counts gives the
 time of one walk.  ``--vmem-layout ROWSxTHREADS`` (repeatable) runs the
 spread design of each variant at that slice and thread count too, as a
 variant of its own (``name@ROWSxTHREADS``) built with
@@ -28,7 +42,7 @@ To compare a commit's kernels with the working tree's::
     git archive <commit> src/repro_torch/kernels/csrc \\
         | tar -x --strip-components=4 -C build/ab/old
     python tools/stream_ab.py --variant old=build/ab/old \\
-        --variant new=src/repro_torch/kernels/csrc
+        --variant new=src/repro_torch/kernels/csrc --library
 
 It needs a card and nvcc, prints the card's name and power limit, one
 JSON object as its last line, and writes the same object to ``--out``
@@ -53,13 +67,17 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import compat  # noqa: E402
+from repro_torch.core import workloads  # noqa: E402
 from repro_torch.kernels import _build, stream as _stream  # noqa: E402
 
-KERNELS = ("read_hbm", "write_hbm", "rmw_hbm", "copy_hbm")
+KERNELS = ("read_hbm", "write_hbm", "rmw_hbm", "rmw_hbm_bf16", "copy_hbm")
+# the kernels the PyTorch yardsticks stand beside, and the call
+LIBRARY = {"rmw_hbm": "x + 1", "rmw_hbm_bf16": "x + 1",
+           "copy_hbm": "x.clone()"}
 VMEM_KERNELS = ("read_vmem", "write_vmem")
 VMEM_ROWS = 256     # 128 KiB, the main path's on-chip buffer
 WALKS = (8, 2048)
-CTAS_PER_SM = 8     # the grid rule of kernels/stream.py
+CTAS_PER_SM = 8     # the grid rule of kernels/stream.py's design (A)
 _VP, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_float)
 
@@ -81,6 +99,12 @@ def build(name: str, src_dir: Path, out_dir: Path,
     return out
 
 
+def _bind(lib, fn: str, args) -> "ctypes._CFuncPtr":
+    f = getattr(lib, fn)
+    f.argtypes, f.restype = list(args), ctypes.c_int
+    return f
+
+
 class Variant:
     def __init__(self, name: str, lib_path: Path, sms: int):
         self.name = name
@@ -91,11 +115,18 @@ class Variant:
         for fn, args in (
                 ("repro_read_hbm", (_VP, _VP, _LL, _LL, _I, _I, _VP)),
                 ("repro_write_hbm", (_VP, _LL, _F, _VP, _I, _VP)),
-                ("repro_rmw_hbm_f32", (_VP, _VP, _LL, _I, _VP)),
                 ("repro_copy_hbm", (_VP, _VP, _LL, _I, _VP))):
-            f = getattr(lib, fn)
-            f.argtypes, f.restype = list(args), ctypes.c_int
-            self.fns[fn] = f
+            self.fns[fn] = _bind(lib, fn, args)
+        # design (D) exports one rmw entry and its chunk; design (A)
+        # before it a grid-stride entry a dtype
+        self.rmw_d = hasattr(lib, "repro_rmw_chunk_bytes")
+        if self.rmw_d:
+            self.fns["repro_rmw_hbm"] = _bind(
+                lib, "repro_rmw_hbm", (_VP, _VP, _LL, _I, _I, _VP))
+            self.rmw_chunk_vec = lib.repro_rmw_chunk_bytes() // 16
+        else:
+            for fn in ("repro_rmw_hbm_f32", "repro_rmw_hbm_bf16"):
+                self.fns[fn] = _bind(lib, fn, (_VP, _VP, _LL, _I, _VP))
         # the spread design exports the shared memory a CTA asks for; the
         # one-SM design before it does not
         self.spread = hasattr(lib, "repro_vmem_smem_bytes")
@@ -107,30 +138,54 @@ class Variant:
             (("repro_read_vmem", (_VP, _VP, _LL, _LL, _I, _I, _I, _VP)),
              ("repro_write_vmem", (_VP, _LL, _I, _I, _VP))))
         for fn, args in vmem_args + (("repro_hold", (_LL, _VP)),):
-            f = getattr(lib, fn)
-            f.argtypes, f.restype = list(args), ctypes.c_int
-            self.fns[fn] = f
+            self.fns[fn] = _bind(lib, fn, args)
 
     def grid(self, n_vec: int) -> int:
         return max(1, min(-(-n_vec // self.threads), self.sms * CTAS_PER_SM))
 
-    def launch(self, kernel: str, x, out, partials, stream: int) -> None:
+    def rmw(self, x, stream: int):
+        """x + 1 into a new tensor, as the variant's wrapper calls it."""
+        out = torch.empty_like(x)
+        n_vec = x.numel() * x.element_size() // 16
+        bf16 = int(x.dtype == torch.bfloat16)
+        if self.rmw_d:
+            rc = self.fns["repro_rmw_hbm"](
+                x.data_ptr(), out.data_ptr(), n_vec,
+                _stream.rmw_grid(n_vec, self.rmw_chunk_vec), bf16, stream)
+        else:
+            fn = self.fns["repro_rmw_hbm_bf16" if bf16 else
+                          "repro_rmw_hbm_f32"]
+            rc = fn(x.data_ptr(), out.data_ptr(), n_vec, self.grid(n_vec),
+                    stream)
+        if rc:
+            raise RuntimeError(f"{self.name} rmw: CUDA error {rc}")
+        return out
+
+    def launch(self, kernel: str, b: dict, stream: int):
+        """One call of ``kernel``; rmw returns its new tensor."""
+        x, out = b["x"], b["out"]
         n_vec = x.numel() // 4
         g = self.grid(n_vec)
         if kernel == "read_hbm":
-            rc = self.fns["repro_read_hbm"](x.data_ptr(), partials.data_ptr(),
+            rc = self.fns["repro_read_hbm"](x.data_ptr(),
+                                            b["partials"].data_ptr(),
                                             n_vec, n_vec, 1, g, stream)
         elif kernel == "write_hbm":
             rc = self.fns["repro_write_hbm"](out.data_ptr(), n_vec, 1.0, None,
                                              g, stream)
-        elif kernel == "rmw_hbm":
-            rc = self.fns["repro_rmw_hbm_f32"](x.data_ptr(), out.data_ptr(),
-                                               n_vec, g, stream)
+        elif kernel.startswith("rmw_hbm"):
+            return self.rmw(b["xb"] if kernel.endswith("bf16") else x,
+                            stream)
         else:
             rc = self.fns["repro_copy_hbm"](x.data_ptr(), out.data_ptr(),
                                             n_vec, g, stream)
         if rc:
             raise RuntimeError(f"{self.name} {kernel}: CUDA error {rc}")
+
+
+def library_call(kernel: str, b: dict):
+    x = b["xb"] if kernel.endswith("bf16") else b["x"]
+    return x.clone() if kernel == "copy_hbm" else x + 1
 
 
 class VmemCall:
@@ -179,21 +234,20 @@ class VmemCall:
         return res
 
 
-def batch_ms(c: VmemCall, kernel: str, x, out, ticket, repeats: int,
-             stream: int, reps: int) -> float:
-    """ms a call over ``reps`` calls back to back, behind a hold of the
-    stream for twice the host's cost of enqueueing them."""
-    def run():
-        return c.call(kernel, x, out, ticket, repeats, stream)
+def held_ms(run, hold, stream: int, reps: int) -> float:
+    """ms a call over ``reps`` calls of ``run`` back to back, behind a
+    ``hold`` of the stream for twice the host's cost of enqueueing them
+    (at most ``workloads.HOLD_CAP_NS``)."""
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter_ns()
     run()
-    hold_ns = min(50_000_000, 2 * (time.perf_counter_ns() - t0) * reps)
+    hold_ns = min(workloads.HOLD_CAP_NS, workloads.HOLD_PER_CALL
+                  * (time.perf_counter_ns() - t0) * reps)
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    c.v.fns["repro_hold"](hold_ns, stream)
+    hold(hold_ns, stream)
     a.record()
     for _ in range(reps):
         run()
@@ -225,41 +279,31 @@ def layout_arg(text: str, rows: int):
             f"-DREPRO_VMEM_THREADS={threads}")
 
 
-def time_ms(v: Variant, kernel: str, x, out, partials, stream: int,
-            reps: int) -> float:
-    for _ in range(2):
-        v.launch(kernel, x, out, partials, stream)
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        v.launch(kernel, x, out, partials, stream)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def check(variants, x, out, partials, stream: int) -> dict:
-    """Every variant's results: the read's sum against float64, rmw and
-    copy exactly, the write's value exactly."""
+def check(variants, b: dict, stream: int) -> dict:
+    """Every variant's results: the read's sum against float64, rmw (both
+    dtypes) and copy exactly, the write's value exactly."""
+    x, out = b["x"], b["out"]
     want = float(x.double().sum())
+    want_b = b["xb"] + 1      # one rounding of the float32 sum, as the kernel
     errs = {}
     for v in variants:
-        partials.zero_()
-        v.launch("read_hbm", x, out, partials, stream)
-        got = float(partials[:v.grid(x.numel() // 4)].double().sum())
+        b["partials"].zero_()
+        v.launch("read_hbm", b, stream)
+        got = float(b["partials"][:v.grid(x.numel() // 4)].double().sum())
         rel = abs(got - want) / abs(want)
-        v.launch("rmw_hbm", x, out, partials, stream)
-        rmw_ok = bool(torch.equal(out, x + 1))
-        v.launch("copy_hbm", x, out, partials, stream)
-        copy_ok = bool(torch.equal(out, x))
-        v.launch("write_hbm", x, out, partials, stream)
-        write_ok = bool((out == 1.0).all())
-        if rel > 1e-5 or not (rmw_ok and copy_ok and write_ok):
-            raise RuntimeError(f"{v.name}: read rel err {rel}, rmw {rmw_ok},"
-                               f" copy {copy_ok}, write {write_ok}")
+        bad = []
+        for k in ("rmw_hbm", "rmw_hbm_bf16"):
+            got = v.launch(k, b, stream)
+            if not torch.equal(got, want_b if k.endswith("bf16") else x + 1):
+                bad.append(k)
+        v.launch("copy_hbm", b, stream)
+        if not torch.equal(out, x):
+            bad.append("copy_hbm")
+        v.launch("write_hbm", b, stream)
+        if not bool((out == 1.0).all()):
+            bad.append("write_hbm")
+        if rel > 1e-5 or bad:
+            raise RuntimeError(f"{v.name}: read rel err {rel}, wrong: {bad}")
         errs[v.name] = rel
     return errs
 
@@ -272,6 +316,11 @@ def main(argv=None) -> int:
                     help="buffer size in MiB (default 1024)")
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--library", action="store_true",
+                    help="also time x + 1 and x.clone() in the same rounds")
+    ap.add_argument("--rmw-build", action="append", default=[],
+                    help="LABEL=FLAGS: also run each design-(D) variant "
+                         "rebuilt with these comma-separated nvcc defines")
     ap.add_argument("--vmem-layout", action="append", default=[],
                     help="ROWSxTHREADS: also run the spread design at "
                          "this slice and thread count")
@@ -283,22 +332,31 @@ def main(argv=None) -> int:
     pairs = [s.split("=", 1) for s in args.variant]
     if len(pairs) < 2 or any(len(p) != 2 for p in pairs):
         ap.error("give two or more --variant name=DIR")
+    rmw_builds = [t.split("=", 1) for t in args.rmw_build]
+    if any(len(t) != 2 for t in rmw_builds):
+        ap.error("--rmw-build wants LABEL=FLAGS")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out_dir = ROOT / "build" / "stream_ab"
-    # each --vmem-layout of each spread variant is a build of its own
-    spread = [(n, d) for n, d in pairs
-              if b"repro_vmem_smem_bytes" in (Path(d) / "stream.cu")
-              .read_bytes()]
+
+    def exports(d: str, symbol: bytes) -> bool:
+        return symbol in (Path(d) / "stream.cu").read_bytes()
+
+    # each --vmem-layout of each spread variant, and each --rmw-build of
+    # each design-(D) variant, is a build of its own
     layouts = {t: layout_arg(t, VMEM_ROWS) for t in args.vmem_layout}
-    jobs = [(n, d, ()) for n, d in pairs] + [
-        (f"{n}@{t}", d, (layouts[t][1],)) for n, d in spread
-        for t in args.vmem_layout]
+    vjobs = [(f"{n}@{t}", d, (layouts[t][1],)) for n, d in pairs
+             if exports(d, b"repro_vmem_smem_bytes")
+             for t in args.vmem_layout]
+    rjobs = [(f"{n}@{label}", d, tuple(f for f in flags.split(",") if f))
+             for n, d in pairs if exports(d, b"repro_rmw_chunk_bytes")
+             for label, flags in rmw_builds]
+    jobs = [(n, d, ()) for n, d in pairs] + rjobs + vjobs
     with ThreadPoolExecutor(len(jobs)) as ex:
         libs = list(ex.map(lambda j: build(j[0], Path(j[1]), out_dir, j[2]),
                            jobs))
     built = [Variant(n, lib, sms) for (n, _d, _f), lib in zip(jobs, libs)]
-    variants = built[:len(pairs)]
+    variants = built[:len(pairs) + len(rjobs)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
@@ -306,47 +364,67 @@ def main(argv=None) -> int:
     rows = args.mib * (1 << 20) // 512
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand((rows, 128), generator=gen, device=dev)
-    out = torch.empty_like(x)
-    partials = torch.zeros(sms * CTAS_PER_SM, device=dev)
+    bufs = {"x": x, "out": torch.empty_like(x),
+            # bf16 of the same bytes: twice the elements
+            "xb": torch.rand((2 * rows, 128), generator=gen,
+                             device=dev).to(torch.bfloat16),
+            "partials": torch.zeros(sms * CTAS_PER_SM, device=dev)}
     stream = torch.cuda.current_stream(dev).cuda_stream
-    errs = check(variants, x, out, partials, stream)
+    errs = check(variants, bufs, stream)
     vx = torch.rand((VMEM_ROWS, 128), generator=gen, device=dev)
     vout = torch.empty_like(vx)
     ticket = torch.zeros(1, dtype=torch.int32, device=dev)
-    calls = [VmemCall(v) for v in variants]
+    calls = [VmemCall(v) for v in variants[:len(pairs)]]
     calls += [VmemCall(v, layouts[v.name.split("@", 1)[1]][0])
-              for v in built[len(pairs):]]
+              for v in built[len(variants):]]
     vmem_errs = check_vmem(calls, vx, vout, ticket, stream)
     vkeys = [f"{k}@{w}" for k in VMEM_KERNELS for w in WALKS]
-    per = {v.name: {k: [] for k in KERNELS} for v in variants}
+    hold = variants[0].fns["repro_hold"]
+    # the library yardsticks take their turn among the variants
+    entries = variants + (["library"] if args.library else [])
+    per = {getattr(e, "name", e): {k: [] for k in KERNELS} for e in entries}
     vper = {c.name: {k: [] for k in vkeys} for c in calls}
     for r in range(args.rounds):
-        order = variants if r % 2 == 0 else variants[::-1]
+        order = entries if r % 2 == 0 else entries[::-1]
         for k in KERNELS:
-            for v in order:
-                per[v.name][k].append(time_ms(v, k, x, out, partials,
-                                              stream, args.reps))
+            for e in order:
+                if e == "library":
+                    if k in LIBRARY:
+                        per[e][k].append(held_ms(
+                            lambda: library_call(k, bufs), hold, stream,
+                            args.reps))
+                else:
+                    per[e.name][k].append(held_ms(
+                        lambda: e.launch(k, bufs, stream), e.fns["repro_hold"],
+                        stream, args.reps))
         for k in VMEM_KERNELS:
             for w in WALKS:
                 for c in (calls if r % 2 == 0 else calls[::-1]):
-                    vper[c.name][f"{k}@{w}"].append(batch_ms(
-                        c, k, vx, vout, ticket, w, stream, args.reps))
+                    vper[c.name][f"{k}@{w}"].append(held_ms(
+                        lambda: c.call(k, vx, vout, ticket, w, stream),
+                        c.v.fns["repro_hold"], stream, args.reps))
     base = variants[0].name
-    nbytes = {"read_hbm": x.nbytes, "write_hbm": x.nbytes,
-              "rmw_hbm": 2 * x.nbytes, "copy_hbm": 2 * x.nbytes}
+    nbytes = {k: (1 if k in ("read_hbm", "write_hbm") else 2) * x.nbytes
+              for k in KERNELS}
     result = {"card": smi, "mib": args.mib, "rounds": args.rounds,
               "reps": args.reps, "read_rel_err": errs, "kernels": {},
+              "library_calls": LIBRARY if args.library else {},
+              "rmw_builds": dict(rmw_builds),
               "vmem_rows": VMEM_ROWS, "vmem_rel_err": vmem_errs,
               "vmem": {}}
     for k in KERNELS:
         rk = {}
-        for v in variants:
-            ms = per[v.name][k]
-            ratio = [a / b for a, b in zip(ms, per[base][k])]
-            rk[v.name] = {"ms": statistics.median(ms),
-                          "ms_min": min(ms), "ms_max": max(ms),
-                          "gb_s": nbytes[k] / statistics.median(ms) / 1e6,
-                          f"vs_{base}": statistics.median(ratio)}
+        for name, times in per.items():
+            ms = times[k]
+            if not ms:
+                continue
+            rec = {"ms": statistics.median(ms), "ms_min": min(ms),
+                   "ms_max": max(ms),
+                   "gb_s": nbytes[k] / statistics.median(ms) / 1e6}
+            if per[base][k]:
+                rec[f"vs_{base}"] = statistics.median(
+                    [a / b for a, b in zip(ms, per[base][k])])
+            rk[name] = rec
         result["kernels"][k] = rk
     walk_bytes = vx.numel() * 4
     for c in calls:
