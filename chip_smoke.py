@@ -31,6 +31,7 @@ import ctypes
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -252,6 +253,8 @@ def phase_kernels(main_rows: int) -> dict:
          1e-2 * float(want.abs().max()), {"dtype": "bfloat16", "rtol": 1e-2})
 
     rmw_cases(cases)
+    copy_cases(cases)
+    triad_cases(cases)
 
     # mixed: the five ratios of the reference's own test, then the main
     # path's split
@@ -327,6 +330,23 @@ def phase_kernels(main_rows: int) -> dict:
     return at_main
 
 
+def one_launch(name: str, x: torch.Tensor, call):
+    """``call()``'s result, and whether it was one launch of ``name``'s
+    kernel with nothing plain, into a new buffer in ``x``'s memory."""
+    launches, plain = counts.LAUNCHES[name], counts.PLAIN[name]
+    out = call()
+    sync()
+    launched = (counts.LAUNCHES[name] == launches + 1
+                and counts.PLAIN[name] == plain)
+    fresh = (out.data_ptr() != x.data_ptr() and out.is_cuda == x.is_cuda
+             and out.is_pinned() == x.is_pinned())
+    return out, launched, fresh
+
+
+def pinned(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
 def rmw_cases(cases: list) -> None:
     """``rmw_hbm`` exactly ``x + 1`` (bf16: one rounding of the float32
     sum, as the plain version rounds it) at 1, 3 and 513 rows (a short
@@ -339,16 +359,10 @@ def rmw_cases(cases: list) -> None:
             inputs.append(uniform(rows, rows).to(dt))
         inputs.append(uniform(3 * 513, 9).to(dt).reshape(3, 513, 128))
         for rows in (1, 513):
-            inputs.append(torch.empty((rows, 128), dtype=dt, pin_memory=True)
-                          .copy_(uniform(rows, 10 + rows).to(dt).cpu()))
+            inputs.append(pinned(uniform(rows, 10 + rows).to(dt).cpu()))
     for x in inputs:
-        launches, plain = counts.LAUNCHES["rmw_hbm"], counts.PLAIN["rmw_hbm"]
-        out = stream.rmw_hbm(x, block_rows=1)
-        sync()
-        launched = (counts.LAUNCHES["rmw_hbm"] == launches + 1
-                    and counts.PLAIN["rmw_hbm"] == plain)
-        fresh = (out.data_ptr() != x.data_ptr() and out.is_cuda == x.is_cuda
-                 and out.is_pinned() == x.is_pinned())
+        out, launched, fresh = one_launch(
+            "rmw_hbm", x, lambda: stream.rmw_hbm(x, block_rows=1))
         want = x.to(DEV) + 1
         err = float((out.to(DEV).float() - want.float()).abs().max())
         memory = "pinned host" if x.is_pinned() else "device"
@@ -358,6 +372,60 @@ def rmw_cases(cases: list) -> None:
         if not (launched and fresh):
             fail(f"rmw_hbm {list(x.shape)} {x.dtype} in {memory} memory: "
                  f"launched {launched}, new buffer in its memory {fresh}")
+
+
+def copy_cases(cases: list) -> None:
+    """``copy_hbm`` bit for bit (the 32-bit words of input and output
+    compared, whatever the element type) at 1, 3 and 513 rows (a short
+    last chunk), on a 3-member stack and on pinned host buffers at 1 and
+    513 rows, in float32, bf16 and int32; each call one launch of the
+    kernel, and nothing plain, into a new buffer in the memory of its
+    input."""
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        def values(rows: int, seed: int) -> torch.Tensor:
+            # int32: values over the whole 2^24 range, not 0 and 1
+            x = uniform(rows, seed)
+            return (x * (1 << 24)).to(dt) if dt == torch.int32 else x.to(dt)
+        inputs = [values(rows, 20 + rows) for rows in (1, 3, 513)]
+        inputs.append(values(3 * 513, 21).reshape(3, 513, 128))
+        inputs += [pinned(values(rows, 22 + rows).cpu())
+                   for rows in (1, 513)]
+        for x in inputs:
+            out, launched, fresh = one_launch(
+                "copy_hbm", x, lambda: stream.copy_hbm(x, block_rows=1))
+            got, want = (t.to(DEV).view(torch.int32) for t in (out, x))
+            err = float((got != want).sum())
+            memory = "pinned host" if x.is_pinned() else "device"
+            case(cases, "copy_hbm", x.shape, err, 0.0,
+                 {"dtype": str(dt).split(".")[1], "memory": memory,
+                  "compared": "32-bit words", "launched": launched,
+                  "new_buffer": fresh})
+            if not (launched and fresh):
+                fail(f"copy_hbm {list(x.shape)} {dt} in {memory} memory: "
+                     f"launched {launched}, new buffer in its memory {fresh}")
+
+
+def triad_cases(cases: list) -> None:
+    """``triad_hbm`` exactly ``ref.triad_ref`` at 1, 3 and 513 rows and
+    on pinned host b and c at 1 and 513 rows; each call one launch of the
+    kernel, and nothing plain, into a new buffer in the memory of its
+    inputs."""
+    pairs = [(uniform(rows, 30 + rows), uniform(rows, 31 + rows))
+             for rows in (1, 3, 513)]
+    pairs += [(pinned(uniform(rows, 32 + rows).cpu()),
+               pinned(uniform(rows, 33 + rows).cpu())) for rows in (1, 513)]
+    for b, c in pairs:
+        out, launched, fresh = one_launch(
+            "triad_hbm", b,
+            lambda: stream.triad_hbm(b, c, scalar=3.0, block_rows=1))
+        want = ref.triad_ref(b.to(DEV), c.to(DEV), 3.0)
+        err = float((out.to(DEV) - want).abs().max())
+        memory = "pinned host" if b.is_pinned() else "device"
+        case(cases, "triad_hbm", b.shape, err, 0.0,
+             {"memory": memory, "launched": launched, "new_buffer": fresh})
+        if not (launched and fresh):
+            fail(f"triad_hbm {list(b.shape)} in {memory} memory: launched "
+                 f"{launched}, new buffer in its memory {fresh}")
 
 
 # The probe against its plain version: the kernel's products in 3xTF32
@@ -820,6 +888,10 @@ MATRIX_ITERS = 50
 STACKED = ("r", "s", "c", "x", "b", "l", "m")
 # the batched per-member figure must be this close to the lone observer's
 LONE_REL = 0.15
+# turns each of the lone observer and the batched group, taken in
+# alternation, for a stream group in pinned host memory: its PCIe rate
+# moves between allocations and over time
+LONE_TURNS = 3
 BATCH_CAP = 1 << 30            # bytes of one stacked chunk, at most
 
 
@@ -945,7 +1017,8 @@ def phase_matrix() -> dict:
             what: [figure(r)[1] for r in results],
             "launch_bound": any(r.launch_bound for r in results),
             "seconds": round(time.perf_counter() - t0, 3),
-            "_key": (pool.node.name, strategy, kw.get("shape"), buf, iters)})
+            "_key": (pool.node.name, strategy, kw.get("shape"), buf, iters),
+            "_call": (strategy, pool, buf, n, iters, kw)})
         return results, dispatches
 
     coord.run_matrix = recorded_run_matrix
@@ -1021,7 +1094,7 @@ def phase_matrix() -> dict:
                                        for p in coord.pools.pools())
     emit({"phase": "matrix", "platform": H100_SXM.name, "backend": "cuda",
           "iters": MATRIX_ITERS, "seconds": round(loop_seconds, 2),
-          "groups": [{k: v for k, v in g.items() if k != "_key"}
+          "groups": [{k: v for k, v in g.items() if not k.startswith("_")}
                      for g in groups],
           "dispatch_stats": stats,
           "n_ladders": {c: r.stats.n_ladders for c, _, r in runs},
@@ -1038,32 +1111,71 @@ def phase_matrix() -> dict:
 def phase_lone(matrix: dict) -> None:
     """Each group's per-member figure against the same observer measured
     alone through make_shaped_workload(...).run: the card's counterpart of
-    the reference's test_batched_chase_latency_matches_naive."""
+    the reference's test_batched_chase_latency_matches_naive.  A stream
+    group in pinned host memory is measured again here, in turns with its
+    lone observer (``LONE_TURNS`` each, alternating, the lone observer on
+    one allocation throughout), and their medians are compared; every
+    other group's figure from the matrix phase against one lone run."""
     coord, lone, out, ok = matrix["coord"], {}, [], True
     for g in matrix["groups"]:
         pool, strategy, shape, buf, iters = g["_key"]
-        if g["_key"] not in lone:
-            wl = workloads.make_shaped_workload(
-                strategy, coord.pools.pool(pool), buf, shape)
-            try:
-                lone[g["_key"]] = figure(wl.run(iters))
-            finally:
-                wl.release()
-        what, alone = lone[g["_key"]]
-        worst = max(abs(v / alone - 1.0) for v in g[what])
+        in_turns = ("gbps" in g and coord.pools.pool(pool)
+                    .effective_memory_kind() == "pinned_host")
+        rec = {"call": g["call"], "pool": pool, "strategy": strategy,
+               "shape": g["shape"], "buffer_bytes": buf,
+               "members": len(g["members"])}
+        if in_turns:
+            turns = lone_turns(coord, g)
+            what = "gbps"
+            alone = statistics.median(turns["alone"])
+            batched = [statistics.median(m) for m in
+                       zip(*turns["batched"])]
+            first = max(abs(v / turns["alone"][0] - 1.0)
+                        for v in turns["batched"][0])
+            rec.update({"turns": turns, "matrix_gbps": g[what],
+                        "first_turn_worst_rel_diff": first})
+        else:
+            if g["_key"] not in lone:
+                wl = workloads.make_shaped_workload(
+                    strategy, coord.pools.pool(pool), buf, shape)
+                try:
+                    lone[g["_key"]] = figure(wl.run(iters))
+                finally:
+                    wl.release()
+            what, alone = lone[g["_key"]]
+            batched = g[what]
+        worst = max(abs(v / alone - 1.0) for v in batched)
         within = worst <= LONE_REL and not g["launch_bound"]
         ok = ok and within
-        out.append({"call": g["call"], "pool": pool, "strategy": strategy,
-                    "shape": g["shape"], "buffer_bytes": buf,
-                    "members": len(g["members"]), what: g[what],
-                    "alone": alone, "worst_rel_diff": worst,
+        rec.update({what: batched, "alone": alone, "worst_rel_diff": worst,
                     "within": within})
+        out.append(rec)
     emit({"phase": "batched_vs_alone", "rel_limit": LONE_REL,
-          "groups": out})
+          "turns": LONE_TURNS, "groups": out})
     if not ok:
         fail("batched per-member figures differ from the lone observer's")
     if any(p.allocated for p in coord.pools.pools()):
         fail("batched_vs_alone: pool not released")
+
+
+def lone_turns(coord, g: dict) -> dict:
+    """The lone observer's GB/s and the batched group's per-member GB/s,
+    ``LONE_TURNS`` each in alternating turns (lone first): the lone
+    workload keeps its one allocation, the group is measured as the matrix
+    phase measured it, by ``measure_group`` with the same arguments."""
+    strategy, pool, buf, n, iters, kw = g["_call"]
+    wl = workloads.make_shaped_workload(strategy, pool, buf, kw.get("shape"))
+    turns = {"alone": [], "batched": []}
+    try:
+        for _ in range(LONE_TURNS):
+            turns["alone"].append(figure(wl.run(iters))[1])
+            results, _ = coordinator_mod.measure_group(strategy, pool, buf,
+                                                       n, iters, **kw)
+            sync()
+            turns["batched"].append([figure(r)[1] for r in results])
+    finally:
+        wl.release()
+    return turns
 
 
 def dataclass_dict(obj) -> dict:
@@ -1209,6 +1321,9 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> tuple:
             rec["library_ms_per_product"] = rec["library_ms"] / 7
         else:
             rec["gbps"] = bytes_ / ms / 1e6
+        if name in ("rmw_hbm", "copy_hbm"):
+            # design (D): one CTA a chunk of this many bytes
+            rec["chunk_bytes"] = stream.kernel_chunk_vec(name[:-4]) * 16
         if name in ("read_vmem", "write_vmem"):
             # on chip: 8 walks of the buffer through the shared memory of
             # every SM (bound_ms) or of one SM (bound_ms_one_sm), plus the
@@ -1971,6 +2086,8 @@ def phase_attention() -> list:
          "plain_ms": time_ms(lambda: ref.triad_ref(b, c, 3.0), 20),
          "bound_ms": t_ms, "bound_by": t_by,
          "library_ms": time_ms(lambda: torch.add(b, c, alpha=3.0), 20),
+         # design (D): one CTA a chunk of this many bytes of b and of c
+         "chunk_bytes": stream.kernel_chunk_vec("triad") * 16,
          "shape": "b, c, out (2097152, 128) f32, 1 GiB each"},
         {"name": "flash_attention", "route": "cuda",
          "source": CSRC + "flash_attention_tc.cu",

@@ -5,9 +5,10 @@
 // stream it is given, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() (0 = launched).
 //
-// Buffers are (rows, 128) float32 (bf16 for one rmw flavour): one 512-byte
-// row is one "line".  All kernels move 16 bytes per thread and access;
-// `n_vec` counts those 16-byte units, so any whole number of rows divides.
+// Buffers are (rows, 128) float32 (bf16 for one rmw flavour; the copy takes
+// any element type as bytes): one 512-byte float32 row is one "line".  The
+// kernels move 16-byte units (a thread's access, or a bulk copy's grain);
+// `n_vec` counts them, so any whole number of rows divides.
 //
 // The two reads also take a stack of `members` such buffers, member m at
 // x + m * member_stride (in 16-byte units; a stack may be a strided view):
@@ -18,22 +19,21 @@
 // walks, as the reference's per-member split of the pass time assumes.
 //
 // Five designs:
-//   (A) grid-stride stream of 16-byte accesses: write, write_seeded, copy,
-//       triad
+//   (A) grid-stride stream of 16-byte accesses: write, write_seeded
 //   (B) the same stream with a block reduction to one partial per CTA: read
 //   (C) the buffer spread over the shared memory of up to every SM, each
 //       CTA walking its slice `repeats` times: read_tile / write_tile (the
 //       on-chip residency pair); the read sums its partials in the launch
-//   (D) one chunk a CTA, through one TMA bulk copy into shared memory and
-//       one back: rmw
+//   (D) one chunk a CTA, through one TMA bulk copy an input into shared
+//       memory and one back: rmw, copy, triad
 //   (-) an empty kernel, to time a bare launch, and a hold kernel that keeps
 //       the stream busy for a given time while the host enqueues the work
 //       it is followed by
 //
-// The bodies of r/s, w/y and c are the role bodies of roles.cuh, which the
+// The bodies of r/s and w/y are the role bodies of roles.cuh, which the
 // contention ladder (contention.cu) runs too: one code for both.  The
-// ladder's x and in-place w run roles.cuh's add1_strided; rmw (D) here is a
-// design of its own.
+// ladder's x and in-place w run roles.cuh's add1_strided and its c
+// copy_strided; rmw and copy (D) here are designs of their own.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,50 +77,84 @@ __global__ void write_kernel(float4* __restrict__ out, long long n_vec,
   roles::fill_strided(out, global_thread(), n_vec, grid_threads(), f);
 }
 
-// ---- (D) rmw: x + 1 into a new buffer, one chunk a CTA -------------------
-// Replaces repro/kernels/stream.py:rmw_hbm.  Bound by bytes: each 16-byte
-// unit read once and written once (2 GiB for a 1 GiB buffer: 0.641 ms at
-// 3.35 TB/s).  Design (A)'s grid stride put a thread's four units 4.3 MB
-// apart, and its reads and writes mixed at 85 % of the bound where each
-// alone streams at 93 %.
+// ---- (D) one chunk a CTA: rmw, copy, triad -------------------------------
+// Replace repro/kernels/stream.py:rmw_hbm (x + 1 into a new buffer),
+// :copy_hbm (x into a new buffer) and :triad_hbm (b + scalar * c into a new
+// buffer).  Bound by bytes: each 16-byte unit of every input read once and
+// each unit of the output written once (rmw and copy 2 GiB for a 1 GiB
+// buffer, 0.641 ms at 3.35 TB/s; triad 3 GiB, 0.962 ms).  Design (A)'s
+// grid stride put a thread's four units 4.3 MB apart, and its reads and
+// writes mixed at 85-87 % of the bound where each alone streams at 93 %.
 //
-// The chunk rule (stream.rmw_grid, stream.rmw_chunk): the buffer is cut into
-// chunks of kRmwChunkVec units, the last one short, and CTA b owns chunk b.
-// The grid is one CTA a chunk, so the CTAs resident at any moment (4 of
-// 512 threads an SM) work on one window of neighbouring chunks that sweeps
-// the buffer once: the reads, and the writes, of the whole card stay in a
-// few MB.  One wave of persistent CTAs, each walking a contiguous range
-// (through a ring of 4 x 32 KiB bulk copies) or chunks a grid apart, mixed
-// the reads and writes worse (tools/stream_ab.py on an H100, PERF.md).
+// The chunk rule (stream.chunk_grid, stream.chunk_range): each buffer is
+// cut into chunks of a kernel's chunk units, the last one short, and CTA b
+// owns chunk b of every buffer.  The grid is one CTA a chunk, so the CTAs
+// resident at any moment work on one window of neighbouring chunks that
+// sweeps the buffers once: the reads, and the writes, of the whole card
+// stay in a few MB.  One wave of persistent CTAs, each walking a contiguous
+// range (through a ring of 4 x 32 KiB bulk copies) or chunks a grid apart,
+// mixed the reads and writes worse (tools/stream_ab.py on an H100,
+// PERF.md).
 //
-// Thread 0 fills the CTA's chunk in shared memory with one 1-D TMA bulk
-// copy (cp.async.bulk, completion on an mbarrier), every thread adds 1 to
-// its units in shared memory, and thread 0 writes the chunk back with one
-// bulk store.  The SM's 4 chunks (40 KiB) are its bytes in flight,
-// whatever the registers.  Of 4-32 KiB chunks at 128-1024 threads, 10 KiB
-// x 512 threads was at or near the fastest on every card tried; 32-36 KiB
-// in flight an SM was too few, 56 KiB or more too many (tools/stream_ab.py
-// --rmw-build).  The bulk copies read and write pinned host memory too
-// (over PCIe, through the same pointer).
+// Thread 0 fills the CTA's tiles in shared memory with one 1-D TMA bulk
+// copy an input (cp.async.bulk), all completing on one mbarrier that one
+// arrive.expect_tx arms for their bytes together; the threads apply the
+// op to their units in shared memory, into the first tile; and thread 0
+// writes that tile back with one bulk store.  The tiles of the CTAs
+// resident on an SM are its bytes in flight, whatever the registers
+// (tools/stream_ab.py on an H100 picked each chunk, PERF.md):
+//   rmw    10 KiB x 512 threads, 4 CTAs and 40 KiB an SM; 32-36 KiB in
+//          flight an SM was too few, 56 KiB or more too many.
+//   copy   9 KiB, one warp: no op, so thread 0 alone waits for its tile
+//          and stores it.  The CTA asks for shared memory it does not use,
+//          so that 4 fit on an SM (36 KiB; 30 too few, 48 too many); one
+//          warp launches and retires faster than 512 threads of which one
+//          works, and without the cap 20 CTAs (200 KiB) opened too many
+//          DRAM pages.
+//   triad  10 KiB of each input x 512 threads: 4 CTAs and 80 KiB of reads
+//          an SM.  With two read streams for one write, 40-48 KiB of
+//          reads an SM starved it; 4-5 KiB chunks ran slower still.
+// The bulk copies read and write pinned host memory too (over PCIe,
+// through the same pointer).
 //
 // No L2 eviction hints: with an L2::evict_first policy on the loads and
 // stores the steady state gained under 0.1 %, and lines that other kernels
 // left in L2 at normal priority outlived the stream's evict_first lines, so
 // the first calls after other work ran about 1 % slower (PERF.md).
 //
-// f32 and bf16 move the same bytes; only the +1 differs (bf16: one
-// rounding of the float32 sum).  tools/stream_ab.py rebuilds this file with
-// -DREPRO_RMW_CHUNK_KIB or -DREPRO_RMW_THREADS to try another chunk.
+// f32 and bf16 rmw move the same bytes; only the +1 differs (bf16: one
+// rounding of the float32 sum).  The triad rounds the product and the sum
+// apart, as the plain version does (a fused multiply-add would round once
+// and differ).  tools/stream_ab.py rebuilds this file with
+// -DREPRO_{RMW,COPY,TRIAD}_CHUNK_KIB or -DREPRO_{RMW,COPY,TRIAD}_THREADS to
+// try another chunk (the triad's chunk is an input's: two tiles a CTA), and
+// -DREPRO_COPY_CTAS_PER_SM another cap.
 #ifndef REPRO_RMW_CHUNK_KIB
 #define REPRO_RMW_CHUNK_KIB 10
 #endif
 #ifndef REPRO_RMW_THREADS
 #define REPRO_RMW_THREADS 512
 #endif
+#ifndef REPRO_COPY_CHUNK_KIB
+#define REPRO_COPY_CHUNK_KIB 9
+#endif
+#ifndef REPRO_COPY_THREADS
+#define REPRO_COPY_THREADS 32
+#endif
+// CTAs of the copy an SM, held there by shared memory the CTA asks for and
+// does not use (0: as many as the threads and the tile let fit)
+#ifndef REPRO_COPY_CTAS_PER_SM
+#define REPRO_COPY_CTAS_PER_SM 4
+#endif
+#ifndef REPRO_TRIAD_CHUNK_KIB
+#define REPRO_TRIAD_CHUNK_KIB 10
+#endif
+#ifndef REPRO_TRIAD_THREADS
+#define REPRO_TRIAD_THREADS 512
+#endif
 constexpr int kRmwChunkBytes = REPRO_RMW_CHUNK_KIB * 1024;
-constexpr int kRmwChunkVec = kRmwChunkBytes / 16;
-constexpr int kRmwThreads = REPRO_RMW_THREADS;
-static_assert(kRmwChunkBytes <= 48 * 1024, "a chunk is static shared memory");
+constexpr int kCopyChunkBytes = REPRO_COPY_CHUNK_KIB * 1024;
+constexpr int kTriadChunkBytes = REPRO_TRIAD_CHUNK_KIB * 1024;
 
 __device__ __forceinline__ uint32_t bf16x2_add1(uint32_t packed) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&packed);
@@ -129,8 +163,17 @@ __device__ __forceinline__ uint32_t bf16x2_add1(uint32_t packed) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+__device__ __forceinline__ uint32_t triad1(uint32_t b, uint32_t c, float s) {
+  return __float_as_uint(
+      __fadd_rn(__uint_as_float(b), __fmul_rn(s, __uint_as_float(c))));
+}
+
+// The ops of design (D): kInputs tiles in, the result into the first; an
+// op without kPass has no threads' pass (the copy).
 struct AddOneF32 {
-  __device__ __forceinline__ static uint4 apply(uint4 v) {
+  static constexpr int kInputs = 1;
+  static constexpr bool kPass = true;
+  __device__ __forceinline__ static uint4 apply(uint4 v, uint4, float) {
     return make_uint4(__float_as_uint(__uint_as_float(v.x) + 1.f),
                       __float_as_uint(__uint_as_float(v.y) + 1.f),
                       __float_as_uint(__uint_as_float(v.z) + 1.f),
@@ -139,17 +182,30 @@ struct AddOneF32 {
 };
 
 struct AddOneBf16 {
-  __device__ __forceinline__ static uint4 apply(uint4 v) {
+  static constexpr int kInputs = 1;
+  static constexpr bool kPass = true;
+  __device__ __forceinline__ static uint4 apply(uint4 v, uint4, float) {
     return make_uint4(bf16x2_add1(v.x), bf16x2_add1(v.y), bf16x2_add1(v.z),
                       bf16x2_add1(v.w));
   }
 };
 
-// units of this CTA's chunk
-__device__ __forceinline__ int chunk_len(long long n_vec) {
-  const long long left = n_vec - (long long)blockIdx.x * kRmwChunkVec;
-  return left < kRmwChunkVec ? (int)left : kRmwChunkVec;
-}
+struct Copy {
+  static constexpr int kInputs = 1;
+  static constexpr bool kPass = false;
+  __device__ __forceinline__ static uint4 apply(uint4 v, uint4, float) {
+    return v;
+  }
+};
+
+struct Triad {
+  static constexpr int kInputs = 2;
+  static constexpr bool kPass = true;
+  __device__ __forceinline__ static uint4 apply(uint4 b, uint4 c, float s) {
+    return make_uint4(triad1(b.x, c.x, s), triad1(b.y, c.y, s),
+                      triad1(b.z, c.z, s), triad1(b.w, c.w, s));
+  }
+};
 
 // Waits for the mbarrier's first phase to complete.  A wait longer than
 // 10 s can only be a lost arrival: it traps, so that a fault is reported
@@ -173,12 +229,10 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar) {
   }
 }
 
-// global -> shared, `bytes` completing on the mbarrier `bar` (initialised
-// for one arrival: this thread's arrive.expect_tx)
+// global -> shared, `bytes` completing on the mbarrier `bar`, which an
+// arrive.expect_tx has armed for them
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
                                           uint32_t bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
@@ -194,65 +248,43 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
-template <class Op>
-__global__ void __launch_bounds__(kRmwThreads)
-    rmw_bulk_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
-                    long long n_vec) {
-  __shared__ __align__(128) uint4 chunk[kRmwChunkVec];
+// out = Op(a[, b]) over CTA blockIdx.x's chunk of kChunkBytes an input
+template <class Op, int kChunkBytes, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    bulk_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
+                uint4* __restrict__ out, long long n_vec, float scalar) {
+  constexpr int kChunkVec = kChunkBytes / 16;
+  static_assert(Op::kInputs * kChunkBytes < 48 * 1024,
+                "a CTA's tiles are static shared memory");
+  __shared__ __align__(128) uint4 tile[Op::kInputs][kChunkVec];
   __shared__ __align__(8) uint64_t full;
-  const long long base = (long long)blockIdx.x * kRmwChunkVec;
-  const int len = chunk_len(n_vec);
-  const uint32_t buf = smem_addr(chunk), bar = smem_addr(&full);
+  const long long base = (long long)blockIdx.x * kChunkVec;
+  const long long left = n_vec - base;
+  const int len = left < kChunkVec ? (int)left : kChunkVec;
+  const uint32_t bar = smem_addr(&full);
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(1)
                  : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    bulk_load(buf, x + base, len * 16, bar);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                     "r"(bar), "r"(Op::kInputs * len * 16) : "memory");
+    bulk_load(smem_addr(tile[0]), a + base, len * 16, bar);
+    if constexpr (Op::kInputs == 2)
+      bulk_load(smem_addr(tile[Op::kInputs - 1]), b + base, len * 16, bar);
   }
-  __syncthreads();   // the mbarrier is initialised before anyone waits on it
-  mbar_wait(bar);
-  for (int i = threadIdx.x; i < len; i += kRmwThreads)
-    chunk[i] = Op::apply(chunk[i]);
-  // this thread's stores to the chunk are visible to the bulk store
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncthreads();
-  if (threadIdx.x == 0) bulk_store(out + base, buf, len * 16);
-}
-
-// ---- (A) copy --------------------------------------------------------------
-__global__ void copy_kernel(const uint4* __restrict__ x,
-                            uint4* __restrict__ out, long long n_vec) {
-  roles::copy_strided(x, out, global_thread(), n_vec, grid_threads());
-}
-
-// ---- (A) triad: b + scalar * c into a third buffer ---------------------------
-// Two roundings, as the plain version takes them: the product, then the sum
-// (a fused multiply-add would round once and differ).  Four units of each
-// operand are loaded before their four stores.
-__device__ __forceinline__ float4 triad4(float4 b, float4 c, float s) {
-  return make_float4(__fadd_rn(b.x, __fmul_rn(s, c.x)),
-                     __fadd_rn(b.y, __fmul_rn(s, c.y)),
-                     __fadd_rn(b.z, __fmul_rn(s, c.z)),
-                     __fadd_rn(b.w, __fmul_rn(s, c.w)));
-}
-
-__global__ void triad_kernel(const float4* __restrict__ b,
-                             const float4* __restrict__ c,
-                             float4* __restrict__ out, long long n_vec,
-                             float scalar) {
-  const long long step = grid_threads();
-  long long i = global_thread();
-  for (; i + 3 * step < n_vec; i += 4 * step) {
-    float4 vb[4], vc[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      vb[k] = b[i + k * step];
-      vc[k] = c[i + k * step];
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) out[i + k * step] = triad4(vb[k], vc[k], scalar);
+  if constexpr (Op::kPass) {
+    __syncthreads();   // the mbarrier is initialised before anyone waits
+    mbar_wait(bar);
+    for (int i = threadIdx.x; i < len; i += kThreads)
+      tile[0][i] = Op::apply(tile[0][i], tile[Op::kInputs - 1][i], scalar);
+    // this thread's stores to the tile are visible to the bulk store
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+  } else {
+    if (threadIdx.x != 0) return;
+    mbar_wait(bar);
   }
-  for (; i < n_vec; i += step) out[i] = triad4(b[i], c[i], scalar);
+  if (threadIdx.x == 0) bulk_store(out + base, smem_addr(tile[0]), len * 16);
 }
 
 // ---- (C) on-chip residency pair ---------------------------------------------
@@ -437,6 +469,26 @@ int allow_dynamic_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The shared memory a copy CTA asks for beyond its tile on the current
+// card, so that at most REPRO_COPY_CTAS_PER_SM fit on an SM (1 KiB a CTA
+// is the system's); < 0 on an error.
+int copy_pad_bytes() {
+  if (REPRO_COPY_CTAS_PER_SM == 0) return 0;
+  int dev = 0, per_sm = 0;
+  cudaFuncAttributes fa;
+  auto kernel = bulk_kernel<Copy, kCopyChunkBytes, REPRO_COPY_THREADS>;
+  int rc = (int)cudaGetDevice(&dev);
+  if (!rc) rc = (int)cudaDeviceGetAttribute(
+      &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (!rc) rc = (int)cudaFuncGetAttributes(&fa, kernel);
+  if (rc) return -rc;
+  int pad = (per_sm / REPRO_COPY_CTAS_PER_SM - 1024
+             - (int)fa.sharedSizeBytes) / 1024 * 1024;
+  pad = pad > 0 ? pad : 0;
+  rc = allow_dynamic_smem(kernel, pad);
+  return rc ? -rc : pad;
+}
+
 }  // namespace
 
 extern "C" {
@@ -469,34 +521,45 @@ int repro_write_hbm(void* out, long long n_vec, float value, const void* seed,
   return (int)cudaGetLastError();
 }
 
-// The bytes of an rmw chunk (stream.rmw_grid).
+// The bytes of a chunk of one input (stream.chunk_grid) of rmw, copy and
+// triad.
 int repro_rmw_chunk_bytes() { return kRmwChunkBytes; }
+int repro_copy_chunk_bytes() { return kCopyChunkBytes; }
+int repro_triad_chunk_bytes() { return kTriadChunkBytes; }
 
-// grid: one CTA a chunk (stream.rmw_grid); bf16: the element type (0
+// grid: one CTA a chunk (stream.chunk_grid); bf16: the element type (0
 // float32).
 int repro_rmw_hbm(const void* x, void* out, long long n_vec, int grid,
                   int bf16, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    rmw_bulk_kernel<AddOneBf16><<<grid, kRmwThreads, 0, st>>>(
-        (const uint4*)x, (uint4*)out, n_vec);
+    bulk_kernel<AddOneBf16, kRmwChunkBytes, REPRO_RMW_THREADS>
+        <<<grid, REPRO_RMW_THREADS, 0, st>>>((const uint4*)x, nullptr,
+                                             (uint4*)out, n_vec, 0.f);
   else
-    rmw_bulk_kernel<AddOneF32><<<grid, kRmwThreads, 0, st>>>(
-        (const uint4*)x, (uint4*)out, n_vec);
+    bulk_kernel<AddOneF32, kRmwChunkBytes, REPRO_RMW_THREADS>
+        <<<grid, REPRO_RMW_THREADS, 0, st>>>((const uint4*)x, nullptr,
+                                             (uint4*)out, n_vec, 0.f);
   return (int)cudaGetLastError();
 }
 
+// grid: one CTA a chunk (stream.chunk_grid)
 int repro_copy_hbm(const void* x, void* out, long long n_vec, int grid,
                    void* stream) {
-  copy_kernel<<<grid, kStreamThreads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)x, (uint4*)out, n_vec);
+  const int pad = copy_pad_bytes();
+  if (pad < 0) return -pad;
+  bulk_kernel<Copy, kCopyChunkBytes, REPRO_COPY_THREADS>
+      <<<grid, REPRO_COPY_THREADS, pad, (cudaStream_t)stream>>>(
+          (const uint4*)x, nullptr, (uint4*)out, n_vec, 0.f);
   return (int)cudaGetLastError();
 }
 
+// grid: one CTA a chunk of each input (stream.chunk_grid)
 int repro_triad_hbm(const void* b, const void* c, void* out, long long n_vec,
                     float scalar, int grid, void* stream) {
-  triad_kernel<<<grid, kStreamThreads, 0, (cudaStream_t)stream>>>(
-      (const float4*)b, (const float4*)c, (float4*)out, n_vec, scalar);
+  bulk_kernel<Triad, kTriadChunkBytes, REPRO_TRIAD_THREADS>
+      <<<grid, REPRO_TRIAD_THREADS, 0, (cudaStream_t)stream>>>(
+          (const uint4*)b, (const uint4*)c, (uint4*)out, n_vec, scalar);
   return (int)cudaGetLastError();
 }
 

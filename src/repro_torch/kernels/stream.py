@@ -5,9 +5,9 @@ The wrappers of ``csrc/stream.cu``.  On the ZCU102 the paper's
 distinction is cacheable vs. non-cacheable *instructions*; on this card
 it is **which kernel runs**:
 
-* ``*_hbm``  — a stream over the whole buffer (a grid stride; for rmw one
-  chunk a CTA): every byte travels between the buffer's memory and the
-  SMs exactly once.
+* ``*_hbm``  — a stream over the whole buffer (a grid stride; for rmw,
+  copy and triad one chunk a CTA): every byte travels between the
+  buffer's memory and the SMs exactly once.
 * ``*_vmem`` — the buffer is spread over the shared memory of up to
   every SM, and each CTA walks its slice ``repeats`` times: after one
   load (or before one store) the traffic stays on chip.
@@ -196,24 +196,29 @@ def _elementwise(x: torch.Tensor, dtypes, block_rows: int, what: str):
     _grid_blocks(x.shape[-2], block_rows)
 
 
-def rmw_grid(n_vec: int, chunk_vec: int) -> int:
-    """CTAs of the rmw kernel: one a chunk of ``chunk_vec`` 16-byte units,
-    the last chunk short (:func:`rmw_chunk`)."""
+def chunk_grid(n_vec: int, chunk_vec: int) -> int:
+    """CTAs of the rmw, copy and triad kernels (design (D)): one a chunk
+    of ``chunk_vec`` 16-byte units of each input, the last chunk short
+    (:func:`chunk_range`)."""
     if n_vec < 1 or chunk_vec < 1:
-        raise ValueError(f"rmw_grid: n_vec {n_vec}, chunk_vec {chunk_vec}")
+        raise ValueError(f"chunk_grid: n_vec {n_vec}, chunk_vec {chunk_vec}")
     return -(-n_vec // chunk_vec)
 
 
-def rmw_chunk(b: int, n_vec: int, chunk_vec: int) -> Tuple[int, int]:
-    """The units [begin, end) that CTA ``b`` of the rmw kernel reads and
-    writes: the rule ``csrc/stream.cu`` (D) applies, restated."""
+def chunk_range(b: int, n_vec: int, chunk_vec: int) -> Tuple[int, int]:
+    """The units [begin, end) of each input and of the output that CTA
+    ``b`` of a design-(D) kernel reads and writes: the rule
+    ``csrc/stream.cu`` (D) applies, restated."""
     begin = b * chunk_vec
     return begin, min(begin + chunk_vec, n_vec)
 
 
 @functools.lru_cache(maxsize=None)
-def _rmw_chunk_vec() -> int:
-    return _build.library("stream").repro_rmw_chunk_bytes() // 16
+def kernel_chunk_vec(kernel: str) -> int:
+    """The 16-byte units of a chunk of one input of ``kernel`` ("rmw",
+    "copy" or "triad"), as the built library reports it."""
+    lib = _build.library("stream")
+    return getattr(lib, f"repro_{kernel}_chunk_bytes")() // 16
 
 
 def rmw_hbm(x: torch.Tensor, *,
@@ -223,7 +228,7 @@ def rmw_hbm(x: torch.Tensor, *,
 
     Replaces ``repro/kernels/stream.py:rmw_hbm``.  Bound by bytes: each
     line read once and written once.  Design (D): one CTA a 10 KiB chunk
-    (:func:`rmw_grid`), which one TMA bulk copy brings into shared memory
+    (:func:`chunk_grid`), which one TMA bulk copy brings into shared memory
     and one takes back, so the CTAs on the card at any moment sweep one
     window of the buffer.  f32 and bf16 (one rounding).  A stack of
     members is one stream over all of them.  The output lies where ``x``
@@ -238,7 +243,7 @@ def rmw_hbm(x: torch.Tensor, *,
     n_vec = x.numel() * x.element_size() // 16
     _launch("repro_rmw_hbm", (_VP, _VP, _LL, _I, _I, _VP),
             x.data_ptr(), out.data_ptr(), n_vec,
-            rmw_grid(n_vec, _rmw_chunk_vec()),
+            chunk_grid(n_vec, kernel_chunk_vec("rmw")),
             int(x.dtype == torch.bfloat16), _build.current_stream(dev))
     counts.LAUNCHES["rmw_hbm"] += 1
     return out
@@ -246,11 +251,15 @@ def rmw_hbm(x: torch.Tensor, *,
 
 def copy_hbm(x: torch.Tensor, *,
              block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
-    """Copy stream (c): read every line, write it to a second buffer.
+    """Copy stream (c): read every line, write it to a NEW buffer, bit for
+    bit (float32, bf16 or int32: bytes to the kernel).
 
     Replaces ``repro/kernels/stream.py:copy_hbm``.  Bound by bytes: each
-    line read once and written once.  Design (A).  A stack of members is
-    one elementwise stream over all of them."""
+    line read once and written once.  Design (D), as :func:`rmw_hbm`:
+    one CTA of one warp a 9 KiB chunk (:func:`chunk_grid`), one TMA bulk
+    copy in and one out, with no pass of the threads over it; four CTAs
+    an SM.  A stack of members is one stream over all of them.  The output lies where ``x`` does: on its
+    card, or in pinned host memory (over PCIe)."""
     _elementwise(x, (torch.float32, torch.bfloat16, torch.int32),
                  block_rows, "copy_hbm")
     if not _build.launches_kernel(x):
@@ -260,7 +269,8 @@ def copy_hbm(x: torch.Tensor, *,
     out = _build.empty_like_placed(x)
     n_vec = x.numel() * x.element_size() // 16
     _launch("repro_copy_hbm", (_VP, _VP, _LL, _I, _VP), x.data_ptr(),
-            out.data_ptr(), n_vec, _stream_grid(n_vec, dev),
+            out.data_ptr(), n_vec,
+            chunk_grid(n_vec, kernel_chunk_vec("copy")),
             _build.current_stream(dev))
     counts.LAUNCHES["copy_hbm"] += 1
     return out
@@ -272,10 +282,13 @@ def triad_hbm(b: torch.Tensor, c: torch.Tensor, *, scalar: float = 3.0,
 
     Replaces ``repro/kernels/stream.py:triad_hbm``.  Bound by bytes: each
     line of ``b`` and ``c`` read once, each line of the result written
-    once.  Design (A): a grid-stride stream of 16-byte units, four of each
-    operand in flight a thread; the product and the sum are rounded apart
-    (no fused multiply-add), so the kernel agrees with the plain version
-    exactly.  ``b`` and ``c`` are (rows, 128) float32 of one shape."""
+    once.  Design (D): one CTA a 10 KiB chunk of each operand
+    (:func:`chunk_grid`), both brought into shared memory by two TMA bulk
+    copies on one barrier, the result written back by one; the product
+    and the sum are rounded apart (no fused multiply-add), so the kernel
+    agrees with the plain version exactly.  ``b`` and ``c`` are
+    (rows, 128) float32 of one shape in one memory: on the card, or
+    pinned host memory (over PCIe), where the result lies too."""
     for t, what in ((b, "triad_hbm: b"), (c, "triad_hbm: c")):
         _build.check_buffer(t, dtypes=(torch.float32,), what=what)
     if b.shape != c.shape:
@@ -292,7 +305,8 @@ def triad_hbm(b: torch.Tensor, c: torch.Tensor, *, scalar: float = 3.0,
     n_vec = b.numel() // 4
     _launch("repro_triad_hbm", (_VP, _VP, _VP, _LL, _F, _I, _VP),
             b.data_ptr(), c.data_ptr(), out.data_ptr(), n_vec, float(scalar),
-            _stream_grid(n_vec, dev), _build.current_stream(dev))
+            chunk_grid(n_vec, kernel_chunk_vec("triad")),
+            _build.current_stream(dev))
     counts.LAUNCHES["triad_hbm"] += 1
     return out
 

@@ -84,6 +84,46 @@ def test_rmw_is_x_plus_one_exactly(card, shape, dtype, pinned):
     assert counts.LAUNCHES["rmw_hbm"] == 1 and not any(counts.PLAIN.values())
 
 
+def _placed(x, card, pinned):
+    return x.pin_memory() if pinned else x.to(card)
+
+
+@pytest.mark.parametrize("shape", [(1, 128), (3, 128), (513, 128),
+                                   (3, 513, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("pinned", [False, True])
+def test_copy_is_bit_exact(card, shape, dtype, pinned):
+    """Ragged rows (a short last chunk), a stack, pinned host memory and
+    device memory, three element types: one launch, a new buffer in the
+    input's memory, the same 32-bit words."""
+    x = torch.from_numpy(np.random.default_rng(shape[-2]).uniform(
+        0.0, 1 << 24, size=shape).astype(np.float32))
+    x = _placed(x.to(dtype), card, pinned)
+    out = stream.copy_hbm(x, block_rows=1)
+    torch.cuda.synchronize()
+    assert out.data_ptr() != x.data_ptr() and out.dtype == x.dtype
+    assert out.is_cuda == (not pinned) and out.is_pinned() == pinned
+    assert torch.equal(out.view(torch.int32), x.view(torch.int32))
+    assert counts.LAUNCHES["copy_hbm"] == 1 and not any(counts.PLAIN.values())
+
+
+@pytest.mark.parametrize("rows", [1, 3, 513])
+@pytest.mark.parametrize("pinned", [False, True])
+def test_triad_is_exact_at_ragged_rows(card, rows, pinned):
+    """One launch, a new buffer in the operands' memory, exactly the plain
+    version: a short last chunk, pinned host memory and device memory."""
+    b = _placed(_arr(rows, 1), card, pinned)
+    c = _placed(_arr(rows, 2), card, pinned)
+    out = stream.triad_hbm(b, c, scalar=3.0, block_rows=1)
+    torch.cuda.synchronize()
+    assert out.data_ptr() not in (b.data_ptr(), c.data_ptr())
+    assert out.is_cuda == (not pinned) and out.is_pinned() == pinned
+    assert torch.equal(out.to(card),
+                       ref.triad_ref(b.to(card), c.to(card), 3.0))
+    assert counts.LAUNCHES["triad_hbm"] == 1 and not any(counts.PLAIN.values())
+
+
 @pytest.mark.parametrize("n_lines", [2, 16, 64, 257, 453])
 def test_chases_match_plain_version(card, n_lines):
     host = chase.chain_buffer(n_lines, 3)

@@ -115,8 +115,27 @@ def test_rmw_chunks_cover_every_unit_once(n_vec, chunk_vec):
     """The kernel's chunk rule: one CTA a chunk, chunks back to back from
     unit 0, each non-empty, the last one ending at the buffer's end (short
     where the chunk does not divide it)."""
-    grid = stream.rmw_grid(n_vec, chunk_vec)
-    ranges = [stream.rmw_chunk(b, n_vec, chunk_vec) for b in range(grid)]
+    _chunks_cover_every_unit_once(n_vec, chunk_vec)
+
+
+# chunks of 4-16 KiB an input, the sizes the copy and the triad are built
+# at and tried at (tools/stream_ab.py --copy-build / --triad-build)
+@pytest.mark.parametrize("chunk_kib", [4, 5, 6, 8, 9, 10, 12, 16])
+@pytest.mark.parametrize("n_vec", [
+    32, 3 * 32, 513 * 32,          # 1, 3, 513 rows of float32 or int32
+    513 * 16,                      # 513 rows of bf16
+    3 * 513 * 32,                  # a 3-member stack
+    1 << 26])                      # 1 GiB, the main path's buffer
+def test_copy_and_triad_chunks_cover_every_unit_once(n_vec, chunk_kib):
+    """Copy and triad take rmw's chunk rule (each of the triad's inputs
+    cut alike): at their chunk sizes and the main path's shapes every
+    unit is in exactly one CTA's chunk, a short tail included."""
+    _chunks_cover_every_unit_once(n_vec, chunk_kib * 1024 // 16)
+
+
+def _chunks_cover_every_unit_once(n_vec, chunk_vec):
+    grid = stream.chunk_grid(n_vec, chunk_vec)
+    ranges = [stream.chunk_range(b, n_vec, chunk_vec) for b in range(grid)]
     assert ranges[0][0] == 0 and ranges[-1][1] == n_vec
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
     assert all(0 < e - b <= chunk_vec for b, e in ranges)
@@ -126,9 +145,9 @@ def test_rmw_chunks_cover_every_unit_once(n_vec, chunk_vec):
 
 def test_rmw_grid_refuses_an_empty_buffer():
     with pytest.raises(ValueError):
-        stream.rmw_grid(0, 512)
+        stream.chunk_grid(0, 512)
     with pytest.raises(ValueError):
-        stream.rmw_grid(512, 0)
+        stream.chunk_grid(512, 0)
 
 
 @pytest.mark.parametrize("rows", [128, 1024])
@@ -138,6 +157,33 @@ def test_copy_hbm(rows):
     got = stream.copy_hbm(torch.from_numpy(x), block_rows=128)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.data_ptr() != torch.from_numpy(x).data_ptr()
+
+
+def _bits(a) -> np.ndarray:
+    """The bytes of an array as unsigned integers of its width."""
+    a = np.asarray(a)
+    return a.view(np.uint16 if a.dtype.itemsize == 2 else np.uint32)
+
+
+@pytest.mark.parametrize("shape", [(1, 128), (3, 128), (513, 128),
+                                   (3, 513, 128)])
+@pytest.mark.parametrize("dtype", ["int32", "bfloat16", "float32"])
+def test_copy_hbm_ragged_rows_stacks_and_dtypes(shape, dtype):
+    """Any whole number of rows, down to 1, with one-row blocks, and a
+    member stack: bit for bit the reference's copy, into a new buffer."""
+    x = _arr(shape, seed=shape[-2])
+    if dtype == "int32":
+        x = (x * 1e6).astype(np.int32)
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    fn = lambda a: jstream.copy_hbm(a, block_rows=1, **I)  # noqa: E731
+    want = jax.vmap(fn)(jx) if len(shape) == 3 else fn(jx)
+    got = stream.copy_hbm(tx, block_rows=1)
+    assert got.shape == tx.shape and got.dtype == tx.dtype
+    assert got.data_ptr() != tx.data_ptr()
+    wide = torch.int16 if dtype == "bfloat16" else torch.int32
+    np.testing.assert_array_equal(got.view(wide).numpy().view(
+        _bits(want).dtype), _bits(want))
 
 
 @pytest.mark.parametrize("seeded", [False, True])
@@ -451,6 +497,23 @@ def test_triad_hbm(rows, block, scalar):
     np.testing.assert_array_equal(
         got.numpy(), (np.float32(scalar) * c + b).astype(np.float32))
     assert counts.PLAIN["triad_hbm"] == 1 and not any(counts.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("rows", [1, 3, 513])
+def test_triad_hbm_ragged_rows(rows):
+    """Any whole number of rows, down to 1, with one-row blocks: the
+    reference's triad within one float32 rounding (XLA on the CPU may fuse
+    its product into the sum, as test_triad_hbm allows), and exactly the
+    product and the sum rounded apart."""
+    b, c = _arr((rows, 128), rows), _arr((rows, 128), rows + 1)
+    want = jstream.triad_hbm(jnp.asarray(b), jnp.asarray(c), scalar=3.0,
+                             block_rows=1, **I)
+    got = stream.triad_hbm(torch.from_numpy(b), torch.from_numpy(c),
+                           scalar=3.0, block_rows=1)
+    assert got.shape == (rows, 128) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
+    np.testing.assert_array_equal(
+        got.numpy(), (np.float32(3.0) * c + b).astype(np.float32))
 
 
 @pytest.mark.parametrize("b,c", [

@@ -3,7 +3,8 @@
 Each ``--variant name=DIR`` names a directory holding a ``stream.cu`` (and
 the headers it includes).  Every variant is built with the repo's nvcc
 flags, then ``read_hbm``, ``write_hbm``, ``rmw_hbm`` (f32, and bf16 as
-``rmw_hbm_bf16``) and ``copy_hbm`` run on buffers of the same bytes in
+``rmw_hbm_bf16``) and ``copy_hbm`` run on buffers of the same bytes, and
+``triad_hbm`` on three such buffers (b and c in, the result out), in
 turns: within a round the variants go in one order, in the next round in
 the reverse order, so that a drift of the card's clocks or power falls on
 all of them alike.  ``--reps`` calls run back to back behind a hold of the
@@ -12,19 +13,20 @@ events, so the card and not the host sets the pace; the result is the
 median over rounds of the ms a call, with each variant's time relative to
 the first variant's in the same round.
 
-Each variant's ``rmw_hbm`` is called as its own wrapper calls it, into a
-new tensor: a ``stream.cu`` that exports ``repro_rmw_chunk_bytes``
-(design (D), one chunk a CTA) with ``kernels/stream.py:rmw_grid`` over
-the chunk that the library reports, one from before it (design (A), a
-grid stride) with the grid rule of that wrapper.  ``--rmw-build
-LABEL=FLAGS`` (repeatable) rebuilds each design-(D) variant with the nvcc
-defines FLAGS (comma-separated, e.g.
-``-DREPRO_RMW_CHUNK_KIB=16,-DREPRO_RMW_THREADS=512``) as a variant of its
-own (``name@LABEL``), to pick the chunk.
+Each variant's ``rmw_hbm``, ``copy_hbm`` and ``triad_hbm`` is called as
+its own wrapper calls it, into a new tensor: a kernel whose ``stream.cu``
+exports ``repro_<kernel>_chunk_bytes`` (design (D), one chunk a CTA) with
+``kernels/stream.py:chunk_grid`` over the chunk that the library reports,
+one from before it (design (A), a grid stride) with the grid rule of that
+wrapper.  ``--rmw-build``, ``--copy-build`` and ``--triad-build
+LABEL=FLAGS`` (repeatable) rebuild each variant whose kernel is design (D)
+with the nvcc defines FLAGS (comma-separated, e.g.
+``-DREPRO_COPY_CHUNK_KIB=16,-DREPRO_COPY_THREADS=512``) as a variant of its
+own (``name@LABEL``), to pick the chunk and the threads.
 ``--library`` times the PyTorch calls that compute the same functions in
 the same rounds, as the variant ``library``: ``x + 1`` for both rmw
-dtypes and ``x.clone()`` for the copy (yardsticks only; the port never
-calls them).
+dtypes, ``x.clone()`` for the copy and ``torch.add(b, c, alpha=3)`` for
+the triad (yardsticks only; the port never calls them).
 
 The on-chip pair, ``read_vmem`` and ``write_vmem``, runs in the same
 rounds on a 128 KiB buffer (the main path's) at 8 and 2048 walks, each
@@ -70,10 +72,13 @@ from repro_torch import compat  # noqa: E402
 from repro_torch.core import workloads  # noqa: E402
 from repro_torch.kernels import _build, stream as _stream  # noqa: E402
 
-KERNELS = ("read_hbm", "write_hbm", "rmw_hbm", "rmw_hbm_bf16", "copy_hbm")
+KERNELS = ("read_hbm", "write_hbm", "rmw_hbm", "rmw_hbm_bf16", "copy_hbm",
+           "triad_hbm")
 # the kernels the PyTorch yardsticks stand beside, and the call
 LIBRARY = {"rmw_hbm": "x + 1", "rmw_hbm_bf16": "x + 1",
-           "copy_hbm": "x.clone()"}
+           "copy_hbm": "x.clone()", "triad_hbm": "torch.add(b, c, alpha=3)"}
+# the kernels of design (D), each told apart by its exported chunk size
+BULK = ("rmw", "copy", "triad")
 VMEM_KERNELS = ("read_vmem", "write_vmem")
 VMEM_ROWS = 256     # 128 KiB, the main path's on-chip buffer
 WALKS = (8, 2048)
@@ -115,15 +120,19 @@ class Variant:
         for fn, args in (
                 ("repro_read_hbm", (_VP, _VP, _LL, _LL, _I, _I, _VP)),
                 ("repro_write_hbm", (_VP, _LL, _F, _VP, _I, _VP)),
-                ("repro_copy_hbm", (_VP, _VP, _LL, _I, _VP))):
+                ("repro_copy_hbm", (_VP, _VP, _LL, _I, _VP)),
+                ("repro_triad_hbm", (_VP, _VP, _VP, _LL, _F, _I, _VP))):
             self.fns[fn] = _bind(lib, fn, args)
-        # design (D) exports one rmw entry and its chunk; design (A)
-        # before it a grid-stride entry a dtype
-        self.rmw_d = hasattr(lib, "repro_rmw_chunk_bytes")
-        if self.rmw_d:
+        # a design-(D) kernel's chunk in 16-byte units, by kernel; a
+        # kernel from before its design (D) has none
+        self.chunk_vec = {
+            k: getattr(lib, f"repro_{k}_chunk_bytes")() // 16 for k in BULK
+            if hasattr(lib, f"repro_{k}_chunk_bytes")}
+        # design (D) exports one rmw entry; design (A) before it a
+        # grid-stride entry a dtype
+        if "rmw" in self.chunk_vec:
             self.fns["repro_rmw_hbm"] = _bind(
                 lib, "repro_rmw_hbm", (_VP, _VP, _LL, _I, _I, _VP))
-            self.rmw_chunk_vec = lib.repro_rmw_chunk_bytes() // 16
         else:
             for fn in ("repro_rmw_hbm_f32", "repro_rmw_hbm_bf16"):
                 self.fns[fn] = _bind(lib, fn, (_VP, _VP, _LL, _I, _VP))
@@ -143,15 +152,23 @@ class Variant:
     def grid(self, n_vec: int) -> int:
         return max(1, min(-(-n_vec // self.threads), self.sms * CTAS_PER_SM))
 
+    def bulk_grid(self, kernel: str, n_vec: int) -> int:
+        """The grid of ``kernel`` ("rmw", "copy" or "triad") as the
+        variant's wrapper makes it: design (D)'s chunk rule, or the grid
+        stride's."""
+        if kernel in self.chunk_vec:
+            return _stream.chunk_grid(n_vec, self.chunk_vec[kernel])
+        return self.grid(n_vec)
+
     def rmw(self, x, stream: int):
         """x + 1 into a new tensor, as the variant's wrapper calls it."""
         out = torch.empty_like(x)
         n_vec = x.numel() * x.element_size() // 16
         bf16 = int(x.dtype == torch.bfloat16)
-        if self.rmw_d:
+        if "rmw" in self.chunk_vec:
             rc = self.fns["repro_rmw_hbm"](
                 x.data_ptr(), out.data_ptr(), n_vec,
-                _stream.rmw_grid(n_vec, self.rmw_chunk_vec), bf16, stream)
+                self.bulk_grid("rmw", n_vec), bf16, stream)
         else:
             fn = self.fns["repro_rmw_hbm_bf16" if bf16 else
                           "repro_rmw_hbm_f32"]
@@ -162,7 +179,8 @@ class Variant:
         return out
 
     def launch(self, kernel: str, b: dict, stream: int):
-        """One call of ``kernel``; rmw returns its new tensor."""
+        """One call of ``kernel``; rmw, copy and triad return their new
+        tensor."""
         x, out = b["x"], b["out"]
         n_vec = x.numel() // 4
         g = self.grid(n_vec)
@@ -176,15 +194,25 @@ class Variant:
         elif kernel.startswith("rmw_hbm"):
             return self.rmw(b["xb"] if kernel.endswith("bf16") else x,
                             stream)
+        elif kernel == "copy_hbm":
+            res = torch.empty_like(x)
+            rc = self.fns["repro_copy_hbm"](
+                x.data_ptr(), res.data_ptr(), n_vec,
+                self.bulk_grid("copy", n_vec), stream)
         else:
-            rc = self.fns["repro_copy_hbm"](x.data_ptr(), out.data_ptr(),
-                                            n_vec, g, stream)
+            res = torch.empty_like(x)
+            rc = self.fns["repro_triad_hbm"](
+                x.data_ptr(), b["c"].data_ptr(), res.data_ptr(), n_vec, 3.0,
+                self.bulk_grid("triad", n_vec), stream)
         if rc:
             raise RuntimeError(f"{self.name} {kernel}: CUDA error {rc}")
+        return res if kernel in ("copy_hbm", "triad_hbm") else None
 
 
 def library_call(kernel: str, b: dict):
     x = b["xb"] if kernel.endswith("bf16") else b["x"]
+    if kernel == "triad_hbm":
+        return torch.add(x, b["c"], alpha=3)
     return x.clone() if kernel == "copy_hbm" else x + 1
 
 
@@ -281,7 +309,7 @@ def layout_arg(text: str, rows: int):
 
 def check(variants, b: dict, stream: int) -> dict:
     """Every variant's results: the read's sum against float64, rmw (both
-    dtypes) and copy exactly, the write's value exactly."""
+    dtypes), copy and triad exactly, the write's value exactly."""
     x, out = b["x"], b["out"]
     want = float(x.double().sum())
     want_b = b["xb"] + 1      # one rounding of the float32 sum, as the kernel
@@ -296,9 +324,12 @@ def check(variants, b: dict, stream: int) -> dict:
             got = v.launch(k, b, stream)
             if not torch.equal(got, want_b if k.endswith("bf16") else x + 1):
                 bad.append(k)
-        v.launch("copy_hbm", b, stream)
-        if not torch.equal(out, x):
+        if not torch.equal(v.launch("copy_hbm", b, stream), x):
             bad.append("copy_hbm")
+        # the product and the sum rounded apart, as the kernel rounds them
+        if not torch.equal(v.launch("triad_hbm", b, stream),
+                           x + 3.0 * b["c"]):
+            bad.append("triad_hbm")
         v.launch("write_hbm", b, stream)
         if not bool((out == 1.0).all()):
             bad.append("write_hbm")
@@ -317,10 +348,13 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--library", action="store_true",
-                    help="also time x + 1 and x.clone() in the same rounds")
-    ap.add_argument("--rmw-build", action="append", default=[],
-                    help="LABEL=FLAGS: also run each design-(D) variant "
-                         "rebuilt with these comma-separated nvcc defines")
+                    help="also time x + 1, x.clone() and torch.add(b, c, "
+                         "alpha=3) in the same rounds")
+    for kind in BULK:
+        ap.add_argument(f"--{kind}-build", action="append", default=[],
+                        help=f"LABEL=FLAGS: also run each variant whose "
+                             f"{kind} is design (D), rebuilt with these "
+                             "comma-separated nvcc defines")
     ap.add_argument("--vmem-layout", action="append", default=[],
                     help="ROWSxTHREADS: also run the spread design at "
                          "this slice and thread count")
@@ -332,9 +366,11 @@ def main(argv=None) -> int:
     pairs = [s.split("=", 1) for s in args.variant]
     if len(pairs) < 2 or any(len(p) != 2 for p in pairs):
         ap.error("give two or more --variant name=DIR")
-    rmw_builds = [t.split("=", 1) for t in args.rmw_build]
-    if any(len(t) != 2 for t in rmw_builds):
-        ap.error("--rmw-build wants LABEL=FLAGS")
+    builds = {k: [t.split("=", 1) for t in getattr(args, f"{k}_build")]
+              for k in BULK}
+    if any(len(t) != 2 for b in builds.values() for t in b):
+        ap.error("--rmw-build, --copy-build and --triad-build want "
+                 "LABEL=FLAGS")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out_dir = ROOT / "build" / "stream_ab"
@@ -342,15 +378,16 @@ def main(argv=None) -> int:
     def exports(d: str, symbol: bytes) -> bool:
         return symbol in (Path(d) / "stream.cu").read_bytes()
 
-    # each --vmem-layout of each spread variant, and each --rmw-build of
-    # each design-(D) variant, is a build of its own
+    # each --vmem-layout of each spread variant, and each --<kernel>-build
+    # of each variant whose kernel is design (D), is a build of its own
     layouts = {t: layout_arg(t, VMEM_ROWS) for t in args.vmem_layout}
     vjobs = [(f"{n}@{t}", d, (layouts[t][1],)) for n, d in pairs
              if exports(d, b"repro_vmem_smem_bytes")
              for t in args.vmem_layout]
     rjobs = [(f"{n}@{label}", d, tuple(f for f in flags.split(",") if f))
-             for n, d in pairs if exports(d, b"repro_rmw_chunk_bytes")
-             for label, flags in rmw_builds]
+             for kind in BULK for n, d in pairs
+             if exports(d, f"repro_{kind}_chunk_bytes".encode())
+             for label, flags in builds[kind]]
     jobs = [(n, d, ()) for n, d in pairs] + rjobs + vjobs
     with ThreadPoolExecutor(len(jobs)) as ex:
         libs = list(ex.map(lambda j: build(j[0], Path(j[1]), out_dir, j[2]),
@@ -365,6 +402,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand((rows, 128), generator=gen, device=dev)
     bufs = {"x": x, "out": torch.empty_like(x),
+            "c": torch.rand((rows, 128), generator=gen, device=dev),
             # bf16 of the same bytes: twice the elements
             "xb": torch.rand((2 * rows, 128), generator=gen,
                              device=dev).to(torch.bfloat16),
@@ -404,12 +442,15 @@ def main(argv=None) -> int:
                         lambda: c.call(k, vx, vout, ticket, w, stream),
                         c.v.fns["repro_hold"], stream, args.reps))
     base = variants[0].name
-    nbytes = {k: (1 if k in ("read_hbm", "write_hbm") else 2) * x.nbytes
-              for k in KERNELS}
+    nbytes = {k: {"read_hbm": 1, "write_hbm": 1, "triad_hbm": 3}.get(k, 2)
+              * x.nbytes for k in KERNELS}
     result = {"card": smi, "mib": args.mib, "rounds": args.rounds,
               "reps": args.reps, "read_rel_err": errs, "kernels": {},
               "library_calls": LIBRARY if args.library else {},
-              "rmw_builds": dict(rmw_builds),
+              "builds": {k: dict(b) for k, b in builds.items()},
+              "chunk_bytes": {v.name: {k: c * 16
+                                       for k, c in v.chunk_vec.items()}
+                              for v in variants},
               "vmem_rows": VMEM_ROWS, "vmem_rel_err": vmem_errs,
               "vmem": {}}
     for k in KERNELS:
