@@ -252,6 +252,7 @@ def phase_kernels(main_rows: int) -> dict:
     case(cases, "rmw_hbm", xb.shape, float((got - want).abs().max()),
          1e-2 * float(want.abs().max()), {"dtype": "bfloat16", "rtol": 1e-2})
 
+    write_cases(cases)
     rmw_cases(cases)
     copy_cases(cases)
     triad_cases(cases)
@@ -345,6 +346,75 @@ def one_launch(name: str, x: torch.Tensor, call):
 
 def pinned(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+def write_cases(cases: list) -> None:
+    """``write_hbm`` and ``write_hbm_seeded`` exactly their plain versions
+    at a value float32 does not hold (1/3; seeded + 0.25, rounded as the
+    reference rounds it) at 1, 3 and 513 rows (a short last chunk), into a
+    new tensor and into the caller's pinned host buffer; into a row-slice
+    of a larger buffer whose guard rows stay untouched; and a seed changed
+    on the stream between two calls, which the stored value follows.  Each
+    call one launch of the kernel, and nothing plain."""
+    def call(seed, rows, out=None):
+        name = "write_hbm" if seed is None else "write_hbm_seeded"
+        launches, plain = counts.LAUNCHES[name], counts.PLAIN[name]
+        got = (stream.write_hbm(rows, value=1 / 3, block_rows=1, device=DEV,
+                                out=out) if seed is None else
+               stream.write_hbm_seeded(seed, rows, value=1 / 3, block_rows=1,
+                                       out=out))
+        return got, (counts.LAUNCHES[name] == launches + 1
+                     and counts.PLAIN[name] == plain)
+
+    def want(seed, rows):
+        return (ref.write_ref(rows, 1 / 3, DEV) if seed is None else
+                ref.write_seeded_ref(rows, 1 / 3, seed.to(DEV)))
+
+    def record(seed, shape, err, memory, launched, extra=None):
+        name = "write_hbm" if seed is None else "write_hbm_seeded"
+        case(cases, name, shape, err, 0.0,
+             {"value": "1/3" if seed is None else "1/3 + seed",
+              "memory": memory, "launched": launched, **(extra or {})})
+        if not launched:
+            fail(f"{name} {list(shape)} in {memory} memory: not one launch")
+
+    for seeded in (False, True):
+        for rows in (1, 3, 513):
+            for memory in ("device", "pinned host"):
+                on_host = memory == "pinned host"
+                seed = None
+                if seeded:
+                    seed = torch.full((1, 1), 0.25)
+                    seed = pinned(seed) if on_host else seed.to(DEV)
+                out = (pinned(torch.full((rows, 128), -1.0)) if on_host
+                       else None)
+                got, launched = call(seed, rows, out)
+                sync()
+                if on_host and not (got is out and got.is_pinned()):
+                    fail("write into pinned host memory returned another "
+                         "tensor")
+                err = float((got.to(DEV) - want(seed, rows)).abs().max())
+                record(seed, got.shape, err, memory, launched)
+        seed = torch.full((1, 1), 0.25, device=DEV) if seeded else None
+        big = torch.full((2 + 513 + 7, 128), -1.0, device=DEV)
+        got, launched = call(seed, 513, big[2:515])
+        sync()
+        err = float((big[2:515] - want(seed, 513)).abs().max())
+        guard = float((big[:2] != -1.0).sum() + (big[515:] != -1.0).sum())
+        record(seed, got.shape, max(err, guard), "device", launched,
+               {"out": "row-slice [2:515] of 522 rows",
+                "guard_rows_changed": guard})
+    # the seed changed on the stream between two calls, no host sync
+    seed = torch.zeros((1, 1), device=DEV)
+    outs = []
+    for s in (0.25, -3.0):
+        seed.fill_(s)
+        outs.append(call(seed, 513))
+    sync()
+    for s, (got, launched) in zip((0.25, -3.0), outs):
+        err = float((got - want(torch.full((1, 1), s), 513)).abs().max())
+        record(seed, got.shape, err, "device", launched,
+               {"seed": s, "seed_changed_between_calls": True})
 
 
 def rmw_cases(cases: list) -> None:
@@ -1231,6 +1301,9 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> tuple:
         return t
 
     n = 20
+    # the kernels launched one CTA a chunk, and their chunk's name
+    chunked = {"write_hbm": "write", "write_hbm_seeded": "write",
+               "rmw_hbm": "rmw", "copy_hbm": "copy"}
     # name -> (source, replaces, kernel, plain, library, bytes, ops, calls)
     table = [
         ("read_hbm", "stream.cu", "src/repro/kernels/stream.py:100",
@@ -1243,7 +1316,7 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> tuple:
         ("write_hbm_seeded", "stream.cu", "src/repro/kernels/stream.py:137",
          lambda: stream.write_hbm_seeded(seed, n_w * blk, block_rows=blk,
                                          out=dst[:n_w * blk]),
-         lambda: ref.write_ref(n_w * blk, 1.0, DEV) + seed,
+         lambda: ref.write_seeded_ref(n_w * blk, 1.0, seed),
          lambda: torch.full((n_w * blk, 128), 1.0, device=DEV),
          n_w * blk * 512 + 4, n_w * blk * 128, n),
         ("rmw_hbm", "stream.cu", "src/repro/kernels/stream.py:151",
@@ -1321,9 +1394,9 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> tuple:
             rec["library_ms_per_product"] = rec["library_ms"] / 7
         else:
             rec["gbps"] = bytes_ / ms / 1e6
-        if name in ("rmw_hbm", "copy_hbm"):
-            # design (D): one CTA a chunk of this many bytes
-            rec["chunk_bytes"] = stream.kernel_chunk_vec(name[:-4]) * 16
+        if name in chunked:
+            # one CTA a chunk of this many bytes
+            rec["chunk_bytes"] = stream.kernel_chunk_vec(chunked[name]) * 16
         if name in ("read_vmem", "write_vmem"):
             # on chip: 8 walks of the buffer through the shared memory of
             # every SM (bound_ms) or of one SM (bound_ms_one_sm), plus the

@@ -18,22 +18,24 @@
 // members back to back in each CTA, so its time is the sum of the members'
 // walks, as the reference's per-member split of the pass time assumes.
 //
-// Five designs:
-//   (A) grid-stride stream of 16-byte accesses: write, write_seeded
-//   (B) the same stream with a block reduction to one partial per CTA: read
+// Four designs:
+//   (B) a grid-stride stream of 16-byte loads with a block reduction to one
+//       partial per CTA: read
 //   (C) the buffer spread over the shared memory of up to every SM, each
 //       CTA walking its slice `repeats` times: read_tile / write_tile (the
 //       on-chip residency pair); the read sums its partials in the launch
 //   (D) one chunk a CTA, through one TMA bulk copy an input into shared
 //       memory and one back: rmw, copy, triad
+//   (E) one chunk a CTA of 16-byte stores, no shared memory: write,
+//       write_seeded
 //   (-) an empty kernel, to time a bare launch, and a hold kernel that keeps
 //       the stream busy for a given time while the host enqueues the work
 //       it is followed by
 //
-// The bodies of r/s and w/y are the role bodies of roles.cuh, which the
-// contention ladder (contention.cu) runs too: one code for both.  The
-// ladder's x and in-place w run roles.cuh's add1_strided and its c
-// copy_strided; rmw and copy (D) here are designs of their own.
+// The read's body is roles.cuh's sum_strided, which the contention ladder
+// (contention.cu) runs for its r/s roles too: one code for both.  The
+// ladder's w/y, x and c roles run roles.cuh's fill_strided, add1_strided
+// and copy_strided; the writes, rmw and copy here are designs of their own.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,14 +69,6 @@ __global__ void read_kernel(const float4* __restrict__ x,
   const float s = block_sum(
       roles::sum_strided(x, global_thread(), n_vec, grid_threads()));
   if (threadIdx.x == 0) partials[blockIdx.x] = s;
-}
-
-// ---- (A) write: pure store stream; SEEDED adds the (1,1) seed operand ------
-template <bool SEEDED>
-__global__ void write_kernel(float4* __restrict__ out, long long n_vec,
-                             float value, const float* __restrict__ seed) {
-  const float f = SEEDED ? value + seed[0] : value;
-  roles::fill_strided(out, global_thread(), n_vec, grid_threads(), f);
 }
 
 // ---- (D) one chunk a CTA: rmw, copy, triad -------------------------------
@@ -287,6 +281,81 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) bulk_store(out + base, smem_addr(tile[0]), len * 16);
 }
 
+// ---- (E) write: one chunk a CTA of pure stores ------------------------------
+// Replaces repro/kernels/stream.py:write_hbm (value into every unit) and
+// :write_hbm_seeded (value + seed[0, 0]).  Bound by bytes: each 16-byte
+// unit written once (1 GiB: 0.3205 ms at 3.35 TB/s).  Design (A)'s grid
+// stride put a thread's units 4.3 MB apart, and its warps drifted apart
+// over the buffer, so the card's stores spread over many open DRAM pages
+// (1.04x torch.full at 1 GiB, 1.055x at 1/3 GiB).  Now the chunk rule of
+// rmw, copy and triad: CTA b stores chunk b, so the CTAs resident at any
+// moment store into one window that sweeps the buffer once.  No shared
+// memory: each thread stores 16-byte units (st.global.v4) blockDim apart
+// inside its CTA's chunk.  The ragged last chunk stores only its own
+// units, no byte past n_vec.
+//
+// tools/stream_ab.py on an H100 picked the chunk (PERF.md): 8 KiB of 256
+// threads, two stores a thread, 4 CTAs and 32 KiB an SM.  Chunks of 4-32
+// KiB ran within 0.1 % of torch.full and of each other; without the cap
+// (8 CTAs an SM) the seeded write ran 0.35 % slower; 64 KiB chunks ran
+// 0.6 % slower.  Design (D) (the threads fill one shared-memory tile,
+// thread 0 stores it with one TMA bulk store, as rmw and copy do) ran
+// 0.05-1.3 % slower at every chunk tried.  torch.full's own launch is
+// 4 KiB a CTA of 128 threads.
+//
+// The seeded flavour reads the (1, 1) seed on the device, once a CTA
+// (thread 0, through shared memory: the seed may lie in pinned host
+// memory), and stores __fadd_rn(value, seed): value rounded to float32,
+// then a float32 add, as the reference's full_like(value) + seed.
+// tools/stream_ab.py rebuilds this file with -DREPRO_WRITE_CHUNK_KIB,
+// -DREPRO_WRITE_THREADS or -DREPRO_WRITE_CTAS_PER_SM to try another.
+#ifndef REPRO_WRITE_CHUNK_KIB
+#define REPRO_WRITE_CHUNK_KIB 8
+#endif
+#ifndef REPRO_WRITE_THREADS
+#define REPRO_WRITE_THREADS 256
+#endif
+// CTAs of the write an SM, held there by shared memory the CTA asks for
+// and does not use (0: as many as the threads let fit)
+#ifndef REPRO_WRITE_CTAS_PER_SM
+#define REPRO_WRITE_CTAS_PER_SM 4
+#endif
+constexpr int kWriteChunkBytes = REPRO_WRITE_CHUNK_KIB * 1024;
+
+template <bool SEEDED>
+__device__ __forceinline__ uint4 fill_value(float value,
+                                            const float* __restrict__ seed) {
+  float f = value;
+  if constexpr (SEEDED) {
+    __shared__ float seeded;
+    if (threadIdx.x == 0) seeded = __fadd_rn(value, *seed);
+    __syncthreads();
+    f = seeded;
+  }
+  const uint32_t u = __float_as_uint(f);
+  return make_uint4(u, u, u, u);
+}
+
+template <bool SEEDED, int kChunkBytes, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    write_kernel(uint4* __restrict__ out, long long n_vec, float value,
+                 const float* __restrict__ seed) {
+  constexpr int kChunkVec = kChunkBytes / 16;
+  static_assert(kChunkVec % kThreads == 0, "whole stores a thread");
+  const long long base = (long long)blockIdx.x * kChunkVec;
+  const long long left = n_vec - base;
+  const int len = left < kChunkVec ? (int)left : kChunkVec;
+  const uint4 v = fill_value<SEEDED>(value, seed);
+  uint4* o = out + base;
+  if (len == kChunkVec) {
+#pragma unroll
+    for (int k = 0; k < kChunkVec / kThreads; ++k)
+      o[threadIdx.x + k * kThreads] = v;
+  } else {
+    for (int i = threadIdx.x; i < len; i += kThreads) o[i] = v;
+  }
+}
+
 // ---- (C) on-chip residency pair ---------------------------------------------
 // Replaces repro/kernels/stream.py:read_vmem and :write_vmem, which hold the
 // buffer in the VMEM of the TPU's one TensorCore: all of that chip.  Here
@@ -469,24 +538,36 @@ int allow_dynamic_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The shared memory a copy CTA asks for beyond its tile on the current
-// card, so that at most REPRO_COPY_CTAS_PER_SM fit on an SM (1 KiB a CTA
-// is the system's); < 0 on an error.
-int copy_pad_bytes() {
-  if (REPRO_COPY_CTAS_PER_SM == 0) return 0;
+// The shared memory a CTA of `kernel` asks for beyond its static shared
+// memory on the current card, so that at most `ctas_per_sm` fit on an SM
+// (1 KiB a CTA is the system's); 0 for no cap, < 0 on an error.
+template <typename K>
+int pad_bytes(K kernel, int ctas_per_sm) {
+  if (ctas_per_sm == 0) return 0;
   int dev = 0, per_sm = 0;
   cudaFuncAttributes fa;
-  auto kernel = bulk_kernel<Copy, kCopyChunkBytes, REPRO_COPY_THREADS>;
   int rc = (int)cudaGetDevice(&dev);
   if (!rc) rc = (int)cudaDeviceGetAttribute(
       &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   if (!rc) rc = (int)cudaFuncGetAttributes(&fa, kernel);
   if (rc) return -rc;
-  int pad = (per_sm / REPRO_COPY_CTAS_PER_SM - 1024
-             - (int)fa.sharedSizeBytes) / 1024 * 1024;
+  int pad = (per_sm / ctas_per_sm - 1024 - (int)fa.sharedSizeBytes)
+            / 1024 * 1024;
   pad = pad > 0 ? pad : 0;
   rc = allow_dynamic_smem(kernel, pad);
   return rc ? -rc : pad;
+}
+
+template <bool SEEDED>
+int launch_write(void* out, long long n_vec, float value, const void* seed,
+                 int grid, cudaStream_t st) {
+  auto kernel =
+      write_kernel<SEEDED, kWriteChunkBytes, REPRO_WRITE_THREADS>;
+  const int pad = pad_bytes(kernel, REPRO_WRITE_CTAS_PER_SM);
+  if (pad < 0) return -pad;
+  kernel<<<grid, REPRO_WRITE_THREADS, pad, st>>>(
+      (uint4*)out, n_vec, value, (const float*)seed);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -509,20 +590,18 @@ int repro_read_hbm(const void* x, void* partials, long long n_vec,
   return (int)cudaGetLastError();
 }
 
-// seed == nullptr: write_hbm; else write_hbm_seeded (one template parameter)
+// seed == nullptr: write_hbm; else write_hbm_seeded (one template
+// parameter).  grid: one CTA a chunk (stream.chunk_grid).
 int repro_write_hbm(void* out, long long n_vec, float value, const void* seed,
                     int grid, void* stream) {
-  if (seed)
-    write_kernel<true><<<grid, kStreamThreads, 0, (cudaStream_t)stream>>>(
-        (float4*)out, n_vec, value, (const float*)seed);
-  else
-    write_kernel<false><<<grid, kStreamThreads, 0, (cudaStream_t)stream>>>(
-        (float4*)out, n_vec, value, nullptr);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return seed ? launch_write<true>(out, n_vec, value, seed, grid, st)
+              : launch_write<false>(out, n_vec, value, nullptr, grid, st);
 }
 
-// The bytes of a chunk of one input (stream.chunk_grid) of rmw, copy and
-// triad.
+// The bytes of a chunk (stream.chunk_grid) of the write, and of one input
+// of rmw, copy and triad.
+int repro_write_chunk_bytes() { return kWriteChunkBytes; }
 int repro_rmw_chunk_bytes() { return kRmwChunkBytes; }
 int repro_copy_chunk_bytes() { return kCopyChunkBytes; }
 int repro_triad_chunk_bytes() { return kTriadChunkBytes; }
@@ -546,11 +625,11 @@ int repro_rmw_hbm(const void* x, void* out, long long n_vec, int grid,
 // grid: one CTA a chunk (stream.chunk_grid)
 int repro_copy_hbm(const void* x, void* out, long long n_vec, int grid,
                    void* stream) {
-  const int pad = copy_pad_bytes();
+  auto kernel = bulk_kernel<Copy, kCopyChunkBytes, REPRO_COPY_THREADS>;
+  const int pad = pad_bytes(kernel, REPRO_COPY_CTAS_PER_SM);
   if (pad < 0) return -pad;
-  bulk_kernel<Copy, kCopyChunkBytes, REPRO_COPY_THREADS>
-      <<<grid, REPRO_COPY_THREADS, pad, (cudaStream_t)stream>>>(
-          (const uint4*)x, nullptr, (uint4*)out, n_vec, 0.f);
+  kernel<<<grid, REPRO_COPY_THREADS, pad, (cudaStream_t)stream>>>(
+      (const uint4*)x, nullptr, (uint4*)out, n_vec, 0.f);
   return (int)cudaGetLastError();
 }
 

@@ -25,6 +25,14 @@ def write_ref(shape_rows: int, value: float = 1.0,
                       device=device)
 
 
+def write_seeded_ref(shape_rows: int, value: float,
+                     seed: torch.Tensor) -> torch.Tensor:
+    """``value`` rounded to float32, then a float32 add of the (1, 1)
+    ``seed``: what the reference's seeded body computes, on ``seed``'s
+    device."""
+    return write_ref(shape_rows, value, seed.device) + seed.reshape(())
+
+
 def rmw_ref(x: torch.Tensor) -> torch.Tensor:
     return x + 1.0
 
@@ -70,11 +78,15 @@ def mixed_split(rows: int, read_fraction: float,
 def mixed_ref(x: torch.Tensor, read_fraction: float, value: float = 1.0,
               block_rows: int = 512,
               seed: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The block rule applied to each member of ``x``'s leading axes."""
+    """The block rule applied to each member of ``x``'s leading axes; the
+    write half as :func:`write_seeded_ref` computes it (``value`` and
+    ``seed`` each rounded to float32, then added in float32)."""
     blk, n_r, n_w = mixed_split(x.shape[-2], read_fraction, block_rows)
+    written = torch.full((*x.shape[:-2], n_w * blk, 128), value,
+                         dtype=torch.float32, device=x.device)
     return (read_ref(x[..., :n_r * blk, :]),
-            torch.full((*x.shape[:-2], n_w * blk, 128), value + seed,
-                       dtype=torch.float32, device=x.device))
+            written + torch.tensor(seed, dtype=torch.float32,
+                                   device=x.device))
 
 
 def triad_ref(b: torch.Tensor, c: torch.Tensor,

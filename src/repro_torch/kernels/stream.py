@@ -5,9 +5,9 @@ The wrappers of ``csrc/stream.cu``.  On the ZCU102 the paper's
 distinction is cacheable vs. non-cacheable *instructions*; on this card
 it is **which kernel runs**:
 
-* ``*_hbm``  — a stream over the whole buffer (a grid stride; for rmw,
-  copy and triad one chunk a CTA): every byte travels between the
-  buffer's memory and the SMs exactly once.
+* ``*_hbm``  — a stream over the whole buffer (a grid stride for the
+  read; one chunk a CTA for the writes, rmw, copy and triad): every byte
+  travels between the buffer's memory and the SMs exactly once.
 * ``*_vmem`` — the buffer is spread over the shared memory of up to
   every SM, and each CTA walks its slice ``repeats`` times: after one
   load (or before one store) the traffic stays on chip.
@@ -42,7 +42,7 @@ from repro_torch.kernels import _build, counts, ref
 LANE = 128
 DEFAULT_BLOCK_ROWS = 512  # 512*128*4B = 256 KiB per block
 
-CTAS_PER_SM = 8           # grid-stride streams: a few CTAs on each SM
+CTAS_PER_SM = 8           # the grid-stride read: a few CTAs on each SM
 # Largest tile one CTA keeps in shared memory: what a block can use, less
 # one line for the reduction's static scratch.  453 whole lines.
 SMEM_TILE_ROWS = (_build.SMEM_PER_BLOCK_BYTES - 512) // (LANE * 4)
@@ -144,14 +144,15 @@ def _write(name: str, seed: Optional[torch.Tensor], shape_rows: int,
                          "reachable from the card, or both on the CPU")
     if not _build.launches_kernel(dst):
         counts.PLAIN[name] += 1
-        fill = value if seed is None else value + float(seed.reshape(-1)[0])
-        return dst.copy_(ref.write_ref(shape_rows, fill))
+        return dst.copy_(ref.write_ref(shape_rows, value) if seed is None
+                         else ref.write_seeded_ref(shape_rows, value, seed))
     dev = _build.compute_device(dst)
     n_vec = dst.numel() // 4
     _launch("repro_write_hbm", (_VP, _LL, _F, _VP, _I, _VP),
             dst.data_ptr(), n_vec, float(value),
             None if seed is None else seed.data_ptr(),
-            _stream_grid(n_vec, dev), _build.current_stream(dev))
+            chunk_grid(n_vec, kernel_chunk_vec("write")),
+            _build.current_stream(dev))
     counts.LAUNCHES[name] += 1
     return dst
 
@@ -162,10 +163,14 @@ def write_hbm(shape_rows: int, *, value: float = 1.0,
     """Write-streaming (y): pure stores, destination never read.
 
     Replaces ``repro/kernels/stream.py:write_hbm``.  Bound by bytes:
-    rows*512 written once.  Design (A): grid-stride 16-byte stores.  The
-    destination is ``out`` when the caller owns one (a pool's buffer, in
-    device or pinned host memory), else a new tensor on ``device``; it is
-    returned either way, so the stores are never dead."""
+    rows*512 written once.  Design (E): one CTA an 8 KiB chunk
+    (:func:`chunk_grid`), its threads' 16-byte stores blockDim apart inside
+    it, so the CTAs on the card at any moment store into one window of the
+    buffer; no byte past the last row is stored.  The destination is
+    ``out`` when the caller owns one (a pool's buffer or a row-slice of
+    one, in device or pinned host memory, which the stores reach over
+    PCIe), else a new tensor on ``device``; it is returned either way, so
+    the stores are never dead."""
     return _write("write_hbm", None, shape_rows, value, block_rows, device,
                   out)
 
@@ -176,7 +181,10 @@ def write_hbm_seeded(seed: torch.Tensor, shape_rows: int, *,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Write-streaming (y) with a dataflow anchor: identical store
     traffic to :func:`write_hbm`, but the stored value is ``value +
-    seed[0, 0]`` for the (1, 1) f32 ``seed`` operand, read in the kernel.
+    seed[0, 0]`` for the (1, 1) f32 ``seed`` operand, read in the kernel
+    on the device, once a CTA.  ``value`` is rounded to float32 and the
+    seed added in float32, as the reference's ``full_like(value) + seed``
+    (:func:`repro_torch.kernels.ref.write_seeded_ref`).
 
     Replaces ``repro/kernels/stream.py:write_hbm_seeded``; it is one
     template parameter of the write kernel.  The destination lives where
@@ -197,9 +205,9 @@ def _elementwise(x: torch.Tensor, dtypes, block_rows: int, what: str):
 
 
 def chunk_grid(n_vec: int, chunk_vec: int) -> int:
-    """CTAs of the rmw, copy and triad kernels (design (D)): one a chunk
-    of ``chunk_vec`` 16-byte units of each input, the last chunk short
-    (:func:`chunk_range`)."""
+    """CTAs of the write, rmw, copy and triad kernels: one a chunk of
+    ``chunk_vec`` 16-byte units of each input (of the output, for the
+    write), the last chunk short (:func:`chunk_range`)."""
     if n_vec < 1 or chunk_vec < 1:
         raise ValueError(f"chunk_grid: n_vec {n_vec}, chunk_vec {chunk_vec}")
     return -(-n_vec // chunk_vec)
@@ -207,16 +215,17 @@ def chunk_grid(n_vec: int, chunk_vec: int) -> int:
 
 def chunk_range(b: int, n_vec: int, chunk_vec: int) -> Tuple[int, int]:
     """The units [begin, end) of each input and of the output that CTA
-    ``b`` of a design-(D) kernel reads and writes: the rule
-    ``csrc/stream.cu`` (D) applies, restated."""
+    ``b`` of a chunked kernel reads and writes: the rule ``csrc/stream.cu``
+    applies, restated."""
     begin = b * chunk_vec
     return begin, min(begin + chunk_vec, n_vec)
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_chunk_vec(kernel: str) -> int:
-    """The 16-byte units of a chunk of one input of ``kernel`` ("rmw",
-    "copy" or "triad"), as the built library reports it."""
+    """The 16-byte units of a chunk of ``kernel``'s output ("write"), or
+    of one input of ``kernel`` ("rmw", "copy" or "triad"), as the built
+    library reports it."""
     lib = _build.library("stream")
     return getattr(lib, f"repro_{kernel}_chunk_bytes")() // 16
 

@@ -124,6 +124,73 @@ def test_triad_is_exact_at_ragged_rows(card, rows, pinned):
     assert counts.LAUNCHES["triad_hbm"] == 1 and not any(counts.PLAIN.values())
 
 
+def _write(seed, rows, out=None, device=None, value=1 / 3):
+    """One call of the write (seeded when ``seed`` is given)."""
+    if seed is None:
+        return stream.write_hbm(rows, value=value, block_rows=1,
+                                device=device, out=out)
+    return stream.write_hbm_seeded(seed, rows, value=value, block_rows=1,
+                                   out=out)
+
+
+def _write_want(seed, rows, card, value=1 / 3):
+    return (ref.write_ref(rows, value, card) if seed is None
+            else ref.write_seeded_ref(rows, value, seed.to(card)))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 513])
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("dest", ["new", "device_out", "pinned_out"])
+def test_write_is_exact_at_ragged_rows(card, rows, seeded, dest):
+    """A short last chunk, into a new tensor, the caller's device buffer
+    or the caller's pinned host buffer (with the seed in the same memory):
+    one launch, nothing plain, exactly the plain version of a value that
+    float32 does not hold (1/3, + 0.25 seeded)."""
+    pinned = dest == "pinned_out"
+    seed = (_placed(torch.full((1, 1), 0.25), card, pinned) if seeded
+            else None)
+    out = (None if dest == "new" else
+           _placed(torch.full((rows, 128), -1.0), card, pinned))
+    got = _write(seed, rows, out=out, device=card)
+    torch.cuda.synchronize()
+    assert out is None or got is out
+    assert got.is_cuda == (not pinned) and got.is_pinned() == pinned
+    assert torch.equal(got.to(card), _write_want(seed, rows, card))
+    name = "write_hbm_seeded" if seeded else "write_hbm"
+    assert counts.LAUNCHES[name] == 1 and not any(counts.PLAIN.values())
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_write_into_a_row_slice_leaves_the_guard_rows(card, seeded):
+    """``out`` a row-slice of a larger buffer, as letter b's write half
+    and the timed write are: its rows exact, the guard rows before and
+    after it untouched."""
+    big = torch.full((2 + 513 + 7, 128), -1.0, device=card)
+    seed = torch.full((1, 1), 0.25, device=card) if seeded else None
+    assert _write(seed, 513, out=big[2:515]).data_ptr() == big[2].data_ptr()
+    torch.cuda.synchronize()
+    assert torch.equal(big[2:515], _write_want(seed, 513, card))
+    assert bool((big[:2] == -1.0).all()) and bool((big[515:] == -1.0).all())
+
+
+def test_seeded_write_reads_the_seed_on_the_device(card):
+    """The seed changes on the stream between two calls with no host
+    synchronisation: each call's stored value follows the seed it found
+    on the device when it ran."""
+    seed = torch.zeros((1, 1), device=card)
+    outs = []
+    for s in (0.25, -3.0):
+        seed.fill_(s)
+        outs.append(stream.write_hbm_seeded(seed, 513, value=1 / 3,
+                                            block_rows=1))
+    torch.cuda.synchronize()
+    for s, out in zip((0.25, -3.0), outs):
+        assert torch.equal(out, ref.write_seeded_ref(
+            513, 1 / 3, torch.full((1, 1), s, device=card)))
+    assert counts.LAUNCHES["write_hbm_seeded"] == 2
+    assert not any(counts.PLAIN.values())
+
+
 @pytest.mark.parametrize("n_lines", [2, 16, 64, 257, 453])
 def test_chases_match_plain_version(card, n_lines):
     host = chase.chain_buffer(n_lines, 3)

@@ -73,6 +73,55 @@ def test_write_hbm_seeded(rows, block):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# (value, seed) pairs whose float32 sum differs from the double sum rounded
+# once: the reference rounds ``value`` to float32, then adds in float32
+ROUNDED_PAIRS = [(1 / 3, 0.25), (7.7, 0.2), (1e-3, 1e-8)]
+
+
+@pytest.mark.parametrize("value,seed_value", ROUNDED_PAIRS)
+def test_seeded_write_rounds_as_the_reference(value, seed_value):
+    """``write_hbm_seeded`` and seeded ``mixed_hbm`` bit for bit the
+    reference's ``full_like(value) + seed``, at values whose sum a double
+    add rounded once would store otherwise."""
+    seed = np.full((1, 1), seed_value, np.float32)
+    want = jstream.write_hbm_seeded(jnp.asarray(seed), 8, value=value,
+                                    block_rows=8, **I)
+    got = stream.write_hbm_seeded(torch.from_numpy(seed), 8, value=value,
+                                  block_rows=8)
+    assert _bits(got.numpy()).tolist() == _bits(want).tolist()
+    x = _arr((64, 128))
+    _, wout = jstream.mixed_hbm(jnp.asarray(x), read_fraction=0.5,
+                                value=value, block_rows=8,
+                                seed=jnp.asarray(seed), **I)
+    _, gout = stream.mixed_hbm(torch.from_numpy(x), read_fraction=0.5,
+                               value=value, block_rows=8,
+                               seed=torch.from_numpy(seed))
+    assert _bits(gout.numpy()).tolist() == _bits(wout).tolist()
+    _, rout = ref.mixed_ref(torch.from_numpy(x), 0.5, value=value,
+                            block_rows=8, seed=seed_value)
+    assert _bits(rout.numpy()).tolist() == _bits(wout).tolist()
+
+
+@pytest.mark.parametrize("rows", [1, 3, 513])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_write_hbm_ragged_rows(rows, seeded):
+    """Any whole number of rows, down to 1 (a short last chunk on the
+    card), with a ``block_rows`` that divides them: bit for bit the
+    reference."""
+    seed = np.full((1, 1), 0.25, np.float32)
+    if seeded:
+        want = jstream.write_hbm_seeded(jnp.asarray(seed), rows, value=1 / 3,
+                                        block_rows=rows, **I)
+        got = stream.write_hbm_seeded(torch.from_numpy(seed), rows,
+                                      value=1 / 3, block_rows=rows)
+    else:
+        want = jstream.write_hbm(rows, value=1 / 3, block_rows=rows, **I)
+        got = stream.write_hbm(rows, value=1 / 3, block_rows=rows,
+                               device="cpu")
+    assert got.shape == (rows, 128) and got.dtype == torch.float32
+    assert _bits(got.numpy()).tolist() == _bits(want).tolist()
+
+
 @pytest.mark.parametrize("rows", [128, 512])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmw_hbm(rows, dtype):
@@ -130,6 +179,20 @@ def test_copy_and_triad_chunks_cover_every_unit_once(n_vec, chunk_kib):
     """Copy and triad take rmw's chunk rule (each of the triad's inputs
     cut alike): at their chunk sizes and the main path's shapes every
     unit is in exactly one CTA's chunk, a short tail included."""
+    _chunks_cover_every_unit_once(n_vec, chunk_kib * 1024 // 16)
+
+
+# the write's chunk sizes, built and tried (tools/stream_ab.py --write-build)
+@pytest.mark.parametrize("chunk_kib", [4, 8, 10, 16, 32, 64])
+@pytest.mark.parametrize("n_vec", [
+    32, 3 * 32, 513 * 32,          # 1, 3, 513 rows
+    2097152 * 32,                  # 1 GiB: letters w and y
+    698880 * 32,                   # 1/3 GiB: letter b's write half
+    524288 * 32])                  # 256 MiB: the spmd and host rows
+def test_write_chunks_cover_every_unit_once(n_vec, chunk_kib):
+    """The writes take rmw's chunk rule: at their chunk sizes and the main
+    path's shapes every unit is in exactly one CTA's chunk, so no byte
+    past the buffer's end is stored."""
     _chunks_cover_every_unit_once(n_vec, chunk_kib * 1024 // 16)
 
 

@@ -3,30 +3,36 @@
 Each ``--variant name=DIR`` names a directory holding a ``stream.cu`` (and
 the headers it includes).  Every variant is built with the repo's nvcc
 flags, then ``read_hbm``, ``write_hbm``, ``rmw_hbm`` (f32, and bf16 as
-``rmw_hbm_bf16``) and ``copy_hbm`` run on buffers of the same bytes, and
-``triad_hbm`` on three such buffers (b and c in, the result out), in
-turns: within a round the variants go in one order, in the next round in
-the reverse order, so that a drift of the card's clocks or power falls on
-all of them alike.  ``--reps`` calls run back to back behind a hold of the
-stream (twice the host's cost of enqueueing them), between two CUDA
-events, so the card and not the host sets the pace; the result is the
+``rmw_hbm_bf16``) and ``copy_hbm`` run on buffers of the same bytes,
+``write_hbm_seeded`` on the rows of letter ``b``'s write half (a third of
+them: 1/3 GiB at the default 1 GiB, into a row-slice of the write's
+buffer), and ``triad_hbm`` on three such buffers (b and c in, the result
+out), in turns: within a round the variants go in one order, in the next
+round in the reverse order, so that a drift of the card's clocks or power
+falls on all of them alike.  ``--reps`` calls run back to back behind a
+hold of the stream (twice the host's cost of enqueueing them), between two
+CUDA events, so the card and not the host sets the pace; the result is the
 median over rounds of the ms a call, with each variant's time relative to
 the first variant's in the same round.
 
-Each variant's ``rmw_hbm``, ``copy_hbm`` and ``triad_hbm`` is called as
-its own wrapper calls it, into a new tensor: a kernel whose ``stream.cu``
-exports ``repro_<kernel>_chunk_bytes`` (design (D), one chunk a CTA) with
+Each variant's writes, ``rmw_hbm``, ``copy_hbm`` and ``triad_hbm`` are
+called as its own wrapper calls them (rmw, copy and triad into a new
+tensor): a kernel whose ``stream.cu`` exports
+``repro_<kernel>_chunk_bytes`` (one chunk a CTA) with
 ``kernels/stream.py:chunk_grid`` over the chunk that the library reports,
 one from before it (design (A), a grid stride) with the grid rule of that
-wrapper.  ``--rmw-build``, ``--copy-build`` and ``--triad-build
-LABEL=FLAGS`` (repeatable) rebuild each variant whose kernel is design (D)
-with the nvcc defines FLAGS (comma-separated, e.g.
+wrapper.  ``--write-build``, ``--rmw-build``, ``--copy-build`` and
+``--triad-build LABEL=FLAGS`` (repeatable) rebuild each variant whose
+kernel is chunked with the nvcc defines FLAGS (comma-separated, e.g.
 ``-DREPRO_COPY_CHUNK_KIB=16,-DREPRO_COPY_THREADS=512``) as a variant of its
 own (``name@LABEL``), to pick the chunk and the threads.
 ``--library`` times the PyTorch calls that compute the same functions in
-the same rounds, as the variant ``library``: ``x + 1`` for both rmw
-dtypes, ``x.clone()`` for the copy and ``torch.add(b, c, alpha=3)`` for
-the triad (yardsticks only; the port never calls them).
+the same rounds, as the variant ``library``: ``torch.full`` for both
+writes, ``x + 1`` for both rmw dtypes, ``x.clone()`` for the copy and
+``torch.add(b, c, alpha=3)`` for the triad (yardsticks only; the port
+never calls them), and records each call's launch (kernel, grid, block)
+as ``torch.profiler`` sees it.  ``--kernels`` times only the kernels it
+names.
 
 The on-chip pair, ``read_vmem`` and ``write_vmem``, runs in the same
 rounds on a 128 KiB buffer (the main path's) at 8 and 2048 walks, each
@@ -59,6 +65,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -70,15 +77,18 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import compat  # noqa: E402
 from repro_torch.core import workloads  # noqa: E402
-from repro_torch.kernels import _build, stream as _stream  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import stream as _stream  # noqa: E402
 
-KERNELS = ("read_hbm", "write_hbm", "rmw_hbm", "rmw_hbm_bf16", "copy_hbm",
-           "triad_hbm")
+KERNELS = ("read_hbm", "write_hbm", "write_hbm_seeded", "rmw_hbm",
+           "rmw_hbm_bf16", "copy_hbm", "triad_hbm")
 # the kernels the PyTorch yardsticks stand beside, and the call
-LIBRARY = {"rmw_hbm": "x + 1", "rmw_hbm_bf16": "x + 1",
+LIBRARY = {"write_hbm": "torch.full", "write_hbm_seeded": "torch.full",
+           "rmw_hbm": "x + 1", "rmw_hbm_bf16": "x + 1",
            "copy_hbm": "x.clone()", "triad_hbm": "torch.add(b, c, alpha=3)"}
-# the kernels of design (D), each told apart by its exported chunk size
-BULK = ("rmw", "copy", "triad")
+# the chunked kernels (one chunk a CTA), each told apart from its grid-
+# stride design (A) by its exported chunk size
+BULK = ("write", "rmw", "copy", "triad")
 VMEM_KERNELS = ("read_vmem", "write_vmem")
 VMEM_ROWS = 256     # 128 KiB, the main path's on-chip buffer
 WALKS = (8, 2048)
@@ -123,8 +133,8 @@ class Variant:
                 ("repro_copy_hbm", (_VP, _VP, _LL, _I, _VP)),
                 ("repro_triad_hbm", (_VP, _VP, _VP, _LL, _F, _I, _VP))):
             self.fns[fn] = _bind(lib, fn, args)
-        # a design-(D) kernel's chunk in 16-byte units, by kernel; a
-        # kernel from before its design (D) has none
+        # a chunked kernel's chunk in 16-byte units, by kernel; a kernel
+        # from before its chunked design has none
         self.chunk_vec = {
             k: getattr(lib, f"repro_{k}_chunk_bytes")() // 16 for k in BULK
             if hasattr(lib, f"repro_{k}_chunk_bytes")}
@@ -153,8 +163,8 @@ class Variant:
         return max(1, min(-(-n_vec // self.threads), self.sms * CTAS_PER_SM))
 
     def bulk_grid(self, kernel: str, n_vec: int) -> int:
-        """The grid of ``kernel`` ("rmw", "copy" or "triad") as the
-        variant's wrapper makes it: design (D)'s chunk rule, or the grid
+        """The grid of ``kernel`` ("write", "rmw", "copy" or "triad") as
+        the variant's wrapper makes it: the chunk rule, or the grid
         stride's."""
         if kernel in self.chunk_vec:
             return _stream.chunk_grid(n_vec, self.chunk_vec[kernel])
@@ -189,8 +199,14 @@ class Variant:
                                             b["partials"].data_ptr(),
                                             n_vec, n_vec, 1, g, stream)
         elif kernel == "write_hbm":
-            rc = self.fns["repro_write_hbm"](out.data_ptr(), n_vec, 1.0, None,
-                                             g, stream)
+            rc = self.fns["repro_write_hbm"](
+                out.data_ptr(), n_vec, 1.0, None,
+                self.bulk_grid("write", n_vec), stream)
+        elif kernel == "write_hbm_seeded":
+            n_s = b["seeded_rows"] * 32
+            rc = self.fns["repro_write_hbm"](
+                out.data_ptr(), n_s, b["value"], b["seed"].data_ptr(),
+                self.bulk_grid("write", n_s), stream)
         elif kernel.startswith("rmw_hbm"):
             return self.rmw(b["xb"] if kernel.endswith("bf16") else x,
                             stream)
@@ -210,10 +226,32 @@ class Variant:
 
 
 def library_call(kernel: str, b: dict):
+    if kernel.startswith("write"):
+        rows = (b["seeded_rows"] if kernel.endswith("seeded")
+                else b["x"].shape[0])
+        return torch.full((rows, 128), 1.0, device=b["x"].device)
     x = b["xb"] if kernel.endswith("bf16") else b["x"]
     if kernel == "triad_hbm":
         return torch.add(x, b["c"], alpha=3)
     return x.clone() if kernel == "copy_hbm" else x + 1
+
+
+def launch_layout(fn) -> list:
+    """The kernels one call of ``fn`` launches, as ``torch.profiler`` sees
+    the card: name, grid and block of each."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    return [{"name": e["name"], "grid": e.get("args", {}).get("grid"),
+             "block": e.get("args", {}).get("block")}
+            for e in events if e.get("cat") == "kernel"]
 
 
 class VmemCall:
@@ -309,7 +347,9 @@ def layout_arg(text: str, rows: int):
 
 def check(variants, b: dict, stream: int) -> dict:
     """Every variant's results: the read's sum against float64, rmw (both
-    dtypes), copy and triad exactly, the write's value exactly."""
+    dtypes), copy and triad exactly, the write's value exactly, and the
+    seeded write's ``1/3 + 0.25`` (float32 rounding) exactly into its
+    row-slice, with no store past it."""
     x, out = b["x"], b["out"]
     want = float(x.double().sum())
     want_b = b["xb"] + 1      # one rounding of the float32 sum, as the kernel
@@ -333,6 +373,16 @@ def check(variants, b: dict, stream: int) -> dict:
         v.launch("write_hbm", b, stream)
         if not bool((out == 1.0).all()):
             bad.append("write_hbm")
+        b["seed"].fill_(0.25)
+        b["value"] = 1 / 3
+        v.launch("write_hbm_seeded", b, stream)
+        n_s = b["seeded_rows"]
+        want_s = ref.write_seeded_ref(n_s, 1 / 3, b["seed"])
+        if not (torch.equal(out[:n_s], want_s)
+                and bool((out[n_s:] == 1.0).all())):
+            bad.append("write_hbm_seeded")
+        b["seed"].zero_()
+        b["value"] = 1.0
         if rel > 1e-5 or bad:
             raise RuntimeError(f"{v.name}: read rel err {rel}, wrong: {bad}")
         errs[v.name] = rel
@@ -348,12 +398,14 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--library", action="store_true",
-                    help="also time x + 1, x.clone() and torch.add(b, c, "
-                         "alpha=3) in the same rounds")
+                    help="also time torch.full, x + 1, x.clone() and "
+                         "torch.add(b, c, alpha=3) in the same rounds")
+    ap.add_argument("--kernels", default=",".join(KERNELS + VMEM_KERNELS),
+                    help="comma-separated kernels to time (default all)")
     for kind in BULK:
         ap.add_argument(f"--{kind}-build", action="append", default=[],
                         help=f"LABEL=FLAGS: also run each variant whose "
-                             f"{kind} is design (D), rebuilt with these "
+                             f"{kind} is chunked, rebuilt with these "
                              "comma-separated nvcc defines")
     ap.add_argument("--vmem-layout", action="append", default=[],
                     help="ROWSxTHREADS: also run the spread design at "
@@ -369,8 +421,11 @@ def main(argv=None) -> int:
     builds = {k: [t.split("=", 1) for t in getattr(args, f"{k}_build")]
               for k in BULK}
     if any(len(t) != 2 for b in builds.values() for t in b):
-        ap.error("--rmw-build, --copy-build and --triad-build want "
-                 "LABEL=FLAGS")
+        ap.error("--write-build, --rmw-build, --copy-build and "
+                 "--triad-build want LABEL=FLAGS")
+    timed = args.kernels.split(",")
+    if not set(timed) <= set(KERNELS + VMEM_KERNELS):
+        ap.error(f"--kernels: choose from {KERNELS + VMEM_KERNELS}")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out_dir = ROOT / "build" / "stream_ab"
@@ -379,7 +434,7 @@ def main(argv=None) -> int:
         return symbol in (Path(d) / "stream.cu").read_bytes()
 
     # each --vmem-layout of each spread variant, and each --<kernel>-build
-    # of each variant whose kernel is design (D), is a build of its own
+    # of each variant whose kernel is chunked, is a build of its own
     layouts = {t: layout_arg(t, VMEM_ROWS) for t in args.vmem_layout}
     vjobs = [(f"{n}@{t}", d, (layouts[t][1],)) for n, d in pairs
              if exports(d, b"repro_vmem_smem_bytes")
@@ -406,7 +461,10 @@ def main(argv=None) -> int:
             # bf16 of the same bytes: twice the elements
             "xb": torch.rand((2 * rows, 128), generator=gen,
                              device=dev).to(torch.bfloat16),
-            "partials": torch.zeros(sms * CTAS_PER_SM, device=dev)}
+            "partials": torch.zeros(sms * CTAS_PER_SM, device=dev),
+            # letter b's write half: the rows of its mixed split at 2/3
+            "seeded_rows": ref.mixed_split(rows, 2 / 3, 512)[2] * 512,
+            "seed": torch.zeros((1, 1), device=dev), "value": 1.0}
     stream = torch.cuda.current_stream(dev).cuda_stream
     errs = check(variants, bufs, stream)
     vx = torch.rand((VMEM_ROWS, 128), generator=gen, device=dev)
@@ -424,7 +482,7 @@ def main(argv=None) -> int:
     vper = {c.name: {k: [] for k in vkeys} for c in calls}
     for r in range(args.rounds):
         order = entries if r % 2 == 0 else entries[::-1]
-        for k in KERNELS:
+        for k in (k for k in KERNELS if k in timed):
             for e in order:
                 if e == "library":
                     if k in LIBRARY:
@@ -435,7 +493,7 @@ def main(argv=None) -> int:
                     per[e.name][k].append(held_ms(
                         lambda: e.launch(k, bufs, stream), e.fns["repro_hold"],
                         stream, args.reps))
-        for k in VMEM_KERNELS:
+        for k in (k for k in VMEM_KERNELS if k in timed):
             for w in WALKS:
                 for c in (calls if r % 2 == 0 else calls[::-1]):
                     vper[c.name][f"{k}@{w}"].append(held_ms(
@@ -444,13 +502,18 @@ def main(argv=None) -> int:
     base = variants[0].name
     nbytes = {k: {"read_hbm": 1, "write_hbm": 1, "triad_hbm": 3}.get(k, 2)
               * x.nbytes for k in KERNELS}
+    nbytes["write_hbm_seeded"] = bufs["seeded_rows"] * 512
     result = {"card": smi, "mib": args.mib, "rounds": args.rounds,
               "reps": args.reps, "read_rel_err": errs, "kernels": {},
               "library_calls": LIBRARY if args.library else {},
+              "library_launches": (
+                  {k: launch_layout(lambda: library_call(k, bufs))
+                   for k in LIBRARY if k in timed} if args.library else {}),
               "builds": {k: dict(b) for k, b in builds.items()},
               "chunk_bytes": {v.name: {k: c * 16
                                        for k, c in v.chunk_vec.items()}
                               for v in variants},
+              "seeded_rows": bufs["seeded_rows"],
               "vmem_rows": VMEM_ROWS, "vmem_rel_err": vmem_errs,
               "vmem": {}}
     for k in KERNELS:
@@ -469,8 +532,9 @@ def main(argv=None) -> int:
         result["kernels"][k] = rk
     walk_bytes = vx.numel() * 4
     for c in calls:
-        rec = {k: statistics.median(vper[c.name][k]) for k in vkeys}
-        for k in VMEM_KERNELS:
+        rec = {k: statistics.median(vper[c.name][k]) for k in vkeys
+               if vper[c.name][k]}
+        for k in (k for k in VMEM_KERNELS if k in timed):
             lo, hi = (statistics.median(vper[c.name][f"{k}@{w}"])
                       for w in WALKS)
             us = (hi - lo) / (WALKS[1] - WALKS[0]) * 1e3
