@@ -76,6 +76,8 @@ from repro_torch.core.placement import (ContentionSpec,  # noqa: E402
                                         MemObject, PlacementAdvisor,
                                         kv_cache_object, params_object)
 from repro_torch.core.pools import PoolManager  # noqa: E402
+from repro_torch.core.search import (SearchSpec,  # noqa: E402
+                                     plan_probes, worst_case_search)
 from repro_torch.core.scenarios import (ObserverSpec,  # noqa: E402
                                         ScenarioSpec, StressorSpec,
                                         TrafficShape)
@@ -1451,6 +1453,7 @@ SHAPES = {"b": TrafficShape.mixed(2, 1), "t": TrafficShape.strided(8)}
 # tolerance of the plain version's sums, everything else exact
 SUM_ROLES = (contention.READ, contention.MIXED)
 SKEW_NS = 10_000               # the fence negative's skew between engines
+SCENARIO_PASSES = 2            # passes of the build_scenario_program rung
 EMPTY_STEPS = 200              # steps of the empty ladder
 # the global timer's smallest step, as phase_spmd_kernel_checks saw it; a
 # timed rung must last at least MIN_TICKS of them
@@ -1573,6 +1576,47 @@ def phase_spmd_kernel_checks() -> dict:
         at_main.append(check_ladder(prog, READ_RTOL_FULL, what))
         del prog
 
+    # one rung built as build_scenario_program builds it: an r observer,
+    # 3 w stressors, idle engines, at 256 MiB; held to the plain version,
+    # to its stamps and to the bytes its roles move
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    main_role = ("r", None, rows_of(M256), SCENARIO_PASSES)
+    stress_role = ("w", None, rows_of(M256), SCENARIO_PASSES)
+    prog = exec_program.build_scenario_program(
+        N_ENG, 3, main_role, stress_role, device=DEV,
+        ctas_per_engine=sms // N_ENG)
+    scenario = check_ladder(prog, READ_RTOL_FULL,
+                            "build_scenario_program: r + 3 w, 256 MiB")
+    out = prog.launch().to_cpu()
+    # r reads its buffer once a pass; w (rmw) reads and writes it
+    want_bytes = SCENARIO_PASSES * M256 * (1 + 2 * 3)
+    scenario.update(bytes=ladder_bytes(prog), want_bytes=want_bytes,
+                    stamps_fenced=exec_fence.stamps_fenced(out, prog.layout),
+                    roles=[int(prog.roles[prog.table[0, e], 0])
+                           for e in range(N_ENG)])
+    del prog
+
+    # two probe batches as the search launches them, at 256 MiB: arm b's
+    # probes of 5 to 7 stressors, one probe a wave over every engine, and
+    # arm t/st64's of 1 to 3, two slots a wave; each held to the plain
+    # version on the same inputs, fenced, and at the geometry planned
+    coord = spmd_coord()
+    probe_batches = []
+    for label, cands, geometry in SEARCH_CHECK_BATCHES:
+        arm = next(a for a in SEARCH_SPEC.arms if a.label() == label)
+        planned = plan_probes(coord, SEARCH_SPEC, arm, cands)
+        prog = exec_program.build_ladder_entry(
+            planned, N_ENG, 1, DispatchStats(), device=DEV,
+            ctas_per_engine=sms // N_ENG)
+        rec = check_ladder(prog, READ_RTOL_FULL,
+                           f"probe batch, arm {label}, 256 MiB")
+        rec.update(candidates=cands, waves=planned.waves,
+                   subsets=planned.n_subsets, want=geometry,
+                   steps=int(prog.table.shape[0]))
+        probe_batches.append(rec)
+        del prog
+    del coord
+
     # the fence's negative case: the start wait skipped, engines skewed
     roles = [("r", None, 4096, 2)] * N_ENG
     prog = ladder_program([tuple(roles)], roles, samples=3)
@@ -1593,11 +1637,20 @@ def phase_spmd_kernel_checks() -> dict:
     empty_ms = time_ms(empty.launch, 5)
     checks = {"every_role_alone": all(r["ok"] for r in recs),
               "main_tables": all(r["ok"] for r in at_main),
+              "scenario_program_exact_and_fenced": (
+                  scenario["ok"] and scenario["stamps_fenced"]
+                  and scenario["bytes"] == scenario["want_bytes"]
+                  and scenario["roles"] == [contention.READ]
+                  + [contention.RMW] * 3 + [contention.IDLE] * (N_ENG - 4)),
+              "search_probe_batches_exact_and_fenced": all(
+                  r["ok"] and (r["waves"], r["subsets"]) == r["want"]
+                  and r["steps"] == r["waves"] for r in probe_batches),
               "fenced_with_the_wait": prog.is_fenced(good),
               "refused_without_it": not prog.is_fenced(bad),
               "empty_ladder_fenced": empty.is_fenced(eo)}
     emit({"phase": "spmd_kernel_checks", "n_role_cases": len(recs),
           "n_ok": sum(r["ok"] for r in recs), "main_tables": at_main,
+          "scenario_program": scenario, "probe_batches": probe_batches,
           "fence_negative": {"skew_ns_per_engine": SKEW_NS,
                              "last_arrival_minus_first_begin_ns": lag},
           "globaltimer_smallest_step_ns": tick,
@@ -1611,7 +1664,8 @@ def phase_spmd_kernel_checks() -> dict:
     for k, ok in checks.items():
         if not ok:
             fail(f"spmd_kernel_checks: {k}")
-    worst = max(at_main, key=lambda r: r["max_abs_err"])
+    worst = max(at_main + [scenario] + probe_batches,
+                key=lambda r: r["max_abs_err"])
     TIMER["tick_ns"] = tick
     return {"max_abs_err": worst["max_abs_err"], "tol": worst["tol"]}
 
@@ -1806,6 +1860,148 @@ def phase_spmd() -> None:
     for k, ok in checks.items():
         if not ok:
             fail(f"spmd: check {k}")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the worst-case search, every iteration one ladder launch
+# ---------------------------------------------------------------------------
+
+# 256 MiB, as the spmd (a) ladders and the matrix's chases: five times the
+# L2; six iterations play the four default arms once and exploit twice
+SEARCH_SPEC = SearchSpec(pool="hbm", obs_strategies=("r", "l"),
+                         buffer_bytes=M256, iters=1, iterations=6, batch=4,
+                         max_stressors=7, seed=0)
+# the probe batches spmd_kernel_checks holds to the plain version: (arm,
+# (n, rw, ir) candidates, (waves, slots a wave)); each candidate runs under
+# both observers, so 8 probes: 8 waves of one probe when the widest needs
+# all 8 engines, 4 waves of two 4-engine slots when it needs 4
+SEARCH_CHECK_BATCHES = (
+    ("b", [(7, 0.5, 1.0), (7, 0.25, 0.5), (6, 0.875, 0.75),
+           (5, 0.125, 0.25)], (8, 1)),
+    ("t/st64", [(3, 0.5, 1.0), (2, 0.5, 0.5), (1, 0.5, 1.0),
+                (3, 0.5, 0.25)], (4, 2)))
+SEARCH_R_CAP = 1.05 * HBM_BYTES_PER_S / 1e9    # GB/s
+SEARCH_LAT_FLOOR = 0.85        # x the lone hop: contention only adds
+
+
+def phase_search(lone_hop_ns: float) -> dict:
+    """``worst_case_search`` on the spmd coordinator at 256 MiB, executed;
+    the envelope into a CurveDB, round-tripped, and a pessimistic
+    placement over it.  ``lone_hop_ns``: the main path's lone 256 MiB
+    hop, which no contended ``l`` probe may undercut by more than 15 %.
+    Returns the host syncs the search counted."""
+    checks = {}
+    t_phase = time.perf_counter()
+    coord = spmd_coord()
+    activity = coord._resolved_activity()
+    t0 = time.perf_counter()
+    # the card's activity traced: each iteration's ladder launch, whose
+    # device stamps mark where each iteration ended
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        res = worst_case_search(coord, SEARCH_SPEC, execute=True)
+        sync()
+    search_s = time.perf_counter() - t0
+    st = res.stats
+    ladders = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "ladder_kernel" in e.name),
+                     key=lambda e: e.time_range.start)
+    del prof
+    checks["executed_and_fenced"] = res.executed and res.fenced
+    checks["activity_cuda"] = activity == "cuda"
+    checks["one_launch_an_iteration"] = (
+        not (st.faults_injected or st.retried_dispatches
+             or st.degraded_ladders)
+        and st.host_sync_dispatches
+        == SEARCH_SPEC.iterations + st.noisy_remeasures
+        and len(ladders) == st.host_sync_dispatches
+        and all(t["dead_probes"] == 0 for t in res.trace))
+    r_pts = [p for p in res.points if p.obs_strat == "r"]
+    l_pts = [p for p in res.points if p.obs_strat == "l"]
+    n_probes = SEARCH_SPEC.iterations * SEARCH_SPEC.batch
+    checks["every_probe_measured"] = len(r_pts) == len(l_pts) == n_probes
+    checks["r_positive_and_below_peak"] = all(
+        0 < p.bandwidth_gbps <= SEARCH_R_CAP for p in r_pts)
+    worst_l = max(p.latency_ns for p in l_pts) if l_pts else 0.0
+    checks["worst_l_not_below_the_lone_hop"] = \
+        worst_l >= SEARCH_LAT_FLOOR * lone_hop_ns
+    want_keys = {SurfaceKey("hbm", o, "hbm", "b", qualifier="worstcase")
+                 for o in SEARCH_SPEC.obs_strategies}
+    checks["one_worstcase_surface_per_observer"] = \
+        set(res.envelope) == want_keys
+
+    db = CurveDB(platform=H100_SXM.name)
+    res.install(db)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        checks["curvedb_round_trip"] = round_trips(db, tmp, "search")
+    # the pessimistic advisor at the deepest stressor count both envelopes
+    # hold: no query clamps, so every cost came from a worstcase surface
+    n_at = int(min(max(s.axes[0].values) for s in res.envelope.values())) \
+        if res.envelope else 0
+    caps = {"hbm": 80 * 10**9}
+    objects = placement_objects()
+    adv = PlacementAdvisor(db, H100_SXM, pools=["hbm"], pessimistic=True)
+    plan = adv.advise(objects, ContentionSpec(n_at, "hbm", "y"), caps)
+    placed = check_plan("search: pessimistic", plan, caps, objects)
+    reads = [db.query("hbm", n_at, obs_strat=o, stress_strat="y",
+                      qualifier="worstcase")
+             for o in SEARCH_SPEC.obs_strategies]
+    checks["pessimistic_placement_reads_the_envelope"] = (
+        len(plan.decisions) == len(objects)
+        and not any(d.extrapolated for d in plan.decisions.values())
+        and not any(q.extrapolated for q in reads))
+
+    # an iteration lasts from the end of the last one's launch to the end
+    # of its own (its planning, operands and launch); the first, the rest
+    # of the search's wall time
+    ends = [e.time_range.end / 1e6 for e in ladders]
+    iterations, k = [], 0
+    for t in res.trace:
+        n = t["host_sync_dispatches"]
+        mine = ladders[k:k + n]
+        arm = next(a for a in SEARCH_SPEC.arms if a.label() == t["arm"])
+        planned = plan_probes(coord, SEARCH_SPEC, arm,
+                              [tuple(c) for c in t["candidates"]],
+                              it=t["iteration"])
+        seconds = (ends[k + n - 1] - ends[k - 1] if k and len(ends) >= k + n
+                   else None)
+        k += n
+        iterations.append({
+            "iteration": t["iteration"], "arm": t["arm"],
+            "probes": t["candidates"], "host_syncs": n,
+            "seconds": seconds,
+            "launch_ms": [e.time_range.elapsed_us() / 1e3 for e in mine],
+            "geometry": {"probes": planned.group, "waves": planned.waves,
+                         "subsets": planned.n_subsets},
+            "model_gap": t["model_gap"], "reward": t["reward"],
+            "dead_probes": t["dead_probes"]})
+    if iterations and ends:
+        iterations[0]["seconds"] = search_s - (ends[-1] - ends[0])
+    envelope = {
+        key.to_string(): {"n_stressors": list(surf.axes[0].values),
+                          "bandwidth_gbps": surf.bandwidth_gbps,
+                          "latency_ns": surf.latency_ns}
+        for key, surf in sorted(res.envelope.items())}
+    emit({"phase": "search", "platform": H100_SXM.name, "backend": "spmd",
+          "spec": {**dataclass_dict(SEARCH_SPEC),
+                   "arms": [a.label() for a in SEARCH_SPEC.arms]},
+          "activity": activity,
+          "lone_hop_ns": lone_hop_ns, "iterations": iterations,
+          "worst": {o: res.worst(o).to_dict()
+                    for o in SEARCH_SPEC.obs_strategies
+                    if any(p.obs_strat == o for p in res.points)},
+          "envelope": envelope, "placement": placed,
+          "programs_built": st.programs_built,
+          "dispatch_stats": dataclass_dict(st),
+          "search_seconds": search_s,
+          "seconds": time.perf_counter() - t_phase, "checks": checks})
+    for k_, ok in checks.items():
+        if not ok:
+            fail(f"search: check {k_}")
+    del coord
+    return {"host_syncs": st.host_sync_dispatches}
 
 
 def spmd_perf(at_spmd: dict, launched: dict, empty_ms: float) -> list:
@@ -2556,6 +2752,20 @@ def main() -> int:
     if any(s_plain.values()):
         fail("spmd: a plain version ran on the card's path")
 
+    # the worst-case search: one ladder launch an iteration, between a
+    # reset and a read of the counts, its own probe as in a fresh process
+    compat.kernels_supported.cache_clear()
+    counts.reset()
+    search = phase_search(records["l,hbm,256M"]["ns_per_hop"])
+    q_launched, q_plain = counts.snapshot()
+    emit({"phase": "search_launches", "launches": q_launched,
+          "plain_calls": q_plain})
+    if q_launched["contention_ladder"] != search["host_syncs"]:
+        fail(f"search: {q_launched['contention_ladder']} ladder launches "
+             f"for {search['host_syncs']} host syncs")
+    if any(q_plain.values()):
+        fail("search: a plain version ran on the card's path")
+
     # the attention and triad entry points: the phase resets and reads the
     # counts around its own path
     attention_rows = phase_attention()
@@ -2570,7 +2780,12 @@ def main() -> int:
     phase_checks(records, launched, plain)
     kernels, empty_ms = phase_perf(at_main, {k: launched[k] + m_launched[k]
                                              for k in launched}, records)
-    kernels += spmd_perf(at_spmd, s_launched, empty_ms)
+    ladder_rows = spmd_perf(at_spmd, s_launched, empty_ms)
+    ladder_rows[0]["launches_by_path"] = {
+        "spmd": s_launched["contention_ladder"],
+        "search": q_launched["contention_ladder"]}
+    ladder_rows[0]["launches"] += q_launched["contention_ladder"]
+    kernels += ladder_rows
     kernels += attention_rows
     sync()
     if FAILURES:

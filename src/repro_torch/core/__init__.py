@@ -10,6 +10,8 @@ coordinator  Core Coordinator: validate, measure the observer, model rungs,
              (exec/ pipeline)
 characterize performance curves + surfaces + Little's-law MLP (CurveDB)
 placement    characterization-driven Placement Advisor (upool payoff)
+search       worst-case contention search: a UCB bandit over stressor arms,
+             each executed iteration one launch of the ladder kernel
 counters     performance-counter analog
 interface    debugfs-style entries + CLI
 convert      platform trees and buffers carried over from the JAX package

@@ -58,6 +58,7 @@ from repro_torch.core.exec import resilience as exec_resilience
 from repro_torch.core.exec.assemble import (MatrixResult, ScenarioResult,
                                             ScenarioRun, assemble_runs)
 from repro_torch.core.exec.dispatch import Dispatcher, DispatchStats
+from repro_torch.core.exec.program import build_scenario_program
 from repro_torch.core.pools import MemoryPool, PoolManager
 from repro_torch.core.scenarios import (ObserverSpec, ScenarioSpec,
                                         StressorSpec, TrafficShape)
@@ -68,7 +69,7 @@ from repro_torch.core.workloads import (_REGISTRY, WorkloadResult,
 __all__ = [
     "ActivitySpec", "CoreCoordinator", "DispatchStats", "ExperimentConfig",
     "ExperimentResult", "MatrixResult", "ScenarioResult", "ScenarioRun",
-    "ValidationError",
+    "ValidationError", "build_scenario_program",
 ]
 
 BACKENDS = ("simulate", "cuda", "spmd")
@@ -148,6 +149,14 @@ class ValidationError(ValueError):
 
 
 class CoreCoordinator:
+    """The facade over the backends and the exec pipeline.
+
+    The JAX package's ``_resolved_dispatch`` has no counterpart: it falls
+    back to the host-timed ``"rung"`` path where JAX has no in-dispatch
+    clock, and the port always has one (``compat.device_clock_source``:
+    ``%globaltimer`` on the card, the host's clock for the plain
+    version), so the dispatch mode asked for is the one that runs."""
+
     # built spmd programs kept per coordinator (LRU), the JAX package's
     # count.  Each entry holds its placed operands (three (engines,
     # rows, 128) tensors at the widest role: 24 GiB at eight 1 GiB
@@ -264,10 +273,23 @@ class CoreCoordinator:
         return "cuda"
 
     # the spmd program cache (LRU, coordinator lifetime; the storage
-    # lives on the Dispatcher)
+    # lives on the Dispatcher, these delegates are the stable API)
     @property
     def _spmd_programs(self):
         return self._dispatcher.cache.entries
+
+    def _program_cache_get(self, key: Tuple,
+                           stats: Optional[DispatchStats] = None):
+        return self._dispatcher.cache.get(key, stats)
+
+    def _program_cache_put(self, key: Tuple, entry) -> None:
+        self._dispatcher.cache.put(key, entry)
+
+    def _spmd_group_key(self, spec: ScenarioSpec, obs: ObserverSpec,
+                        buf: int) -> Tuple:
+        """Sweep-level grouping key (see
+        :func:`repro_torch.core.exec.plan.group_key`)."""
+        return exec_plan.group_key(spec, obs, buf, self.pools)
 
     # -- Experiment Instantiator ----------------------------------------
     def validate(self, cfg: ExperimentConfig) -> None:

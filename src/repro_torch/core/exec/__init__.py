@@ -50,6 +50,7 @@ from repro_torch.core.exec.program import (CompiledProgram,
                                            build_ladder_entry,
                                            build_program,
                                            build_rung_operands,
+                                           build_scenario_program,
                                            role_descriptor)
 from repro_torch.core.exec.resilience import (FaultInjector, FaultSpec,
                                               GroupExecutionError,
@@ -66,9 +67,9 @@ __all__ = [
     "operand_kind", "pack_engine_subsets", "probe_batch", "rung_roles",
     "rung_row", "split_ladders", "split_probes", "unpack_dispatch",
     "CompiledProgram", "build_ladder_entry", "build_program",
-    "build_rung_operands", "role_descriptor", "FaultInjector",
-    "FaultSpec", "GroupExecutionError", "InjectedFault", "QualityGate",
-    "RetryPolicy", "resolve_faults", "resolve_gate", "run_group",
-    "SweepJournal", "entry_key", "execute_plan", "execute_rung_path",
+    "build_rung_operands", "build_scenario_program", "role_descriptor",
+    "FaultInjector", "FaultSpec", "GroupExecutionError", "InjectedFault",
+    "QualityGate", "RetryPolicy", "resolve_faults", "resolve_gate",
+    "run_group", "SweepJournal", "entry_key", "execute_plan", "execute_rung_path",
     "plan_fingerprint",
 ]

@@ -253,3 +253,54 @@ def build_ladder_entry(planned: PlannedDispatch, n_eng: int, samples: int,
                          op_roles=op_roles, rows_max=rows_max,
                          device=device, ctas_per_engine=ctas_per_engine,
                          stats=stats)
+
+
+def build_scenario_program(n_engines: int, n_stressors: int, main, stress,
+                           idle=None, *, device="cuda",
+                           ctas_per_engine: int = 1) -> CompiledProgram:
+    """One contention rung as a program of the ladder kernel: engine 0
+    runs the observed role ``main``, engines ``1..n_stressors`` the
+    ``stress`` role, the rest ``idle`` (the memory-idle spin by default).
+    ``launch()`` runs it in one launch, every engine between the start
+    and the stop barrier, and returns the
+    :class:`~repro_torch.kernels.contention.LadderOut` whose stamps
+    :func:`repro_torch.core.exec.fence.stamps_fenced` judges
+    (``is_fenced``).
+
+    The JAX package's ``build_scenario_program``
+    (``repro/core/exec/program.py``) takes traced callables and returns
+    ``(mesh, f)``.  Neither carries over: a role here is the planner's
+    ``(strategy, shape, rows, iters)`` tuple, which
+    :func:`role_descriptor` turns into the kernel's role row, because a
+    compiled kernel cannot run a Python callable; and the engines are
+    CTA groups of one launch, so there is no mesh to return.  Its fence
+    is not a dataflow edge to verify in a traced program but what each
+    launch's stamps show."""
+    for name, role in (("main", main), ("stress", stress), ("idle", idle)):
+        if callable(role):
+            raise TypeError(
+                f"build_scenario_program: {name} is a callable; the ladder "
+                f"kernel runs compiled roles, so a role is a (strategy, "
+                f"shape, rows, iters) tuple (a traced function, as the JAX "
+                f"package takes, cannot run inside the kernel)")
+        if not (isinstance(role, tuple) and len(role) == 4) and not (
+                name == "idle" and role is None):
+            raise TypeError(f"build_scenario_program: {name} must be a "
+                            f"(strategy, shape, rows, iters) tuple, got "
+                            f"{role!r}")
+    if not 0 <= n_stressors < n_engines:
+        raise ValueError(f"build_scenario_program: n_stressors must be in "
+                         f"[0, {n_engines}), got {n_stressors}")
+    # dispatch imports this module: its stats class comes in at call time
+    from repro_torch.core.exec.dispatch import DispatchStats
+
+    if idle is None:
+        idle = ("i", None, 1, main[3])
+    row = tuple([main] + [stress] * n_stressors
+                + [idle] * (n_engines - 1 - n_stressors))
+    return build_program([row], n_engines, kind=None, samples=1,
+                         subsets=None, op_roles=row,
+                         rows_max=max(r[2] for r in row),
+                         device=torch.device(device),
+                         ctas_per_engine=ctas_per_engine,
+                         stats=DispatchStats())

@@ -51,11 +51,14 @@ def make_chain(n_lines: int, seed: int = 0) -> np.ndarray:
     """Sattolo cyclic permutation: following next[i] from 0 visits every
     line exactly once before returning to 0."""
     rng = np.random.default_rng(seed)
-    p = np.arange(n_lines)
-    for i in range(n_lines - 1, 0, -1):
-        j = rng.integers(0, i)
+    # every j in one call: the generator draws them in the order of the
+    # reference's scalar loop, bit for bit, and the swaps stay sequential,
+    # over Python ints; the scalar draws were most of the loop's time
+    js = rng.integers(0, np.arange(n_lines - 1, 0, -1)).tolist()
+    p = list(range(n_lines))
+    for i, j in zip(range(n_lines - 1, 0, -1), js):
         p[i], p[j] = p[j], p[i]
-    return p.astype(np.int32)
+    return np.asarray(p, dtype=np.int32)
 
 
 def chain_buffer(n_lines: int, seed: int = 0) -> np.ndarray:

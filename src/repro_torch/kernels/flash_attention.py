@@ -105,7 +105,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     card the kernel is ``INSTANCE[q.dtype]`` (see the notes in the CUDA
     sources).  ``block_q``/``block_k`` keep the reference's signature and
     tile only the plain version: on the card they have no effect, the
-    kernels' tiles are their own."""
+    kernels' tiles are their own.  On the card, q, k or v that requires
+    grad raises (:func:`run_instance`): the kernels have no backward."""
     _check_args(q, k, v, window, block_q, block_k)
     if not _build.launches_kernel(q):
         counts.PLAIN["flash_attention"] += 1
@@ -125,7 +126,17 @@ def run_instance(instance: str, q: torch.Tensor, k: torch.Tensor,
     """Launches the named kernel on card tensors.  :func:`flash_attention`
     calls it with ``INSTANCE[q.dtype]``; a check calls it by name to hold
     one kernel against the other on the same inputs.  Raises on what the
-    kernel does not take, and on a failed launch."""
+    kernel does not take, on a failed launch, and when autograd would
+    need a gradient of the output: the kernels have no backward, and an
+    output written through ``ctypes`` has no ``grad_fn``, so q, k and v
+    would silently get none."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: q, k or v requires grad, and the hand-written "
+            "kernel has no backward yet (ROADMAP queue 1, item 5: "
+            "training); call it under torch.no_grad() or with inputs that "
+            "need no gradient")
     if instance not in _ENTRY:
         raise ValueError(f"flash_attention: no instance {instance!r}; "
                          f"there are {sorted(_ENTRY)}")

@@ -208,13 +208,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                torch.arange(k0, k1, device=q.device),
                                causal, window)
         s = torch.where(mask, s, NEG_INF)
-        m_prev = m[..., r0:r1, :]
+        # the running rows are copied out before they are overwritten in
+        # place: autograd saves what it reads, and a saved view of m, l or
+        # acc would be stale by the backward pass
+        m_prev, l_prev, acc_prev = (t[..., r0:r1, :].clone()
+                                    for t in (m, l, acc))
         m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m_prev - m_new)
         p = torch.where(mask, torch.exp(s - m_new), 0.0)
-        l[..., r0:r1, :] = l[..., r0:r1, :] * alpha + p.sum(-1, keepdim=True)
+        l[..., r0:r1, :] = l_prev * alpha + p.sum(-1, keepdim=True)
         m[..., r0:r1, :] = m_new
-        acc[..., r0:r1, :] = acc[..., r0:r1, :] * alpha + p @ vf
+        acc[..., r0:r1, :] = acc_prev * alpha + p @ vf
     safe = torch.where(l == 0.0, 1.0, l)
     return (acc / safe).reshape(b, h, sq, d).to(q.dtype)
 

@@ -12,6 +12,7 @@ Tolerances are the reference's own: 2e-5 for float32 against the dense
 oracle and between the two packages, 2e-2 for bfloat16 (8 mantissa bits),
 1e-5 between tilings (the sums over KV blocks are grouped differently).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -300,3 +301,43 @@ def test_run_instance_refuses_before_the_device():
         flash_attention.run_instance("wgmma_bf16", q, k, v)
     assert not any(counts.LAUNCHES.values()) and not any(counts.PLAIN.values())
     assert not any(counts.INSTANCES.values())
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the plain path differentiates; the card's kernels refuse to
+# ---------------------------------------------------------------------------
+
+# float32 gradients of the online softmax against the dense oracle's, held
+# to the forward's own 2e-5 (they differ by about 1e-6 on these inputs)
+GRAD_ATOL = F32_ATOL
+
+
+@pytest.mark.parametrize("b,h,kvh,s,d,causal,window", CASES[:2] + CASES[4:])
+def test_plain_path_gradients_match_the_dense_oracle(b, h, kvh, s, d, causal,
+                                                     window):
+    """q, k and v gradients through the plain flash path against autograd
+    through the port's dense oracle and against ``jax.vjp`` of the JAX
+    package's."""
+    arrays = _qkv(b, h, kvh, s, s, d, seed=7)
+    rng = np.random.default_rng(8)
+    g = torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32))
+    grads = []
+    for fn in (lambda q, k, v: ops.flash_attention(
+                   q, k, v, causal=causal, window=window, block_q=64,
+                   block_k=64),
+               lambda q, k, v: ref.attention_ref(q, k, v, causal=causal,
+                                                 window=window)):
+        qkv = [torch.from_numpy(a).requires_grad_() for a in arrays]
+        (fn(*qkv) * g).sum().backward()
+        grads.append([t.grad for t in qkv])
+    # and the JAX package's dense oracle, differentiated in jnp
+    _out, vjp = jax.vjp(lambda q, k, v: jref.attention_ref(
+        q, k, v, causal=causal, window=window), *map(jnp.asarray, arrays))
+    grads.append([torch.from_numpy(np.array(t)) for t in vjp(jnp.asarray(
+        g.numpy()))])
+    for got, want, jax_want in zip(*grads):
+        assert got is not None
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=GRAD_ATOL,
+                                   rtol=0)
+        np.testing.assert_allclose(got.numpy(), jax_want.numpy(),
+                                   atol=GRAD_ATOL, rtol=0)

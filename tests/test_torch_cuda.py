@@ -586,6 +586,30 @@ def test_flash_attention_refuses_on_the_card(card):
     assert not any(counts.LAUNCHES.values()) and not any(counts.PLAIN.values())
 
 
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_a_gradient_it_cannot_give(card, which,
+                                                           dtype):
+    """The kernels have no backward: a card call whose q, k or v requires
+    grad raises, where it would return an output without ``grad_fn``; the
+    same call under ``torch.no_grad()`` launches the kernel."""
+    q, k, v = _qkv(card, 1, 2, 1, 128, 128, 64, dtype)
+    t = {"q": q, "k": k, "v": v}[which]
+    t.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention.flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention.run_instance("fma_f32", q, k, v)
+    assert not any(counts.LAUNCHES.values()) and not any(counts.PLAIN.values())
+    with torch.no_grad():
+        out = flash_attention.flash_attention(q, k, v)
+    assert out.grad_fn is None and not out.requires_grad
+    assert counts.LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q.detach(), k.detach(), v.detach())
+    assert float((out.float() - want.float()).abs().max()) <= (
+        2e-5 if dtype == torch.float32 else 2e-2)
+
+
 # --- the serving path: the model's prefill on the flash kernel, and a KV
 # cache in pinned host memory ------------------------------------------------
 

@@ -37,7 +37,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert {"repro_torch.core.workloads", "repro_torch.kernels.stream",
             "repro_torch.core.exec.assemble", "repro_torch.core.exec.plan",
             "repro_torch.core.exec.dispatch", "repro_torch.core.characterize",
-            "repro_torch.core.placement",
+            "repro_torch.core.placement", "repro_torch.core.search",
             "repro_torch.kernels.compute_probe",
             "repro_torch.core.exec.program", "repro_torch.core.exec.fence",
             "repro_torch.core.exec.resilience",

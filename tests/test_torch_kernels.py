@@ -374,6 +374,17 @@ def test_make_chain_bit_identical(n_lines, seed):
                                   ops.chain_buffer(n_lines, seed))
 
 
+@pytest.mark.parametrize("n_lines", [1, 2, 3, 17, 4096, 1 << 16])
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_one_call_draws_equal_the_reference_scalar_loop(n_lines, seed):
+    """The port draws every Sattolo j in one generator call; the
+    reference draws them one by one.  The chains are the same, up to the
+    sizes whose chains the port builds once a 256 MiB chase is placed."""
+    a, b = jchase.make_chain(n_lines, seed), chase.make_chain(n_lines, seed)
+    assert a.dtype == b.dtype == np.int32 and np.array_equal(a, b)
+    assert sorted(b.tolist()) == list(range(n_lines))
+
+
 @pytest.mark.parametrize("n_lines", [1, 2, 7, 64, 100])
 @pytest.mark.parametrize("stride", [1, 4, 8, 50])
 def test_make_strided_chain_bit_identical(n_lines, stride):

@@ -32,19 +32,27 @@ import textwrap
 import pytest
 import torch
 
+from repro.core import coordinator as jco
 from repro.core import devicetree as jdt
+from repro.core import scenarios as jsc
 from repro_torch import compat
 from repro_torch.core import convert
 from repro_torch.core.characterize import (CurveDB, characterize,
                                            characterize_matrix,
                                            curvedb_from_result)
+from repro_torch.core import coordinator as tco
+from repro_torch.core import scenarios as tsc
 from repro_torch.core.coordinator import CoreCoordinator, ValidationError
 from repro_torch.core.devicetree import H100_SXM
+from repro_torch.core.exec import fence
 from repro_torch.core.exec import journal as exec_journal
+from repro_torch.core.exec import plan as exec_plan
+from repro_torch.core.exec import program as exec_program
+from repro_torch.core.exec.dispatch import DispatchStats
 from repro_torch.core.pools import PoolManager
 from repro_torch.core.scenarios import (ObserverSpec, ScenarioSpec,
-                                        StressorSpec)
-from repro_torch.kernels import counts
+                                        StressorSpec, TrafficShape)
+from repro_torch.kernels import contention, counts
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 BUF = 64 << 10
@@ -367,3 +375,142 @@ def test_fewer_than_two_engines_raises_and_journal_needs_spmd():
                           backend="simulate", device="cpu")
     with pytest.raises(ValidationError, match="requires the spmd"):
         sim.run_matrix([_spec()], journal="x.journal")
+
+
+# ---------------------------------------------------------------------------
+# the coordinator's helpers, beside the reference's
+# ---------------------------------------------------------------------------
+
+
+def _grouping_specs(sc):
+    """tests/test_scenarios.py's grouping grid, built by either package's
+    scenario DSL (``sc``)."""
+    specs = []
+    for strat in ("r", "w"):
+        for pool in ("hbm", "host"):
+            for iters in (5, 9):
+                for shape in (sc.TrafficShape.steady(),
+                              sc.TrafficShape.burst(0.5)):
+                    for buf in (64 << 10, 128 << 10):
+                        specs.append(sc.ScenarioSpec(
+                            f"g.{strat}.{pool}.{iters}."
+                            f"{shape.tag() or 'steady'}.{buf}",
+                            sc.ObserverSpec(strat, pool, (buf,), shape),
+                            (sc.StressorSpec("w", "hbm", 64 << 10),),
+                            iters=iters, max_stressors=2))
+    return [(s, o, b) for s in specs for o in s.observers
+            for b in o.buffers]
+
+
+def _partition(keys):
+    groups = {}
+    for i, k in enumerate(keys):
+        groups.setdefault(k, []).append(i)
+    return sorted(groups.values())
+
+
+def test_spmd_group_key_matches_the_reference():
+    """The signature part of every key equals the reference's.  The
+    memory-kind part differs by design (ROADMAP queue 3, "hbm and pinned
+    host never share a group on the card"): this JAX reports
+    ``pinned_host`` for the reference's host pool on the CPU, so its
+    hbm and host ladders split into 32 groups, while the port's host pool
+    on ``device="cpu"`` holds ordinary memory (effective kind None) and
+    merges with hbm into 16 — each port group the union of the reference
+    groups that share its signature.  On the card the port's host pool
+    is pinned and splits, as the reference's does here."""
+    jc = jco.CoreCoordinator(backend="simulate")
+    tc = _port_coord()
+    jt = _grouping_specs(jsc)
+    tt = _grouping_specs(tsc)
+    jkeys = [jc._spmd_group_key(*t) for t in jt]
+    tkeys = [tc._spmd_group_key(*t) for t in tt]
+    assert [repr(k[0]) for k in tkeys] == [repr(k[0]) for k in jkeys]
+    assert all(k[1] == (None, None) for k in tkeys)
+    assert tkeys == [exec_plan.group_key(*t, tc.pools) for t in tt]
+    sig = [repr(k[0]) for k in jkeys]
+    assert _partition(tkeys) == _partition(sig)
+    assert len(_partition(tkeys)) == 16
+    assert len(_partition(jkeys)) == (
+        16 if jc.pools.pool("hbm").effective_memory_kind()
+        == jc.pools.pool("host").effective_memory_kind() else 32)
+
+
+def test_program_cache_helpers_evict_and_drop_operands():
+    c = _coord(spmd_cache_cap=1)
+    e1, e2 = (exec_program.build_scenario_program(
+        4, 1, ("r", None, 8, 1), ("w", None, 8, 1), device="cpu")
+        for _ in range(2))
+    c._program_cache_put(("k1",), e1)
+    st = DispatchStats()
+    assert c._program_cache_get(("k1",), st) is e1
+    assert st.program_cache_hits == 1
+    c._program_cache_put(("k2",), e2)
+    assert list(c._spmd_programs) == [("k2",)]
+    # the evicted entry's operands are gone now, not at collection time
+    assert e1.xf is None and e1.xi is None and e1.dst is None
+    assert e2.xf is not None and e2.xi is not None and e2.dst is not None
+    assert c._program_cache_get(("k1",), st) is None
+    assert c._program_cache_get(("k2",)) is e2
+    assert st.program_cache_hits == 1
+
+
+# ---------------------------------------------------------------------------
+# build_scenario_program: one rung on the ladder kernel
+# ---------------------------------------------------------------------------
+
+ROWS = 16
+
+
+def test_scenario_program_measured_region_is_fenced():
+    """The reference's barrier-ordering regression, by stamps: every
+    engine arrives before any begins, and the stop stamp follows every
+    end; a launch whose start barrier does not wait, engines skewed, is
+    refused."""
+    prog = tco.build_scenario_program(
+        8, 3, ("r", None, ROWS, 2), ("w", None, ROWS, 2), device="cpu")
+    codes = [int(prog.roles[prog.table[0, e], 0]) for e in range(8)]
+    assert codes == [contention.READ] + [contention.RMW] * 3 + \
+        [contention.IDLE] * 4
+    out = prog.launch()
+    assert prog.is_fenced(out) and fence.stamps_fenced(out, prog.layout)
+    bad = prog.launch(skip_start_wait=True, skew_ns=20_000)
+    assert not fence.stamps_fenced(bad, prog.layout)
+    assert not prog.is_fenced(bad)
+
+
+def test_scenario_program_executes_each_role():
+    """Engine 0 reads its rows, each stressor adds one a pass, the idle
+    engines spin: the values of the roles as the ladder defines them."""
+    prog = exec_program.build_scenario_program(
+        4, 2, ("r", None, ROWS, 1), ("w", None, ROWS, 3),
+        ("i", None, 1, 1), device="cpu")
+    assert prog.table.shape == (1, 4)
+    out = prog.launch()
+    vals = out.outs.double().numpy()
+    assert vals[0] == pytest.approx(
+        [float(prog.xf[0, :ROWS].double().sum())], rel=1e-6)
+    assert (vals[1:3] == float(prog.xf[1, 0, 0]) + 3).all()
+    assert prog.is_fenced(out)
+    # a mixed-stream stressor takes its read fraction from the shape
+    mixed = exec_program.build_scenario_program(
+        3, 2, ("l", None, ROWS, 1),
+        ("b", TrafficShape.mixed(3, 1), ROWS, 1), device="cpu")
+    assert int(mixed.roles[mixed.table[0, 1], 0]) == contention.MIXED
+    assert int(mixed.roles[mixed.table[0, 0], 0]) == contention.CHASE_SHARED
+
+
+def test_scenario_program_refuses_callables():
+    with pytest.raises(TypeError, match="callable"):
+        exec_program.build_scenario_program(
+            2, 1, lambda m: m * 3.0, ("w", None, ROWS, 1), device="cpu")
+    with pytest.raises(TypeError, match="callable"):
+        exec_program.build_scenario_program(
+            2, 1, ("r", None, ROWS, 1), ("w", None, ROWS, 1),
+            idle=lambda s: s * 0.0, device="cpu")
+    with pytest.raises(TypeError, match="tuple"):
+        exec_program.build_scenario_program(2, 1, "r", ("w", None, ROWS, 1),
+                                            device="cpu")
+    with pytest.raises(ValueError, match="n_stressors"):
+        exec_program.build_scenario_program(
+            2, 2, ("r", None, ROWS, 1), ("w", None, ROWS, 1), device="cpu")
