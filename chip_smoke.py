@@ -22,8 +22,12 @@ tokens, and ``ops.stream_triad`` on 1 GiB), and the serving path
 (``repro_torch.launch.serve`` at qwen2-1.5b's full width in bf16:
 characterize -> KV placement -> prefill through the flash kernel, one
 launch a layer -> decode, then the same weights with the cache in pinned
-host memory and through a monitored migration) — checks the results, and
-times every kernel beside its bound.  One JSON object per phase goes to
+host memory and through a monitored migration), and the moe, ssm and
+hybrid families through the same entry point (olmoe-1b-7b and mamba2-370m
+at full width and depth, jamba-v0.1-52b at full width over one period of
+its pattern: the served logits against one forward, the caches in pinned
+host memory, the MoE's and the SSD's shares of the card's time) — checks
+the results, and times every kernel beside its bound.  One JSON object per phase goes to
 standard output; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase makes the exit code non-zero and withholds that line.
@@ -33,6 +37,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -41,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -86,6 +93,9 @@ from repro_torch.kernels import (_build, chase, compute_probe,  # noqa: E402
                                  ref, stream)
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import attention, lm  # noqa: E402
+from repro_torch.models import blocks as blocks_mod  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import rmsnorm  # noqa: E402
 from repro_torch.serve.engine import (ServeEngine,  # noqa: E402
                                       choose_kv_pool, make_decode_step,
@@ -2408,16 +2418,19 @@ SERVE_ARGV = ["--arch", "qwen2-1.5b", "--batch", str(SERVE_BATCH),
 SERVE_DELAY_STEPS = 5
 
 
-def serve_logits_tol(n_layers: int) -> float:
+def serve_logits_tol(cfg) -> float:
     """The limit on the last position's logits, kernel path against plain
     path, normalised.  The two attention outputs differ by at most one bf16
     rounding an element; once two bf16 stacks differ at all, their residual
-    streams round apart: two roundings a layer (the attention's update and
-    the MLP's), each at most 2^-8 relative, in two independent streams,
-    added in quadrature: sqrt(2 * 2 * n_layers) * 2^-8 = sqrt(n_layers) *
-    2^-7 (0.0413 at 28 layers).  tools/bf16_stack_floor.py measures the
-    floor of 28 such layers on the CPU."""
-    return math.sqrt(n_layers) * 2.0 ** -7
+    streams round apart: one rounding a layer for the mixer's update and
+    one more where the layer has an FFN, each at most 2^-8 relative, in two
+    independent streams, added in quadrature: sqrt(2 * roundings) * 2^-8,
+    which is sqrt(n_layers) * 2^-7 where every layer has an FFN (0.0413 at
+    qwen2's 28 layers).  tools/bf16_stack_floor.py measures the floor of 28
+    such layers on the CPU."""
+    roundings = sum(1 + blocks_mod.layer_has_ffn(cfg, i)
+                    for i in range(cfg.n_layers))
+    return math.sqrt(2 * roundings) * 2.0 ** -8
 
 
 @contextlib.contextmanager
@@ -2580,7 +2593,7 @@ def phase_serve(smi: str) -> dict:
     with plain_flash():
         _, lw = prefill(params, prompts)
     logits_norm = float((lg - lw).norm() / lw.norm())
-    logits_tol = serve_logits_tol(cfg.n_layers)
+    logits_tol = serve_logits_tol(cfg)
     checks["b:logits_finite"] = bool(torch.isfinite(lg).all())
     checks["b:logits_within_norm_tol"] = logits_norm <= logits_tol
     argmax_equal = int((lg.argmax(-1) == lw.argmax(-1)).sum())
@@ -2705,6 +2718,508 @@ def phase_serve(smi: str) -> dict:
     return {"launches": launched["flash_attention"], "call": call}
 
 
+# ---------------------------------------------------------------------------
+# the moe, ssm and hybrid families served at full width
+# ---------------------------------------------------------------------------
+
+# (run, config, layers served): olmoe and mamba2 as published; jamba cut to
+# one period of its published pattern (8 of 32 layers: 52 B parameters are
+# 104 GB in bf16, more than the card's 80 GB)
+FAMILY_RUNS = (("moe", "olmoe-1b-7b", None), ("ssm", "mamba2-370m", None),
+               ("hybrid", "jamba-v0.1-52b", 8))
+# the published widths: (name, layers, d_model, heads, kv heads, head dim,
+# d_ff, vocab, (experts, top-k, expert d_ff), (d_state, d_conv, expand,
+# ssm head dim, groups, chunk), parameter dtype)
+FAMILY_WIDTHS = {
+    "moe": ("olmoe-1b-7b", 16, 2048, 16, 16, 128, 0, 50304, (64, 8, 1024),
+            None, torch.bfloat16),
+    "ssm": ("mamba2-370m", 48, 1024, 0, 0, 0, 0, 50280, None,
+            (128, 4, 2, 64, 1, 256), torch.bfloat16),
+    "hybrid": ("jamba-v0.1-52b", 8, 4096, 32, 8, 128, 14336, 65536,
+               (16, 2, 14336), (16, 4, 2, 64, 1, 256), torch.bfloat16),
+}
+FAMILY_PEAK_LIMIT = {"moe": 30e9}   # bytes: no (g, e, cap, d) buffer
+# (b): at least this share of the (row, MoE layer) expert choices of the
+# oracle's own router equal the served path's.  A choice flips where two
+# experts are nearly tied: the two paths' residual streams differ by up to
+# the logits' limit (about 3 % normalised at the last layer), which moves a
+# router logit of order 1 by about 0.03, against a spacing of about 0.08
+# between the 8th and 9th of 64 (0.3 between the 2nd and 3rd of 16), so at
+# most about 40 % of the choices at the deepest layer, and the difference
+# grows with depth from none at the first: about 20 % over all layers.  A
+# wrong routing agrees almost never.  Read on the H100 at 700 W: 95.1 %
+# (olmoe-1b-7b) and 97.3 % (jamba-v0.1-52b, 8 layers).
+ROUTING_AGREE_MIN = 0.8
+
+
+def width_tuple(cfg, params) -> tuple:
+    moe, ssm = cfg.moe, cfg.ssm
+    return (cfg.name, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+            moe and (moe.n_experts, moe.top_k, moe.d_ff_expert),
+            ssm and (ssm.d_state, ssm.d_conv, ssm.expand, ssm.head_dim,
+                     ssm.n_groups, ssm.chunk),
+            params["embed"].dtype)
+
+
+# part_shares: traces taken at most, where one lost a marker kernel's record
+# (one of 96 in one of six mamba2 prefills on the H100: the shares after it
+# were misattributed)
+PART_TRACES = 3
+
+
+def part_shares(fn, parts) -> dict:
+    """Device time of ``fn`` by part, from one ``torch.profiler`` trace of
+    the card: each ``(module, name, label)`` function is wrapped so that a
+    marker kernel (``torch.cuda._sleep(1)``, one ``spin_kernel``) runs
+    before and after every call, and each kernel between a pair is the
+    part's that the host recorded for that call.  A trace that lacks a
+    marker's record is taken again, up to ``PART_TRACES`` in all; the
+    shares are the last trace's, and ``markers_seen`` says whether it was
+    whole."""
+    order: list = []
+    saved = []
+    for module, name, label in parts:
+        real = getattr(module, name)
+        saved.append((module, name, real))
+
+        def marked(*a, _real=real, _label=label, **kw):
+            order.append(_label)
+            torch.cuda._sleep(1)
+            out = _real(*a, **kw)
+            torch.cuda._sleep(1)
+            return out
+
+        setattr(module, name, marked)
+    try:
+        fn()
+        sync()
+        for traces in range(1, PART_TRACES + 1):
+            order.clear()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                sync()
+            events = sorted(
+                (e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+            markers = sum("spin_kernel" in e.name for e in events)
+            if markers == 2 * len(order):
+                break
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+    labels = [label for _, _, label in parts]
+    ms = dict.fromkeys(labels, 0.0)
+    total, inside, seen = 0.0, None, 0
+    for e in events:
+        if "spin_kernel" in e.name:
+            inside = None if inside else order[seen // 2]
+            seen += 1
+            continue
+        t = e.time_range.elapsed_us() / 1e3
+        total += t
+        if inside:
+            ms[inside] += t
+    return {"device_ms": total, "markers_seen": markers,
+            "markers_expected": 2 * len(order), "traces": traces,
+            "parts": {label: {"calls": order.count(label),
+                              "device_ms": ms[label],
+                              "share": ms[label] / total if total else None}
+                      for label in labels if label in order}}
+
+
+@contextlib.contextmanager
+def routing(record: list, pinned=None):
+    """``moe.route`` wrapped: each call's expert choices go into
+    ``record``; with ``pinned`` (one (g, n, k) tensor a call, in call
+    order) the choices are replaced by those, the gates taken from the
+    call's own probabilities and renormalised."""
+    real = moe_mod.route
+    calls = iter(pinned or ())
+
+    def route(params, xg, k):
+        logits, probs, gates, ids = real(params, xg, k)
+        record.append(ids)
+        if pinned is None:
+            return logits, probs, gates, ids
+        want = next(calls)
+        gates = torch.gather(probs, -1, want)
+        gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        return logits, probs, gates, want
+
+    moe_mod.route = route
+    try:
+        yield
+    finally:
+        moe_mod.route = real
+
+
+def host_syncs(fn) -> dict:
+    """Synchronisations of the host with the card while ``fn`` runs, as
+    PyTorch's sync debug mode reports them (``.tolist()``, ``.item()``, a
+    copy into host memory that waits), with the lines they came from."""
+    sync()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    where: dict = {}
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            at = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            where[at] = where.get(at, 0) + 1
+    return {"count": sum(where.values()), "where": where}
+
+
+def family_run(arch: str, n_layers) -> tuple:
+    """(a) of one family between a reset and a read of the counts:
+    ``launch.serve.run`` on the published config, or, where its depth is
+    cut, ``launch.serve.serve`` on the cut config with the same arguments.
+    Returns the run, the command line (None for a cut config), the counts
+    and the launches by instance."""
+    argv = ["--arch", arch] + SERVE_ARGV[2:]
+    counts.reset()
+    if n_layers is None:
+        run = serve_cli.run(argv)
+    else:
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        run = serve_cli.serve(cfg, serve_cli.parser().parse_args(argv))
+        argv = None
+    sync()
+    return run, argv, counts.snapshot(), dict(counts.INSTANCES)
+
+
+def layer_params(cfg, params, i: int) -> tuple:
+    """Layer ``i``'s parameters and the index ``lm.forward`` gives its
+    block (its place in the period, or ``i`` in the tail)."""
+    plan = blocks_mod.make_plan(cfg)
+    if i < plan.n_full * plan.period:
+        p = i % plan.period
+        return lm._index(params["scan"][f"p{p}"], i // plan.period), p
+    j = next(j for j in range(plan.n_tail) if plan.tail_layer_idx(j) == i)
+    return params["tail"][f"t{j}"], i
+
+
+def flash_against_plain(cfg, engine, prompts, max_len: int) -> dict:
+    """(b) of ``serve`` at this family's head layout, on the served weights
+    and prompts: the first attention layer's prefill attention (its q, k, v
+    projected from the embedded prompts) against the same call with the
+    plain version, at most one bf16 rounding an element; and the prefill's
+    last-position logits against the same prefill with the plain version,
+    its experts pinned to the kernel path's choices (an expert choice that
+    flips at a near tie is no rounding), within :func:`serve_logits_tol`."""
+    params = engine.params
+    i0 = next(i for i in range(cfg.n_layers) if cfg.layer_kind(i) == "attn")
+    lp, idx = layer_params(cfg, params, i0)
+    h = rmsnorm(lm.embed_tokens(params, prompts, cfg), lp["ln1"],
+                cfg.norm_eps)
+    q, k, v = attention.project_qkv(
+        lp["attn"], h, cfg=cfg, layer_idx=idx,
+        positions=torch.arange(prompts.shape[1], device=DEV))
+    akw = dict(window=attention.layer_window(cfg, idx),
+               scale=cfg.head_dim ** -0.5)
+    got = attention.prefill_attention(q, k, v, **akw)
+    with plain_flash():
+        want = attention.prefill_attention(q, k, v, **akw)
+    worst, norm = scaled_errors(got, want)
+    out = {"layer": i0, "q_shape": list(q.shape), "kv_shape": list(k.shape),
+           "max_abs_err": diff(got, want), "scaled_err": worst,
+           "norm_err": norm}
+    del q, k, v, h, got, want
+    prefill = make_prefill_step(cfg, engine.rules, max_len=max_len)
+    ids: list = []
+    with routing(ids):
+        _, lg = prefill(params, prompts)
+    with plain_flash(), routing([], ids or None):
+        _, lw = prefill(params, prompts)
+    out["logits"] = {"norm_err": float((lg - lw).norm() / lw.norm()),
+                     "tol": serve_logits_tol(cfg),
+                     "finite": bool(torch.isfinite(lg).all()),
+                     "argmax_equal": int((lg.argmax(-1) == lw.argmax(-1))
+                                         .sum())}
+    return out
+
+
+def teacher_forced(cfg, engine, prompts, toks, max_len: int) -> dict:
+    """(b): the served logits, replayed step by step through the caches
+    with (a)'s tokens, against one prefill-mode forward over prompt +
+    generated tokens whose experts are pinned to the served choices (and
+    the same forward unpinned, reported)."""
+    params, n_new = engine.params, toks.shape[1]
+    prefill = make_prefill_step(cfg, engine.rules, max_len=max_len)
+    decode = make_decode_step(cfg, engine.rules)
+    served_ids: list = []
+    with routing(served_ids):
+        caches, lg = prefill(params, prompts)
+        served = [lg]
+        for i in range(n_new - 1):
+            caches, lg = decode(params, caches, toks[:, i:i + 1],
+                                SERVE_PROMPT + i)
+            served.append(lg)
+    del caches
+    served = torch.stack(served, dim=1)                 # (B, T, V)
+    replay_equal = torch.equal(served.argmax(-1), toks)
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    # each MoE layer's served choices over the whole sequence
+    per_layer = [torch.cat([served_ids[t * n_moe + j]
+                            for t in range(n_new)], dim=1)
+                 for j in range(n_moe)]
+    del served_ids
+    seq = torch.cat([prompts, toks[:, :-1]], dim=1)
+    rows = slice(SERVE_PROMPT - 1, SERVE_PROMPT - 1 + n_new)
+
+    def forced(pinned):
+        own: list = []
+        with routing(own, pinned):
+            h, _, _ = lm.forward(params, seq, cfg=cfg, mode="prefill")
+        logits = lm.unembed_logits(params, h[:, rows], cfg)
+        agree = [(a[:, rows].sort(-1).values == p[:, rows].sort(-1).values
+                  ).all(-1) for a, p in zip(own, per_layer)]
+        return logits, agree
+
+    want, agree = forced(per_layer or None)
+    unpinned, _ = forced(None)
+    # The limit on the normalised difference.  Per layer the two paths
+    # differ by roundings only: the mixer's output (the flash kernel over
+    # 2048 keys against 2079, or plain decode attention against the kernel;
+    # the Mamba step against the chunked scan, both float32, then one bf16
+    # rounding) and the FFN's or the experts' (bf16 products over other row
+    # counts, the same sums in another order: one rounding; the gates, from
+    # each stream's own router, move with the stream).  That is
+    # serve_logits_tol's case: a rounding for the mixer and one for the FFN
+    # where the layer has one, in two streams: sqrt(n_layers)·2^-7 with
+    # every layer's FFN (0.0313 at olmoe's 16 layers, 0.0221 at jamba's 8),
+    # sqrt(2·48)·2^-8 = 0.0383 at mamba2's 48, which have none.
+    tol = serve_logits_tol(cfg)
+    norm_err = float((served - want).norm() / want.norm())
+    row_err = ((served - want).norm(dim=-1) / want.norm(dim=-1)).flatten()
+    out = {"norm_err": norm_err, "tol": tol,
+           "row_err_max": float(row_err.max()),
+           "norm_err_unpinned": float((served - unpinned).norm()
+                                      / unpinned.norm()),
+           "greedy_agree_share": float(
+               (served.argmax(-1) == want.argmax(-1)).float().mean()),
+           "greedy_agree_share_unpinned": float(
+               (served.argmax(-1) == unpinned.argmax(-1)).float().mean()),
+           "routing_agree_share": (float(torch.stack(agree).float().mean())
+                                   if agree else None),
+           "rows": int(row_err.numel()),
+           "finite": bool(torch.isfinite(served).all()),
+           "replay_tokens_equal_a": replay_equal}
+    return out
+
+
+def family_placement(cfg, engine, prompts, toks, kv_bytes: int) -> dict:
+    """(c): the cache in device memory and in pinned host memory, the timed
+    loop; every cache tensor pinned at every step and the same tensor from
+    step to step, and still pinned after the loop."""
+    hbm_res, hbm_steps = timed_generate(engine, prompts)
+    host_engine = ServeEngine(cfg, engine.params, engine.rules,
+                              ServeConfig(kv_placement="host"),
+                              advisor=engine.advisor,
+                              pool_mgr=engine.pool_mgr)
+    seen, real_decode = [], host_engine._decode
+
+    def spy(p, caches, tok, pos):
+        seen.append((caches, [(t.is_pinned(), t.data_ptr())
+                              for t in lm.leaves(caches)]))
+        return real_decode(p, caches, tok, pos)
+
+    host_engine._decode = spy
+    host_res, host_steps = timed_generate(host_engine, prompts)
+    sync()
+    n_steps = SERVE_NEW - 1
+    last = seen[-1][0]
+    state = sum(t.numel() * t.element_size()
+                for name, t in lm.named_leaves(last)
+                if name in ("ssm", "conv"))
+    slots = sum(t.numel() * t.element_size() // t.shape[-3]
+                for name, t in lm.named_leaves(last) if name in ("k", "v"))
+    checks = {
+        "c:hbm_timed_tokens_equal_a": torch.equal(hbm_res.tokens, toks),
+        "c:host_pool": host_res.kv_pool == "host",
+        "c:host_tokens_equal_a": torch.equal(host_res.tokens, toks),
+        "c:cache_pinned_every_step": all(
+            all(p for p, _ in leaves) for _, leaves in seen)
+        and len(seen) == n_steps,
+        "c:same_tensors_every_step": all(
+            [ptr for _, ptr in leaves] == [ptr for _, ptr in seen[0][1]]
+            for _, leaves in seen),
+        "c:cache_pinned_after_the_loop": all(
+            t.is_pinned() for t in lm.leaves(last)),
+        "c:pcie_reads_the_whole_cache_a_step":
+            host_res.host_read_bytes == n_steps * kv_bytes,
+        "c:pcie_writes_state_whole_and_slots":
+            host_res.host_written_bytes == n_steps * (state + slots),
+        "c:hbm_moves_nothing_over_pcie":
+            hbm_res.host_read_bytes == hbm_res.host_written_bytes == 0}
+    del seen, last, host_engine
+    return {"hbm_steps": hbm_steps, "host_steps": host_steps,
+            "pcie_bytes_per_step": {
+                "read": host_res.host_read_bytes / n_steps,
+                "written": host_res.host_written_bytes / n_steps},
+            "state_bytes": state, "checks": checks}
+
+
+def family_profile(cfg, engine, prompts, toks, max_len: int,
+                   step_ms: float) -> dict:
+    """(d): one prefill and one decode step under ``torch.profiler``, the
+    host's syncs of each, the prefill's peak memory, and the shares of the
+    device time that the MoE layers and the SSD scan take in a prefill and
+    a step (:func:`part_shares`)."""
+    params = engine.params
+    prefill = make_prefill_step(cfg, engine.rules, max_len=max_len)
+    decode = make_decode_step(cfg, engine.rules)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = time_ms(lambda: prefill(params, prompts), 3)
+    peak = torch.cuda.max_memory_allocated()
+    prof = {"prefill": profile_calls(lambda: prefill(params, prompts), 1)}
+    prof["prefill"]["device_busy_share"] = \
+        prof["prefill"]["device_ms_a_call"] / prefill_ms
+    caches, _ = prefill(params, prompts)
+    tok = toks[:, :1].contiguous()
+    step = lambda: decode(params, caches, tok, SERVE_PROMPT)  # noqa: E731
+    prof["decode_step"] = profile_calls(step, 2)
+    prof["decode_step"]["device_busy_share"] = \
+        prof["decode_step"]["device_ms_a_call"] / step_ms
+    syncs = {"prefill": host_syncs(lambda: prefill(params, prompts)),
+             "decode_step": host_syncs(step)}
+
+    shares = {
+        "prefill": part_shares(lambda: prefill(params, prompts), (
+            (blocks_mod, "moe_apply", "moe"),
+            (mamba_mod, "ssd_chunked", "ssd"))),
+        "decode_step": part_shares(step, (
+            (blocks_mod, "moe_apply", "moe"),
+            (mamba_mod, "ssd_step", "ssd")))}
+    del caches
+    sync()
+    return {"prefill_ms": prefill_ms, "prefill_peak_bytes": peak,
+            "profile": prof, "host_syncs": syncs, "device_shares": shares}
+
+
+def phase_serve_families(smi: str) -> int:
+    """The moe, ssm and hybrid families through ``launch.serve.run`` at full
+    width in bf16, random weights from seed 0, batch 4 x prompt 2048 + 32
+    new tokens, as ``serve``: olmoe-1b-7b (16 layers), mamba2-370m (48),
+    jamba-v0.1-52b cut to one period (8).  For each: (a) the widths, one
+    ``wgmma_bf16`` flash launch an attention layer of the prefill, no plain
+    version, the tokens, the advisor's pool; (b) the served logits against
+    one prefill-mode forward (:func:`teacher_forced`); (c) the cache in
+    pinned host memory (:func:`family_placement`); (d) the profile, host
+    syncs, device shares and peak memory (:func:`family_profile`).  Returns
+    the flash kernel's launches over the three runs."""
+    t_phase = time.perf_counter()
+    max_len = SERVE_PROMPT + SERVE_NEW
+    flash_launches = 0
+    for kind, arch, n_layers in FAMILY_RUNS:
+        t_run = time.perf_counter()
+        checks = {}
+        run, argv, (launched, plain), by_instance = family_run(arch,
+                                                               n_layers)
+        cfg, engine, res = run.cfg, run.engine, run.result
+        prompts, toks, params = run.prompts, res.tokens, engine.params
+        n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+        n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+        advised = choose_kv_pool(cfg, SERVE_BATCH, max_len,
+                                 advisor=engine.advisor, scfg=engine.scfg,
+                                 pool_mgr=engine.pool_mgr)
+        checks["a:full_width_bf16"] = \
+            width_tuple(cfg, params) == FAMILY_WIDTHS[kind]
+        checks["a:flash_once_an_attention_layer"] = \
+            launched["flash_attention"] == n_attn
+        checks["a:flash_on_wgmma_bf16"] = \
+            by_instance["flash_attention:wgmma_bf16"] == n_attn
+        checks["a:no_plain_version"] = not any(plain.values())
+        checks["a:tokens_shaped"] = \
+            tuple(toks.shape) == (SERVE_BATCH, SERVE_NEW)
+        checks["a:tokens_in_vocab"] = bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all())
+        checks["a:kv_pool_is_the_advisors"] = res.kv_pool == advised
+        flash_launches += launched["flash_attention"]
+
+        flash = None
+        if n_attn:
+            flash = flash_against_plain(cfg, engine, prompts, max_len)
+            checks["b:first_attention_layer_one_bf16_rounding"] = \
+                flash["scaled_err"] <= 1.0
+            checks["b:flash_logits_finite"] = flash["logits"]["finite"]
+            checks["b:flash_logits_within_norm_tol"] = \
+                flash["logits"]["norm_err"] <= flash["logits"]["tol"]
+        forced = teacher_forced(cfg, engine, prompts, toks, max_len)
+        checks["b:logits_finite"] = forced["finite"]
+        checks["b:replay_tokens_equal_a"] = forced["replay_tokens_equal_a"]
+        checks["b:logits_within_norm_tol"] = \
+            forced["norm_err"] <= forced["tol"]
+        if forced["routing_agree_share"] is not None:
+            checks["b:routing_mostly_agrees"] = \
+                forced["routing_agree_share"] >= ROUTING_AGREE_MIN
+
+        placed = family_placement(cfg, engine, prompts, toks, run.kv_bytes)
+        checks.update(placed.pop("checks"))
+        hbm_ms = statistics.median(placed["hbm_steps"])
+        host_ms = statistics.median(placed["host_steps"])
+
+        prof = family_profile(cfg, engine, prompts, toks, max_len, hbm_ms)
+        checks["d:profiler_saw_the_card"] = all(
+            p["kernels_a_call"] > 0 for p in prof["profile"].values())
+        # one sync a MoE layer (its segment sizes), none elsewhere
+        checks["d:decode_syncs_one_a_moe_layer"] = \
+            prof["host_syncs"]["decode_step"]["count"] == n_moe
+        checks["d:every_part_call_marked"] = all(
+            sh["markers_seen"] == sh["markers_expected"]
+            for sh in prof["device_shares"].values())
+        if kind in FAMILY_PEAK_LIMIT:
+            checks["d:prefill_peak_below_limit"] = \
+                prof["prefill_peak_bytes"] < FAMILY_PEAK_LIMIT[kind]
+
+        emit({"phase": "serve_families", "run": kind, "card": smi,
+              "argv": argv, "n_layers_cut_from": (
+                  get_config(arch).n_layers if n_layers else None),
+              "config": cfg.name, "widths": [str(w) for w in
+                                             width_tuple(cfg, params)],
+              "n_params": sum(t.numel() for t in lm.leaves(params)),
+              "attention_layers": n_attn,
+              "moe_layers": n_moe,
+              "kv_pool": res.kv_pool, "kv_cache_bytes": run.kv_bytes,
+              "generate_s": run.seconds,
+              "tokens_per_s": toks.numel() / run.seconds,
+              "decode_tokens_per_s": SERVE_BATCH / (hbm_ms / 1e3),
+              "prefill_ms": prof["prefill_ms"],
+              "decode_ms_per_step": {"hbm": hbm_ms, "host": host_ms},
+              "decode_ms_steps": {"hbm": placed["hbm_steps"],
+                                  "host": placed["host_steps"]},
+              "pcie_bytes_per_step": placed["pcie_bytes_per_step"],
+              "state_bytes": placed["state_bytes"],
+              "prefill_peak_bytes": prof["prefill_peak_bytes"],
+              "peak_limit_bytes": FAMILY_PEAK_LIMIT.get(kind),
+              "host_syncs": prof["host_syncs"],
+              "device_shares": prof["device_shares"],
+              "profile": prof["profile"],
+              "launches": launched, "launches_by_instance": by_instance,
+              "plain_calls": plain, "flash_against_plain": flash,
+              "teacher_forced": forced,
+              "routing_agree_min": ROUTING_AGREE_MIN,
+              "tokens_sample": toks[0, :16].tolist(),
+              "seconds": time.perf_counter() - t_run, "checks": checks})
+        for k_, ok in checks.items():
+            if not ok:
+                fail(f"serve_families {kind}: check {k_}")
+        del run, engine, params, res, prompts, toks, prof, placed, forced
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "serve_families_done",
+          "seconds": time.perf_counter() - t_phase})
+    return flash_launches
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -2771,10 +3286,15 @@ def main() -> int:
     attention_rows = phase_attention()
     # the serving path: the phase resets and reads the counts around (a)
     serve = phase_serve(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the moe, ssm and hybrid families: each run between a reset and a read
+    families = phase_serve_families(smi)
     flash_row = attention_rows[1]
     flash_row["launches_by_path"] = {"attention": flash_row["launches"],
-                                     "serve": serve["launches"]}
-    flash_row["launches"] += serve["launches"]
+                                     "serve": serve["launches"],
+                                     "serve_families": families}
+    flash_row["launches"] += serve["launches"] + families
     flash_row["serve_call"] = serve["call"]
 
     phase_checks(records, launched, plain)

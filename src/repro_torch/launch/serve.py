@@ -83,11 +83,19 @@ def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
 
 
 def run(argv=None) -> ServeRun:
+    """Serve as ``main`` would."""
     args = parser().parse_args(argv)
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    return serve(cfg, args)
+
+
+def serve(cfg: ModelConfig, args: argparse.Namespace) -> ServeRun:
+    """Serve ``cfg`` with the batch, lengths, placement, mesh, seed and
+    device of ``args`` (:func:`parser`'s); ``--arch`` and ``--reduced``
+    chose ``cfg`` in :func:`run` and are not read here."""
+    device = resolve_device(args.device)
     mesh = make_host_mesh(args.data, args.model)
     rules = make_rules(cfg, mesh, global_batch=args.batch,
                        shape_kind="decode")

@@ -2,14 +2,13 @@
 
 The port of ``repro/models/blocks.py``.  Every configuration's layer
 pattern is periodic in the layer index (gemma3: 5 local + 1 global, period
-6; all dense others: period 1).  Parameters for position ``p`` of each
+6; jamba: attention at index 4 of each period-8 block with MoE on odd
+layers; all others: period 1).  Parameters for position ``p`` of each
 period are stacked over the periods (``"scan"/"p<p>"``, leading dimension
 ``n_full``), the rest unrolled (``"tail"/"t<j>"``): the reference's layout,
 so that its weights carry over key for key.  A layer's behaviour is fixed
-by its *signature* ``(kind, is_moe, is_global)``.
-
-Only attention layers with a dense MLP are ported: a ``moe`` or ``mamba``
-layer raises :class:`NotImplementedError`.
+by its *signature* ``(kind, is_moe, is_global)``: an attention or a Mamba-2
+mixer, then (outside the ssm family) a dense MLP or a mixture of experts.
 """
 from __future__ import annotations
 
@@ -22,14 +21,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (attention_layer, attn_init,
                                           cache_shape)
 from repro_torch.models.common import Params, rmsnorm, rmsnorm_init
+from repro_torch.models.mamba import (mamba_cache_shapes, mamba_init,
+                                      mamba_layer)
 from repro_torch.models.mlp import mlp_apply, mlp_init
-
-NOT_PORTED = {
-    "moe": "mixture-of-experts layers are not ported yet (ROADMAP queue 1, "
-           "the moe/mamba item)",
-    "ssm": "mamba (state-space) layers are not ported yet (ROADMAP queue 1, "
-           "the moe/mamba item)",
-}
+from repro_torch.models.moe import moe_apply, moe_init
 
 
 # ---------------------------------------------------------------------------
@@ -77,21 +72,27 @@ def make_plan(cfg: ModelConfig) -> PeriodPlan:
 # ---------------------------------------------------------------------------
 
 
-def check_ported(cfg: ModelConfig, layer_idx: int) -> None:
-    kind, is_moe, _ = layer_signature(cfg, layer_idx)
-    if kind != "attn":
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['ssm']}")
-    if is_moe:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED['moe']}")
+def layer_has_ffn(cfg: ModelConfig, i: int) -> bool:
+    """SSM-family blocks have no separate FFN; everything else does."""
+    return cfg.family != "ssm"
 
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
                dtype) -> Params:
-    check_ported(cfg, layer_idx)
-    return {"ln1": rmsnorm_init(cfg.d_model, dtype, gen.device),
-            "attn": attn_init(gen, cfg, dtype),
-            "ln2": rmsnorm_init(cfg.d_model, dtype, gen.device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+    kind, is_moe, _ = layer_signature(cfg, layer_idx)
+    dev = gen.device
+    p: Params = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev)}
+    if kind == "attn":
+        p["attn"] = attn_init(gen, cfg, dtype)
+    else:
+        p["ssm"] = mamba_init(gen, cfg, dtype)
+    if layer_has_ffn(cfg, layer_idx):
+        p["ln2"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        if is_moe:
+            p["moe"] = moe_init(gen, cfg, dtype)
+        else:
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
 def layer_apply(
@@ -109,21 +110,33 @@ def layer_apply(
     delta_cache: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
     """One decoder block.  Returns (x, new_cache, aux_losses)."""
-    check_ported(cfg, layer_idx)
+    kind, is_moe, _ = layer_signature(cfg, layer_idx)
     cst = constrain or (lambda v, _name: v)
+    aux: Dict[str, torch.Tensor] = {}
 
     h = rmsnorm(x, params["ln1"], cfg.norm_eps)
-    y, new_cache = attention_layer(
-        params["attn"], h, cfg=cfg, layer_idx=layer_idx, mode=mode,
-        cache=cache, write_pos=write_pos, q_chunk=q_chunk, max_len=max_len,
-        delta_cache=delta_cache)
+    if kind == "attn":
+        y, new_cache = attention_layer(
+            params["attn"], h, cfg=cfg, layer_idx=layer_idx, mode=mode,
+            cache=cache, write_pos=write_pos, q_chunk=q_chunk,
+            max_len=max_len, delta_cache=delta_cache)
+    else:
+        y, new_cache = mamba_layer(params["ssm"], h, cfg=cfg, mode=mode,
+                                   cache=cache)
     x = cst(x + y, "hidden")
 
-    h = rmsnorm(x, params["ln2"], cfg.norm_eps)
-    y = mlp_apply(params["mlp"], h, cfg,
-                  constrain_ffn=lambda v: cst(v, "ffn"))
-    x = cst(x + y, "hidden")
-    return x, new_cache, {}
+    if layer_has_ffn(cfg, layer_idx):
+        h = rmsnorm(x, params["ln2"], cfg.norm_eps)
+        if is_moe:
+            y, aux = moe_apply(
+                params["moe"], h, cfg,
+                constrain_dispatch=lambda v: cst(v, "dispatch"),
+                dropless=mode != "train")
+        else:
+            y = mlp_apply(params["mlp"], h, cfg,
+                          constrain_ffn=lambda v: cst(v, "ffn"))
+        x = cst(x + y, "hidden")
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -134,9 +147,15 @@ def layer_apply(
 def layer_cache_struct(cfg: ModelConfig, layer_idx: int, batch: int,
                        max_len: int, kv_dtype=torch.bfloat16) -> Params:
     """This layer's decode cache as tensors on the ``meta`` device: shapes
-    and dtypes, no memory."""
-    check_ported(cfg, layer_idx)
-    shp = cache_shape(cfg, layer_idx, batch, max_len)
-    return {"k": torch.empty(shp, dtype=kv_dtype, device="meta"),
-            "v": torch.empty(shp, dtype=kv_dtype, device="meta")}
-
+    and dtypes, no memory.  An attention layer's k and v are ``kv_dtype``;
+    a Mamba layer's state is float32 and its conv history ``kv_dtype``."""
+    kind, _, _ = layer_signature(cfg, layer_idx)
+    if kind == "attn":
+        shp = cache_shape(cfg, layer_idx, batch, max_len)
+        return {"k": torch.empty(shp, dtype=kv_dtype, device="meta"),
+                "v": torch.empty(shp, dtype=kv_dtype, device="meta")}
+    shapes = mamba_cache_shapes(cfg, batch)
+    return {"ssm": torch.empty(shapes["ssm"], dtype=torch.float32,
+                               device="meta"),
+            "conv": torch.empty(shapes["conv"], dtype=kv_dtype,
+                                device="meta")}

@@ -18,10 +18,14 @@ Parameter layout (see blocks.py for the period decomposition)::
      "tail": {"t0": <single layer>, ...}}
 
 The reference's ``lax.scan`` over the periods is a Python loop over the
-stacked leading dimension.  A decode step writes the new token's slot
-into the caches it is given (the reference donates them) and returns the
-same dicts.  ``param_specs`` and ``cache_specs`` wait for the multi-device
-slice.
+stacked leading dimension.  A decode step writes into the caches it is
+given (the reference donates them) and returns the same dicts: an
+attention layer's new token's slot, a Mamba layer's whole new state
+(``ssm`` and ``conv``), each into the tensor that held the old one, in
+device or pinned host memory.  ``aux`` carries the MoE losses summed over
+layers and the drop fraction averaged over the MoE layers, as the
+reference's; it is empty for a configuration without experts.
+``param_specs`` and ``cache_specs`` wait for the multi-device slice.
 """
 from __future__ import annotations
 
@@ -35,6 +39,10 @@ from repro_torch.models import blocks
 from repro_torch.models.blocks import make_plan
 from repro_torch.models.common import (Params, dtype_of, embed_init, rmsnorm,
                                        rmsnorm_init)
+
+_MOE_AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_drop_frac")
+# cache leaves a decode step rewrites whole (a Mamba layer's state)
+_STATE_LEAVES = ("ssm", "conv")
 
 
 # ---------------------------------------------------------------------------
@@ -56,11 +64,17 @@ def _index(tree: Params, r: int) -> Params:
 
 
 def leaves(tree) -> Iterator[torch.Tensor]:
+    for _, t in named_leaves(tree):
+        yield t
+
+
+def named_leaves(tree, name: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+    """(the leaf's own key, the leaf) for every tensor of a nested dict."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from leaves(v)
+        for k, v in tree.items():
+            yield from named_leaves(v, k)
     elif tree is not None:
-        yield tree
+        yield name, tree
 
 
 # ---------------------------------------------------------------------------
@@ -69,8 +83,6 @@ def leaves(tree) -> Iterator[torch.Tensor]:
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    for i in range(cfg.n_layers):        # refuse before allocating
-        blocks.check_ported(cfg, i)
     dtype = dtype_of(cfg.param_dtype)
     plan = make_plan(cfg)
     shape = (cfg.padded_vocab, cfg.d_model)
@@ -140,13 +152,15 @@ def host_traffic_bytes(caches: Params, device: torch.device
                        ) -> Tuple[int, int]:
     """(read, written) bytes one decode step moves between host memory and
     ``device`` for these caches: every cache held off the device is read
-    whole, and one token's slot of it written back."""
+    whole; an attention cache gets one token's slot written back, a Mamba
+    layer's ``ssm`` and ``conv`` their whole new state."""
     read = written = 0
-    for t in leaves(caches):
+    for name, t in named_leaves(caches):
         if t.device != device:
             n = t.numel() * t.element_size()
             read += n
-            written += n // t.shape[-3]          # (..., Sbuf, KV, hd)
+            written += n if name in _STATE_LEAVES else \
+                n // t.shape[-3]                 # (..., Sbuf, KV, hd)
     return read, written
 
 
@@ -155,13 +169,40 @@ def host_traffic_bytes(caches: Params, device: torch.device
 # ---------------------------------------------------------------------------
 
 
+def _zero_aux(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
+    if cfg.moe is None:
+        return {}
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in _MOE_AUX_KEYS}
+
+
+def _acc_aux(acc: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    for k, v in aux.items():
+        acc[k] = acc[k] + v.float()
+    return acc
+
+
+def _write_state(old: Params, new: Params) -> Params:
+    """A Mamba layer's new ``ssm`` and ``conv`` into the tensors that held
+    the old ones (device or pinned host memory), in stream order."""
+    for name, t in new.items():
+        old[name].copy_(t, non_blocking=True)
+    return old
+
+
 def _apply_kv_deltas(cfg: ModelConfig, old_scan: Params, emitted: Params,
                      write_pos: int) -> Params:
-    """One-token cache writes for the stacked attention layers: emitted[p]
-    holds {"k_new","v_new"} stacks (n_full, B, 1, KV, hd); each lands in
-    its slot of old_scan[p] (device or pinned host memory) in place."""
+    """Decode's cache writes for the stacked layers, each into old_scan[p]
+    (device or pinned host memory) in place: emitted[p] holds either
+    {"k_new","v_new"} stacks (n_full, B, 1, KV, hd), each landing in its
+    slot, or a Mamba position's full new state stacks {"ssm","conv"},
+    written whole."""
     for p_key, grp in emitted.items():
         old = old_scan[p_key]
+        if "k_new" not in grp:
+            _write_state(old, grp)
+            continue
         sbuf = old["k"].shape[2]
         p = int(p_key[1:])
         window = 0 if cfg.layer_is_global_attn(p) else cfg.sliding_window
@@ -220,14 +261,17 @@ def forward(
     layer_kw = dict(cfg=cfg, mode=mode, write_pos=write_pos, q_chunk=q_chunk,
                     constrain=cst, max_len=max_len)
 
+    aux = _zero_aux(cfg, x.device)
+
     emitted: Dict[str, List[Params]] = {}
     for r in range(plan.n_full):
         for p in range(plan.period):
             key = f"p{p}"
             c = _index(old[key], r) if old is not None else None
-            x, nc, _ = blocks.layer_apply(
+            x, nc, la = blocks.layer_apply(
                 _index(params["scan"][key], r), x, layer_idx=p, cache=c,
                 delta_cache=delta, **layer_kw)
+            aux = _acc_aux(aux, la)
             if nc is not None:
                 emitted.setdefault(key, []).append(nc)
 
@@ -235,16 +279,25 @@ def forward(
     for j in range(plan.n_tail):
         key = f"t{j}"
         c = caches["tail"][key] if delta else None
-        x, nc, _ = blocks.layer_apply(
+        x, nc, la = blocks.layer_apply(
             params["tail"][key], x, layer_idx=plan.tail_layer_idx(j),
             cache=c, **layer_kw)
+        aux = _acc_aux(aux, la)
         if nc is not None:
-            tail_caches[key] = nc
+            # an attention layer wrote its slot into c already
+            tail_caches[key] = _write_state(c, nc) if delta and \
+                "ssm" in nc else nc
 
     x = cst(rmsnorm(x, params["final_norm"], cfg.norm_eps), "hidden")
+    if aux:
+        # drop_frac is a mean over the MoE layers; the losses stay sums of
+        # the per-layer values, each already scaled by its weight
+        n_moe = sum(1 for i in range(cfg.n_layers) if cfg.layer_is_moe(i))
+        if n_moe:
+            aux["moe_drop_frac"] = aux["moe_drop_frac"] / n_moe
 
     if mode == "train":
-        return x, None, {}
+        return x, None, aux
     new_caches: Params = {}
     if emitted:
         scan = {k: _stack(v) for k, v in emitted.items()}
@@ -252,4 +305,4 @@ def forward(
                               if delta else scan)
     if tail_caches:
         new_caches["tail"] = tail_caches
-    return x, new_caches, {}
+    return x, new_caches, aux

@@ -1,0 +1,237 @@
+"""Mamba-2 (SSD, state-space duality) layers.
+
+The port of ``repro/models/mamba.py``.  Train and prefill use the chunked
+SSD algorithm (arXiv:2405.21060 §6): within-chunk "attention-like"
+products plus a recurrence over the chunk states, which the reference
+runs as a ``lax.scan`` and this port as a Python loop over the chunks.
+Decode is the O(1) recurrent update.  Internals are float32.
+
+State layout: (B, H, P, N) with H = ssm heads, P = head_dim, N = d_state.
+Conv cache: (B, K-1, conv_channels).  A decode step over a cache in pinned
+host memory reads ``ssm`` and ``conv`` into device memory in stream order
+(``attention._on``); ``lm`` writes the new state back into the same
+tensors.
+
+At jamba's width (h = 128, T = 256) one within-chunk tensor of a batch of
+4 x 2048 tokens is (4, 8, 256, 256, 128) float32, 1.07 GB: each is
+dropped as soon as the next is made.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import _on
+from repro_torch.models.common import Params, dense_init, rmsnorm
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    nh = s.n_heads(d)
+    return s, d, di, nh, s.n_groups, s.d_state, s.d_conv, s.head_dim
+
+
+def mamba_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    s, d, di, nh, ng, ds, k, hp = _dims(cfg)
+    conv_ch = di + 2 * ng * ds
+    proj_out = 2 * di + 2 * ng * ds + nh
+    dev = gen.device
+    w_zxbcdt = dense_init(gen, (d, proj_out), dtype)
+    conv_w = dense_init(gen, (k, conv_ch), dtype, fan_in=k)
+    lo, hi = math.log(0.001), math.log(0.1)
+    dt = torch.exp(torch.rand((nh,), generator=gen, device=dev) * (hi - lo)
+                   + lo)
+    return {
+        "w_zxbcdt": w_zxbcdt,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
+        "A_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                        device=dev)),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+        "ssm_D": torch.ones((nh,), dtype=torch.float32, device=dev),
+        "ssm_norm": torch.zeros((di,), dtype=dtype, device=dev),
+        "w_ssm_out": dense_init(gen, (di, d), dtype, fan_in=di),
+    }
+
+
+def _split_proj(zxbcdt, cfg: ModelConfig):
+    s, d, di, nh, ng, ds, k, hp = _dims(cfg)
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * ng * ds]
+    dt = zxbcdt[..., -nh:]
+    return z, xbc, dt
+
+
+def _causal_conv(xbc, conv_w, conv_b, prev: Optional[torch.Tensor] = None):
+    """Depthwise causal conv along S.  xbc: (B,S,CH); conv_w: (K,CH).
+
+    prev: optional (B, K-1, CH) history prepended (decode/chunked prefill).
+    Returns (out (B,S,CH), tail (B,K-1,CH))."""
+    k = conv_w.shape[0]
+    if prev is None:
+        prev = xbc.new_zeros((xbc.shape[0], k - 1, xbc.shape[-1]))
+    dtype = torch.promote_types(prev.dtype, xbc.dtype)
+    xp = torch.cat([prev.to(dtype), xbc.to(dtype)], dim=1)
+    s = xbc.shape[1]
+    out = sum(xp[:, i:i + s] * conv_w[i] for i in range(k))
+    out = F.silu(out + conv_b)
+    tail = xp[:, xp.shape[1] - (k - 1):]
+    return out, tail
+
+
+# ---------------------------------------------------------------------------
+# Chunked SSD (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
+    """x: (B,S,H,P); dt: (B,S,H); A: (H,) (negative); B,C: (B,S,G,N).
+
+    Returns (y (B,S,H,P), final_state (B,H,P,N)).  f32 internals."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    hg = h // g
+    if s % chunk:
+        raise ValueError(f"ssd_chunked: S {s} not a multiple of chunk {chunk}")
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, h, p).float()
+    dtc = dt.reshape(b, nc, chunk, h).float()
+    Bc = B.reshape(b, nc, chunk, g, n).float()
+    Cc = C.reshape(b, nc, chunk, g, n).float()
+
+    seg = torch.cumsum(dtc * A, dim=2)               # (b,nc,T,h)
+    seg_last = seg[:, :, -1:]                        # (b,nc,1,h)
+
+    # within-chunk (diagonal block): L[i,j] = exp(seg_i - seg_j) for i >= j,
+    # weighted by dt_j and the scores C_i . B_j (group-broadcast to heads);
+    # each (b,nc,T,T,h) tensor is freed once the next is made
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    M = torch.exp(seg[:, :, :, None, :] - seg[:, :, None, :, :])
+    M = torch.where(mask[None, None, :, :, None], M, 0.0)
+    M = M * dtc[:, :, None, :, :]
+    Gm = torch.einsum("bctgn,bcsgn->bctsg", Cc, Bc)  # (b,nc,T,T,g)
+    M = (M.reshape(b, nc, chunk, chunk, g, hg) * Gm[..., None]
+         ).reshape(b, nc, chunk, chunk, h)
+    del Gm
+    y = torch.einsum("bctsh,bcshp->bcthp", M, xc)
+    del M
+
+    # chunk-local end states: sum_j exp(seg_last - seg_j) dt_j B_j x_j
+    decay = torch.exp(seg_last - seg)                # (b,nc,T,h)
+    dtx = (dtc * decay)[..., None] * xc              # (b,nc,T,h,p)
+    Bh = torch.repeat_interleave(Bc, hg, dim=3)      # (b,nc,T,h,n)
+    s_local = torch.einsum("bcthn,bcthp->bchpn", Bh, dtx)   # (b,nc,h,p,n)
+    del dtx, Bh
+
+    # inter-chunk recurrence over nc (the reference's lax.scan): the state
+    # entering each chunk, and the final one
+    chunk_decay = torch.exp(seg_last[:, :, 0])       # (b,nc,h)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + s_local[:, c]
+    prev_states = torch.stack(prev, dim=1)           # (b,nc,h,p,n)
+
+    # off-diagonal: y_off[i] = exp(seg_i) * C_i . S_prev
+    Ch = torch.repeat_interleave(Cc, hg, dim=3)      # (b,nc,T,h,n)
+    y_off = torch.einsum("bcthn,bchpn->bcthp", Ch, prev_states)
+    y = y + y_off * torch.exp(seg)[..., None]
+    return y.reshape(b, s, h, p), state
+
+
+def ssd_step(state, x, dt, A, B, C):
+    """One recurrent step.  state: (B,H,P,N); x: (B,H,P); dt: (B,H);
+    B,C: (B,G,N).  Returns (y (B,H,P), new_state)."""
+    b, h, p, n = state.shape
+    g = B.shape[1]
+    hg = h // g
+    Bh = torch.repeat_interleave(B, hg, dim=1)       # (b,h,n)
+    Ch = torch.repeat_interleave(C, hg, dim=1)
+    da = torch.exp(dt * A)                           # (b,h)
+    upd = (dt[..., None] * x)[..., None] * Bh[:, :, None, :]   # (b,h,p,n)
+    new = state * da[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", new, Ch)
+    return y, new
+
+
+# ---------------------------------------------------------------------------
+# Layer entry point
+# ---------------------------------------------------------------------------
+
+
+def mamba_layer(params, x, *, cfg: ModelConfig, mode: str,
+                cache: Optional[Params] = None):
+    """x: (B,S,D) -> (y (B,S,D), new_cache or None).
+
+    A decode step returns the new state as new tensors; the caller writes
+    them into the cache (``lm``)."""
+    s_cfg, d, di, nh, ng, ds, k, hp = _dims(cfg)
+    b, s, _ = x.shape
+    zxbcdt = torch.einsum("bsd,de->bse", x, params["w_zxbcdt"])
+    z, xbc, dt = _split_proj(zxbcdt, cfg)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        conv_out, conv_tail = _causal_conv(
+            xbc, params["conv_w"], params["conv_b"],
+            prev=_on(cache["conv"], x.device))
+        xs = conv_out[..., :di].reshape(b, nh, hp).float()
+        Bm = conv_out[..., di:di + ng * ds].reshape(b, ng, ds)
+        Cm = conv_out[..., di + ng * ds:].reshape(b, ng, ds)
+        y, new_state = ssd_step(
+            _on(cache["ssm"], x.device).float(), xs, dt[:, 0], A,
+            Bm.float(), Cm.float())
+        y = y + params["ssm_D"][:, None] * xs
+        y = y.reshape(b, 1, di)
+        new_cache = {"ssm": new_state, "conv": conv_tail}
+    else:
+        prev_conv = init_state = None
+        if cache is not None:
+            prev_conv = _on(cache["conv"], x.device)
+            init_state = _on(cache["ssm"], x.device)
+        conv_out, conv_tail = _causal_conv(
+            xbc, params["conv_w"], params["conv_b"], prev=prev_conv)
+        xs = conv_out[..., :di].reshape(b, s, nh, hp)
+        Bm = conv_out[..., di:di + ng * ds].reshape(b, s, ng, ds)
+        Cm = conv_out[..., di + ng * ds:].reshape(b, s, ng, ds)
+        chunk = min(s_cfg.chunk, s)
+        pad = (-s) % chunk
+        if pad:
+            # zero-pad to a chunk multiple; dt=0 on padding makes the padded
+            # steps identity transitions (no decay, no contribution)
+            xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
+            Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+            Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+            dt = F.pad(dt, (0, 0, 0, pad))
+        y, final = ssd_chunked(xs, dt, A, Bm, Cm, chunk,
+                               init_state=init_state)
+        if pad:
+            y = y[:, :s]
+            xs = xs[:, :s]
+        y = y + params["ssm_D"][None, None, :, None] * xs.float()
+        y = y.reshape(b, s, di)
+        new_cache = None
+        if mode == "prefill":
+            new_cache = {"ssm": final, "conv": conv_tail}
+
+    y = y.to(x.dtype) * F.silu(z)
+    y = rmsnorm(y, params["ssm_norm"], cfg.norm_eps)
+    return torch.einsum("bse,ed->bsd", y, params["w_ssm_out"]), new_cache
+
+
+def mamba_cache_shapes(cfg: ModelConfig, batch: int):
+    s, d, di, nh, ng, ds, k, hp = _dims(cfg)
+    return {"ssm": (batch, nh, hp, ds),
+            "conv": (batch, k - 1, di + 2 * ng * ds)}

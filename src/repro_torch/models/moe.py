@@ -1,0 +1,147 @@
+"""Mixture-of-Experts with sort dispatch over the real rows only.
+
+The port of ``repro/models/moe.py``: the same routing (router in float32,
+softmax, top-k, renormalised gates), the same Switch aux loss and router
+z-loss, the same per-group *stable* sort of the n·k assignments by expert,
+each assignment's position inside its expert's run, and in capacity mode
+(``dropless=False``, training) the same ``keep = pos < cap``.
+
+The layout differs.  The reference scatters the assignments into a
+``(g, e, cap, d)`` buffer and runs its einsums over every slot; dropless
+serving sizes ``cap`` at the whole token count (``n·k``), so at olmoe's
+width a batch of 4 x 2048 tokens would allocate 17 GB and do 64x the
+useful work.  Here the kept assignments of every group are gathered into
+one ``(rows, d)`` block sorted by expert, each expert's gated FFN runs on
+its own segment (experts that got no row are skipped), and the combine
+adds ``gate · y`` into each token's row.  The segment sizes come to the
+host once a layer (one ``.tolist()``, a synchronisation of the card; the
+counts behind it and the aux loss's one-hot mean are scatter-adds, which
+do not synchronise as ``bincount`` and ``one_hot`` do).
+The combine scatters each assignment's row into its (token, rank) place
+and sums the k ranks in a fixed order, so a token's sum is the same from
+run to run (an atomic scatter-add is not).  ``constrain_dispatch`` is
+accepted for the reference's signature; on one device there is nothing
+to constrain.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import activation, dense_init
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict[str, Any]:
+    m = cfg.moe
+    d, e, f = cfg.d_model, m.n_experts, m.d_ff_expert
+    return {
+        "router": dense_init(gen, (d, e), torch.float32),
+        "we_in": dense_init(gen, (e, d, f), dtype, fan_in=d),
+        "we_gate": dense_init(gen, (e, d, f), dtype, fan_in=d),
+        "we_out": dense_init(gen, (e, f, d), dtype, fan_in=f),
+    }
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def route(params, xg: torch.Tensor, k: int):
+    """xg: (g, n, d) -> (router logits (g, n, e) f32, probs, renormalised
+    gates (g, n, k), expert ids (g, n, k)), highest probability first."""
+    logits = torch.einsum("gnd,de->gne", xg.float(), params["router"])
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(
+        min=1e-9)
+    return logits, probs, gate_vals, expert_ids
+
+
+def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, n_groups: int = 0,
+              constrain_dispatch=None, dropless: bool = False
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, D) -> (y, aux).  Groups default to the batch dim.
+
+    ``dropless=True`` (serving modes) keeps every assignment, as the
+    reference's capacity of ``n·k`` does: capacity-bounded dispatch is a
+    training trade-off, and because the capacity depends on the sequence
+    length it is non-causal.  ``dropless=False`` keeps the first ``cap``
+    assignments of each expert in each group."""
+    del constrain_dispatch              # one device: no dispatch to place
+    m = cfg.moe
+    b, s, d = x.shape
+    e, k = m.n_experts, m.top_k
+    act = activation(cfg.act_fn)
+    dev = x.device
+
+    g = n_groups or b
+    n = b * s // g                      # tokens per group
+    xg = x.reshape(g, n, d)
+    logits, probs, gate_vals, expert_ids = route(params, xg, k)
+
+    # --- aux losses -------------------------------------------------------
+    nk = n * k
+    flat_expert = expert_ids.reshape(g, nk)
+    ones = torch.ones_like(flat_expert)
+    per_group = torch.zeros((g, e), dtype=torch.long, device=dev
+                            ).scatter_add_(1, flat_expert, ones)
+    me = probs.mean(dim=1)                                  # (g, e)
+    ce = per_group.float() / nk          # the one-hot mean, with no sync
+    aux_loss = e * (me * ce).sum(dim=-1).mean()
+    z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+
+    # --- sort dispatch: the assignments of each group by expert, stable ----
+    if dropless:
+        cap = _round_up(nk, 8)
+    else:
+        cap = _round_up(int(math.ceil(k * n * m.capacity_factor / e)), 8)
+        cap = min(cap, nk)
+    flat_gate = gate_vals.reshape(g, nk)
+    order = torch.argsort(flat_expert, dim=-1, stable=True)       # (g, nk)
+    sorted_expert = torch.gather(flat_expert, 1, order)
+    sorted_gate = torch.gather(flat_gate, 1, order)
+    group_start = torch.searchsorted(
+        sorted_expert, torch.arange(e, device=dev).expand(g, e).contiguous())
+    pos = torch.arange(nk, device=dev)[None, :] - torch.gather(
+        group_start, 1, sorted_expert)
+    keep = pos < cap
+
+    # every group's assignments as one block sorted by expert (group-major
+    # inside an expert: a stable sort of the group-major flattening), the
+    # dropped ones last, in a bucket ``e`` of their own
+    bucket = torch.where(keep, sorted_expert, e).reshape(-1)
+    by_expert = torch.argsort(bucket, stable=True)
+    # an assignment's index a = token·k + rank within its group
+    slot = (order + torch.arange(g, device=dev)[:, None] * nk
+            ).reshape(-1)[by_expert]
+    gate = sorted_gate.reshape(-1)[by_expert]
+    sizes = torch.zeros(e + 1, dtype=torch.long, device=dev).scatter_add_(
+        0, bucket, torch.ones_like(bucket)).tolist()     # the one host sync
+    rows = nk * g - sizes[e]
+    slot, gate = slot[:rows], gate[:rows]
+    xk = x.reshape(g * n, d).index_select(0, slot // k)
+
+    y = torch.empty_like(xk)
+    start = 0
+    for ex, size in enumerate(sizes[:e]):
+        if not size:
+            continue
+        seg = xk[start:start + size]
+        h = seg @ params["we_in"][ex]
+        ga = seg @ params["we_gate"][ex]
+        y[start:start + size] = (h * act(ga)) @ params["we_out"][ex]
+        start += size
+
+    # combine: each kept assignment's gate · y into its (token, rank) slot,
+    # then the k ranks of a token summed (dropped slots stay zero)
+    contrib = x.new_zeros((g * nk, d))
+    contrib[slot] = y * gate.to(x.dtype)[:, None]
+    out = contrib.reshape(g * n, k, d).sum(dim=1)
+
+    aux = {"moe_aux_loss": aux_loss * m.router_aux_weight,
+           "moe_z_loss": z_loss * m.router_z_weight,
+           "moe_drop_frac": 1.0 - keep.float().mean()}
+    return out.reshape(b, s, d), aux

@@ -12,9 +12,10 @@ Prefill runs the whole prompt through ``lm.forward``, whose attention is
 the hand-written flash kernel on the card.  Decode is a Python loop over
 one-token steps (the reference's ``lax.scan``); a cache placed in pinned
 host memory stays there between steps, each step reading it into device
-memory layer by layer over PCIe and writing the new token's slot back
-(``lm.host_traffic_bytes`` counts both, :class:`GenerateResult` records
-them).  It is never moved to the device behind the advisor's back; a
+memory layer by layer over PCIe and writing back the new token's slot of
+an attention layer and the whole new state (``ssm``, ``conv``) of a Mamba
+layer, into the same tensors (``lm.host_traffic_bytes`` counts both,
+:class:`GenerateResult` records them).  It is never moved to the device behind the advisor's back; a
 migration or rollback to ``hbm`` moves it through the ``hbm`` upool.
 
 With a :class:`repro_torch.serve.monitor.ServeMonitor` (or an ``on_step``
@@ -173,8 +174,9 @@ class GenerateResult:
     migrations: List[Any] = field(default_factory=list)
     probe_sweeps: int = 0
     # bytes the decode steps moved between pinned host memory and the card
-    # (a cache placed in host memory: read whole and one slot written back
-    # each step); 0 for a cache in device memory
+    # (a cache placed in host memory: read whole each step, and one slot of
+    # an attention cache, a Mamba layer's state whole, written back); 0 for
+    # a cache in device memory
     host_read_bytes: int = 0
     host_written_bytes: int = 0
 

@@ -644,10 +644,12 @@ def test_prefill_runs_the_flash_kernel_once_a_layer(card, arch):
     assert ((out.tokens >= 0) & (out.tokens < engine.cfg.vocab_size)).all()
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b", "mamba2-370m",
+                                  "jamba-v0.1-52b"])
 def test_a_host_placed_cache_stays_in_host_memory(card, arch):
     """The cache lives in pinned host memory between steps, every step
-    reads it over PCIe, and the tokens equal the device-memory run's."""
+    reads it over PCIe, and the tokens equal the device-memory run's; a
+    Mamba layer's state is written back into the same pinned tensors."""
     pm = pools.PoolManager(devicetree.H100_SXM)
     hbm = _serve_engine(card, arch, "hbm", pm)
     prompts = torch.arange(2 * 24, device=card).reshape(2, 24) % 256
@@ -659,13 +661,64 @@ def test_a_host_placed_cache_stays_in_host_memory(card, arch):
 
     def spy(params, caches, tok, pos):
         seen.append(all(t.is_pinned() for t in lm.leaves(caches)))
+        ptrs.append([t.data_ptr() for t in lm.leaves(caches)])
         return real(params, caches, tok, pos)
 
+    ptrs = []
     host._decode = spy
     got = host.generate(prompts, max_new_tokens=6)
+    torch.cuda.synchronize()
     assert got.kv_pool == "host"
     assert torch.equal(got.tokens, want.tokens)
     assert seen == [True] * 5
+    assert all(p == ptrs[0] for p in ptrs)
     assert got.host_read_bytes == 5 * cache_bytes(
         host.cfg, 2, 30, torch.float32)
     assert want.host_read_bytes == 0
+
+
+# every family at reduced() size in float32: the card's hidden states
+# against the same model's on the CPU.  1e-4, as tests/test_torch_models.py
+# holds the port to the reference: two to four layers, embeddings and a
+# norm sum more terms than one function's 2e-5; the card's float32 products
+# (no TF32) differ from the CPU's in the order of their sums only.
+FAMILY_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m",
+                                  "jamba-v0.1-52b", "phi3.5-moe-42b-a6.6b"])
+def test_each_family_on_the_card_matches_its_cpu_run(card, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch).reduced()
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = (torch.arange(2 * 20).reshape(2, 20) * 7) % cfg.vocab_size
+    outs = {}
+    for dev, p in (("cpu", params), ("cuda", _to(params, card))):
+        counts.reset()              # read after the loop: the card's run
+        t = tokens.to(dev)
+        h, _, aux = lm.forward(p, t, cfg=cfg, mode="train")
+        hp, caches, _ = lm.forward(p, t[:, :16], cfg=cfg, mode="prefill",
+                                   max_len=20)
+        steps = []
+        for pos in range(16, 20):
+            hd, caches, _ = lm.forward(p, t[:, pos:pos + 1], cfg=cfg,
+                                       mode="decode", caches=caches,
+                                       write_pos=pos)
+            steps.append(hd)
+        outs[dev] = (h, hp, torch.cat(steps, 1), aux)
+    launched, plain = counts.snapshot()
+    for a, b in zip(outs["cuda"][:3], outs["cpu"][:3]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=FAMILY_ATOL)
+    for key, v in outs["cpu"][3].items():
+        assert abs(float(outs["cuda"][3][key]) - float(v)) <= FAMILY_ATOL
+    # the card's train and prefill attention ran the kernel, no plain flash
+    assert (launched["flash_attention"] > 0) == (cfg.family != "ssm")
+    assert not plain["flash_attention"]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

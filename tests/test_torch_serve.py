@@ -4,7 +4,10 @@ The engine (``repro_torch.serve.engine``) against the JAX package's on
 the reference's weights carried over (``models.convert``): the cache
 accounting and pool choice equal, the logits of every prefill and decode
 step within 1e-4 (float32, ``reduced()`` configs), the greedy tokens
-equal.  The monitor (``repro_torch.serve.monitor``, a copy of the
+equal, for the dense, local/global, moe, ssm and hybrid families.  A
+prefill and decode through the caches agree with one forward over the
+whole sequence (prefill mode for a MoE family: serving is dropless, train
+mode drops by capacity).  The monitor (``repro_torch.serve.monitor``, a copy of the
 reference's) is driven through tests/test_serve.py's drift, hysteresis,
 rollback and re-advise cases beside the reference's, with the same inputs,
 and must take the same actions.  The launcher, the example and the
@@ -14,6 +17,7 @@ A cache placed in pinned host memory exists only beside a card: on the
 CPU the ``host`` pool holds ordinary tensors, so the PCIe path is held on
 the card (tests/test_torch_cuda.py, chip_smoke.py's ``serve`` phase).
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -38,7 +42,7 @@ from repro.parallel.sharding import make_rules as jmake_rules
 from repro.runtime import fault_tolerance as jft
 from repro.serve import engine as jeng
 from repro.serve import monitor as jmon
-from repro_torch.configs import ServeConfig, get_config
+from repro_torch.configs import ServeConfig, get_config, list_configs
 from repro_torch.core import characterize as tchar
 from repro_torch.core.devicetree import H100_SXM
 from repro_torch.core.exec.resilience import GroupExecutionError
@@ -46,7 +50,7 @@ from repro_torch.core.placement import ContentionSpec, kv_cache_object
 from repro_torch.core.pools import PoolManager
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.mesh import describe, make_host_mesh
-from repro_torch.models import convert
+from repro_torch.models import convert, lm
 from repro_torch.parallel.sharding import make_rules
 from repro_torch.runtime import fault_tolerance as ft
 from repro_torch.serve import engine as eng
@@ -56,6 +60,8 @@ from repro_torch.train.step import make_constrain
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PROMPT, NEW = 12, 4
 LOGITS_ATOL = 1e-4
+FAMILIES = ["olmoe-1b-7b", "mamba2-370m", "jamba-v0.1-52b"]
+ALL_CONFIGS = list_configs()
 
 
 def _f32(x) -> np.ndarray:
@@ -89,7 +95,8 @@ def _prompts(cfg, batch=2):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b",
+                                  "internvl2-26b"] + FAMILIES)
 @pytest.mark.parametrize("full", [False, True])
 def test_cache_bytes_equal_the_reference(arch, full):
     jcfg, cfg = jget_config(arch), get_config(arch)
@@ -166,7 +173,7 @@ def test_pool_capacities_come_from_live_accounting():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b"] + FAMILIES)
 def test_step_logits_and_greedy_tokens_match_the_reference(arch):
     jengine, tengine = _engines(arch)
     jcfg, cfg = jengine.cfg, tengine.cfg
@@ -198,6 +205,34 @@ def test_step_logits_and_greedy_tokens_match_the_reference(arch):
     assert got.host_read_bytes == got.host_written_bytes == 0
 
 
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b"] + FAMILIES)
+def test_prefill_decode_matches_forward(arch):
+    """The twin of tests/test_serve.py's: a prefill of the prompt and
+    decode steps through the caches give the logits of one forward over the
+    whole sequence, within the reference's 3e-3.  The oracle is train mode
+    as there, and prefill mode for a MoE family (train mode drops by
+    capacity, serving never does)."""
+    cfg = get_config(arch).reduced()
+    rules = make_rules(cfg, make_host_mesh(1, 1), global_batch=2,
+                       shape_kind="decode")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0))
+    total = PROMPT + NEW
+    tokens = (torch.arange(2 * total).reshape(2, total) * 7) % cfg.vocab_size
+    mode = "prefill" if cfg.moe is not None else "train"
+    h, _, _ = lm.forward(params, tokens, cfg=cfg, mode=mode)
+    want = _f32(lm.unembed_logits(params, h, cfg))
+
+    prefill = eng.make_prefill_step(cfg, rules, max_len=total)
+    decode = eng.make_decode_step(cfg, rules)
+    caches, logits = prefill(params, tokens[:, :PROMPT], None)
+    np.testing.assert_allclose(_f32(logits), want[:, PROMPT - 1], atol=3e-3)
+    for i in range(NEW - 1):
+        pos = PROMPT + i
+        caches, logits = decode(params, caches, tokens[:, pos:pos + 1], pos)
+        np.testing.assert_allclose(_f32(logits), want[:, pos], atol=3e-3,
+                                   err_msg=f"{arch} pos={pos}")
+
+
 def test_timed_loop_matches_the_untimed_loop():
     """The monitored (timed) decode loop draws the same tokens as the
     untimed one — greedy and sampled from the seeded generator."""
@@ -222,15 +257,39 @@ def test_timed_loop_matches_the_untimed_loop():
 
 def test_host_placement_gives_the_same_tokens():
     """Through a pool manager on the CPU: the ``host`` pool holds ordinary
-    tensors there, the tokens equal the ``hbm`` run's."""
+    tensors there, the tokens equal the ``hbm`` run's, for attention,
+    Mamba and hybrid caches.  Every cache tensor stays the tensor it was
+    placed as, in the memory it was placed in, and the step's host traffic
+    counts a Mamba layer's ``ssm`` and ``conv`` whole."""
     pm = PoolManager(H100_SXM, "cpu")
-    _, engine = _engines("gemma3-1b", pool_mgr=pm)
-    _, prompts = _prompts(engine.cfg)
-    hbm = engine.generate(prompts, max_new_tokens=NEW)
-    engine.scfg = ServeConfig(kv_placement="host")
-    host = engine.generate(prompts, max_new_tokens=NEW)
-    assert host.kv_pool == "host"
-    assert torch.equal(hbm.tokens, host.tokens)
+    for arch in ("gemma3-1b", "mamba2-370m", "jamba-v0.1-52b"):
+        _, engine = _engines(arch, pool_mgr=pm)
+        _, prompts = _prompts(engine.cfg)
+        hbm = engine.generate(prompts, max_new_tokens=NEW)
+        engine.scfg = ServeConfig(kv_placement="host")
+        seen, real = [], engine._decode
+
+        def spy(params, caches, tok, pos):
+            seen.append({id(t): (t.data_ptr(), t.device)
+                         for t in lm.leaves(caches)})
+            if len(seen) == 1:      # every leaf as if it lay off the device
+                state = sum(t.numel() * t.element_size()
+                            for name, t in lm.named_leaves(caches)
+                            if name in ("ssm", "conv"))
+                read, written = lm.host_traffic_bytes(caches,
+                                                      torch.device("meta"))
+                assert read == eng.cache_bytes(
+                    engine.cfg, 2, PROMPT + NEW, torch.float32)
+                # the attention caches' slots are what is left of written
+                assert (state > 0) == (arch != "gemma3-1b")
+                assert (written > state) == (arch != "mamba2-370m")
+            return real(params, caches, tok, pos)
+
+        engine._decode = spy
+        host = engine.generate(prompts, max_new_tokens=NEW)
+        assert host.kv_pool == "host"
+        assert torch.equal(hbm.tokens, host.tokens), arch
+        assert len(seen) == NEW - 1 and all(m == seen[0] for m in seen)
 
 
 # ---------------------------------------------------------------------------
@@ -469,6 +528,39 @@ def test_launcher_serves_on_the_cpu(capsys):
         with pytest.raises(ValueError, match="one device"):
             serve_cli.run(["--arch", "qwen2-1.5b", "--reduced",
                            "--device", "cpu"] + bad)
+
+
+@pytest.mark.parametrize("arch", sorted(ALL_CONFIGS))
+def test_launcher_serves_every_config_on_the_cpu(arch):
+    """Every family through the entry point a user calls, at reduced():
+    the tokens shaped and in the vocabulary, the cache in the advisor's
+    pool, its bytes the cache's."""
+    r = serve_cli.run(["--arch", arch, "--reduced", "--batch", "2",
+                       "--prompt-len", "10", "--new-tokens", "3",
+                       "--device", "cpu"])
+    toks = r.result.tokens
+    assert tuple(toks.shape) == (2, 3)
+    assert ((0 <= toks) & (toks < r.cfg.vocab_size)).all()
+    assert r.result.kv_pool == "hbm"
+    assert r.kv_bytes == eng.cache_bytes(r.cfg, 2, 13)
+
+
+def test_serve_serves_the_config_it_is_given():
+    """``serve`` takes a config cut in depth (jamba's reduced() cut to its
+    first two layers, a Mamba layer and an attention layer with experts)
+    and serves that one, with the arguments' batch and lengths."""
+    full = get_config("jamba-v0.1-52b").reduced()
+    cfg = dataclasses.replace(full, n_layers=2)
+    args = serve_cli.parser().parse_args(
+        ["--arch", "jamba-v0.1-52b", "--batch", "2", "--prompt-len", "10",
+         "--new-tokens", "3", "--device", "cpu"])
+    r = serve_cli.serve(cfg, args)
+    assert r.cfg is cfg
+    toks = r.result.tokens
+    assert tuple(toks.shape) == (2, 3)
+    assert ((0 <= toks) & (toks < cfg.vocab_size)).all()
+    assert r.kv_bytes == eng.cache_bytes(cfg, 2, 13) \
+        < eng.cache_bytes(full, 2, 13)
 
 
 def test_launcher_without_a_card_raises():
