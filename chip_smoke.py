@@ -26,8 +26,12 @@ host memory and through a monitored migration), and the moe, ssm and
 hybrid families through the same entry point (olmoe-1b-7b and mamba2-370m
 at full width and depth, jamba-v0.1-52b at full width over one period of
 its pattern: the served logits against one forward, the caches in pinned
-host memory, the MoE's and the SSD's shares of the card's time) — checks
-the results, and times every kernel beside its bound.  One JSON object per phase goes to
+host memory, the MoE's and the SSD's shares of the card's time), and the
+training path (``repro_torch.launch.train`` at qwen2-1.5b's full width and
+depth in bf16: microbatches -> lm.forward with per-layer remat -> the
+flash kernel -> chunked cross-entropy -> the hand-written flash backward
+kernel -> AdamW -> the resilient loop) — checks the results, and times
+every kernel beside its bound.  One JSON object per phase goes to
 standard output; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase makes the exit code non-zero and withholds that line.
@@ -91,7 +95,12 @@ from repro_torch.core.scenarios import (ObserverSpec,  # noqa: E402
 from repro_torch.kernels import (_build, chase, compute_probe,  # noqa: E402
                                  contention, counts, flash_attention, ops,
                                  ref, stream)
+from repro_torch import tree as tree_mod  # noqa: E402
+from repro_torch.data.pipeline import DataLoader  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.runtime import fault_tolerance  # noqa: E402
+from repro_torch.train import step as step_mod  # noqa: E402
 from repro_torch.models import attention, lm  # noqa: E402
 from repro_torch.models import blocks as blocks_mod  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
@@ -126,8 +135,11 @@ FAILURES: list = []
 SPMD_KERNELS = ("contention_ladder", "probe_add_one")
 # the kernels of the attention and triad entry points
 ATTENTION_KERNELS = ("triad_hbm", "flash_attention")
+# the kernel of the training path alone
+TRAIN_KERNELS = ("flash_attention_bwd",)
 OBSERVER_KERNELS = tuple(k for k in counts.KERNELS
-                         if k not in SPMD_KERNELS + ATTENTION_KERNELS)
+                         if k not in SPMD_KERNELS + ATTENTION_KERNELS
+                         + TRAIN_KERNELS)
 
 
 def emit(obj) -> None:
@@ -2253,16 +2265,21 @@ def sass_counts(library: str, opcodes) -> dict:
             for op in opcodes}
 
 
-def library_attention_ms(q, k, v, n: int, mask=None) -> float:
+def library_attention_ms(q, k, v, n: int, mask=None, do=None) -> float:
     """The yardstick, which the port never calls: one PyTorch call that
     computes the same attention on the same inputs, timed as the kernels
     are: causal by its flag, or, for a window, under the dense bool
-    ``mask`` the caller built beforehand (the library has no window)."""
+    ``mask`` the caller built beforehand (the library has no window).
+    With ``do``, the call's backward at ``do`` alone: the forward runs once
+    outside the timed region."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if mask is None:
-        return time_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                    enable_gqa=True), n)
-    return time_ms(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), n)
+    kw = (dict(is_causal=True) if mask is None else dict(attn_mask=mask))
+    if do is None:
+        return time_ms(lambda: sdpa(q, k, v, enable_gqa=True, **kw), n)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*leaves, enable_gqa=True, **kw)
+    return time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True), n)
 
 
 def phase_attention() -> list:
@@ -3220,6 +3237,454 @@ def phase_serve_families(smi: str) -> int:
     return flash_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training — the flash backward kernel against its plain version,
+# then repro_torch.launch.train at qwen2-1.5b's full width and depth
+# ---------------------------------------------------------------------------
+
+# (a) the backward kernel's cases: label, b, h, kvh, sq, sk, d, causal,
+# window, dtype.  The train shape (train_4k's sequence, the batch cut to
+# 2 a microbatch), gemma3-1b's local layer at its width, then float32,
+# ragged, Sq != Sk and rows with no key at small sizes
+BWD_CASES = [
+    ("qwen2-1.5b train, causal", 2, 12, 2, 4096, 4096, 128, True, 0,
+     torch.bfloat16),
+    ("gemma3-1b local, window 512", 2, 4, 1, 4096, 4096, 256, True, 512,
+     torch.bfloat16),
+    ("f32 causal GQA", 1, 4, 2, 512, 512, 64, True, 0, torch.float32),
+    ("f32 window D 256", 1, 4, 1, 320, 320, 256, True, 64, torch.float32),
+    ("ragged bf16", 1, 4, 2, 200, 200, 128, True, 0, torch.bfloat16),
+    ("ragged f32 D 16", 2, 2, 1, 77, 77, 16, True, 0, torch.float32),
+    ("Sq < Sk bf16", 1, 4, 2, 200, 328, 128, True, 0, torch.bfloat16),
+    ("Sq > Sk f32 D 32", 1, 4, 2, 328, 200, 32, False, 0, torch.float32),
+    ("rows with no key f32", 1, 2, 1, 200, 16, 32, False, 8, torch.float32),
+    ("rows with no key bf16", 1, 2, 1, 200, 16, 64, False, 8,
+     torch.bfloat16),
+]
+# limits, stated before the run: float32 gradients within 1e-5 of the
+# largest |grad| of the plain version on the same inputs (the sums are
+# grouped differently); bf16 gradients against the float32 oracle (the
+# plain backward on the same bf16 values upcast) elementwise within
+# BF16_RTOL |want| + BF16_GRAD_FLOOR max|want|: the kernel computes in
+# float32 as the oracle does and rounds once to bf16 (at most 2^-9 of the
+# value, the limit 2^-7), the floor for elements that cancel to near zero
+BWD_F32_REL = 1e-5
+BWD_BF16_FLOOR = 2.0 ** -12
+# the forward kernels' log-sum-exp against the plain version's: values of
+# order 1-10, the tensor-core kernel summing in exp2 and the plain version
+# in exp, float32 either way; +inf on exactly the same rows
+LSE_ATOL = 1e-3
+
+
+def grad_errors(got, want, dtype) -> dict:
+    """The three gradients against ``want``: float32 by max |diff| over
+    max |want|; bf16 by the scaled error of :data:`BWD_BF16_FLOOR`."""
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        gf, wf = g.float(), w.float()
+        d_ = (gf - wf).abs()
+        top = float(wf.abs().max())
+        rec = {"max_abs_err": float(d_.max()), "max_abs_want": top,
+               "rel_to_max": float(d_.max()) / top if top else float(d_.max()),
+               "finite": bool(torch.isfinite(gf).all())}
+        if dtype == torch.bfloat16:
+            rec["scaled_err"] = float((d_ / (BF16_RTOL * wf.abs()
+                                             + BWD_BF16_FLOOR * top)).max())
+        out[name] = rec
+    return out
+
+
+def bwd_case(label, b, h, kvh, sq, sk, d, causal, window, dtype, seed,
+             timed: bool) -> dict:
+    """One backward case: the forward kernel's output and log-sum-exp,
+    then the backward kernel, its plain version and the float32 oracle on
+    the same inputs; timings where ``timed``."""
+    kw = dict(causal=causal, window=window)
+    q, k, v = qkv(b, h, kvh, sq, sk, d, dtype, seed=seed, scale=PEAKED_QK,
+                  v_scale=V_SCALE)
+    g = torch.Generator(device=DEV).manual_seed(seed + 5)
+    do = torch.randn(q.shape, generator=g, device=DEV).to(dtype)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=DEV)
+    o = flash_attention._launch_forward(flash_attention.INSTANCE[dtype],
+                                        q, k, v, sm_scale=None, lse=lse,
+                                        **kw)
+    # the forward's log-sum-exp against the plain version's
+    _, lse_plain = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    finite = torch.isfinite(lse_plain)
+    lse_err = float((lse - lse_plain)[finite].abs().max()) if bool(
+        finite.any()) else 0.0
+    lse_inf_same = bool(torch.equal(torch.isinf(lse), ~finite))
+    before = counts.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    launched = counts.LAUNCHES["flash_attention_bwd"] - before
+    deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    plain = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    rec = {"case": label, "shape_q": [b, h, sq, d], "kv": [b, kvh, sk, d],
+           "dtype": str(dtype).split(".")[1], **kw,
+           "launches": launched, "deterministic": deterministic,
+           "lse_max_abs_err": lse_err, "lse_inf_rows_agree": lse_inf_same}
+    if dtype == torch.float32:
+        rec["vs_plain"] = grad_errors(got, plain, dtype)
+        rec["ok"] = all(e["rel_to_max"] <= BWD_F32_REL and e["finite"]
+                        for e in rec["vs_plain"].values())
+    else:
+        oracle = ref.flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o)), lse, do.float(), **kw)
+        rec["vs_f32_oracle"] = grad_errors(got, oracle, dtype)
+        rec["plain_vs_f32_oracle"] = grad_errors(plain, oracle, dtype)
+        del oracle
+        rec["ok"] = all(e["scaled_err"] <= 1.0 and e["finite"]
+                        for e in rec["vs_f32_oracle"].values())
+    # rows with no admitted key: their dq is exactly 0
+    no_key = torch.isinf(lse)
+    if bool(no_key.any()):
+        rec["no_key_rows"] = int(no_key.sum())
+        rec["no_key_dq_zero"] = bool((got[0].float().abs().amax(-1)
+                                      [no_key] == 0).all())
+        rec["ok"] = rec["ok"] and rec["no_key_dq_zero"]
+    rec["ok"] = bool(rec["ok"] and deterministic and launched == 2
+                     and lse_inf_same and lse_err <= LSE_ATOL)
+    if timed:
+        pairs = admitted_pairs(sq, sk, causal, window)
+        ops_ = 10 * d * h * b * pairs
+        bytes_ = (sum(t.numel() for t in (q, k, v, o, do, q, k, v))
+                  * q.element_size() + lse.numel() * 4)
+        b_ms, b_by = bound(bytes_, ops_, BF16_TC_OPS_PER_S)
+        fp32_ms, _ = bound(bytes_, ops_)
+        ms = time_ms(lambda: flash_attention.flash_attention_bwd(
+            q, k, v, o, lse, do, **kw), 3)
+        rec.update({
+            "admitted_pairs": pairs, "operations": ops_, "bytes": bytes_,
+            "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_fp32": fp32_ms, "tflops": ops_ / ms / 1e9,
+            "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, **kw), 1),
+            "library_ms": library_attention_ms(
+                q, k, v, 3, window_mask(sq, sk, window) if window else None,
+                do=do),
+            "library_call": "backward of SDPA, enable_gqa, " + (
+                "attn_mask (S, S) bool" if window else "is_causal")})
+    del got, plain, q, k, v, o, do, lse
+    return rec
+
+
+def phase_train_kernel() -> dict:
+    """(a) of the ``train`` phase: the backward kernel against its plain
+    version and the float32 oracle on the card, at the train shape, at
+    gemma3-1b's local layer and at the small edge cases; the forward's
+    log-sum-exp against the plain version's.  Launches here are checks,
+    not the path.  Returns the kernel's row of the ``kernels`` line (its
+    launches filled in by the caller)."""
+    t0 = time.perf_counter()
+    recs = [bwd_case(*c, seed=20 + i, timed=i < 2)
+            for i, c in enumerate(BWD_CASES)]
+    for r in recs:
+        if not r["ok"]:
+            fail(f"train: backward case {r['case']}")
+    emit({"phase": "train_kernel", "cases": recs,
+          "f32_rel_limit": BWD_F32_REL, "bf16_rtol": BF16_RTOL,
+          "bf16_floor_of_max": BWD_BF16_FLOOR,
+          "seconds": time.perf_counter() - t0})
+    main = recs[0]
+    worst = max(max(e["max_abs_err"] for e in
+                    (r.get("vs_plain") or r["vs_f32_oracle"]).values())
+                for r in recs)
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": CSRC + "flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:96 (its "
+                        "gradient; the reference differentiates jnp at "
+                        "src/repro/models/attention.py:328-360)",
+            "launches": 0, "max_abs_err": worst,
+            **{k_: main[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "bound_ms_fp32",
+                                       "library_ms", "tflops")},
+            "shape": "the qwen2-1.5b train call; every call under calls",
+            "calls": [{k_: r[k_] for k_ in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_call", "tflops")}
+                for r in recs if "ms" in r]}
+
+
+# (b)-(e): repro_torch.launch.train at qwen2-1.5b's full width and depth,
+# bf16, random weights and synthetic tokens from seed 0: train_4k's
+# sequence of 4096 tokens, its global batch of 256 cut to 4 (2
+# microbatches of 2) for one card and the time limit, remat by layer
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_MB = 6, 4, 2
+TRAIN_SEQ = MODEL_SHAPES["train_4k"].seq_len
+TRAIN_ARGV = ["--arch", "qwen2-1.5b", "--steps", str(TRAIN_STEPS),
+              "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+              "--microbatches", str(TRAIN_MB), "--remat", "layer",
+              "--seed", "0", "--no-checkpoint"]
+# (b): step 0's loss within this many nats of ln V (random weights: the
+# logits have a std of about 0.02 sqrt(d_model) = 0.78, which adds about
+# 0.3 to ln V)
+TRAIN_LOSS0_TOL = 1.0
+# (d): the same batch, this many steps at this peak rate (warmup 1, then
+# the cosine), must lower the loss by more than this many nats
+OVERFIT_STEPS, OVERFIT_LR, OVERFIT_DROP = 8, 1e-3, 1.0
+# (e): the drill at reduced width, on the card
+DRILL_ARGV = ["--arch", "qwen2-1.5b", "--reduced", "--steps", "6",
+              "--batch", "8", "--seq", "64", "--microbatches", "2",
+              "--lr", "3e-3", "--checkpoint-every", "2", "--seed", "0",
+              "--no-advice"]
+DRILL_AT = 3
+# (e): where two uninterrupted runs are not bit-equal, the drilled run's
+# parameters must be within this normalised distance of one
+DRILL_NORM_TOL = 1e-6
+
+
+def train_grads_tol(cfg) -> float:
+    """(c)'s limit on the normalised distance between the gradients with
+    the kernels and with the plain flash: serve's count of roundings (one
+    a layer for the mixer, one more for an FFN, in two streams), once for
+    the forward and once more for the backward, which runs back through
+    every layer: sqrt(2 * 2 * roundings) * 2^-8 (0.0585 at 28 layers)."""
+    roundings = sum(1 + blocks_mod.layer_has_ffn(cfg, i)
+                    for i in range(cfg.n_layers))
+    return math.sqrt(4 * roundings) * 2.0 ** -8
+
+
+class PlainFlashFn(torch.autograd.Function):
+    """The plain flash forward (with its log-sum-exp) and the plain
+    backward, on whatever device the tensors are: the check's, never the
+    path's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale, block_q, block_k):
+        kw = dict(causal=causal, window=window, sm_scale=sm_scale,
+                  block_q=block_q, block_k=block_k)
+        out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = ref.flash_attention_bwd_ref(q, k, v, out, lse,
+                                            do.contiguous(), **ctx.kw)
+        return (*grads, None, None, None, None, None)
+
+
+@contextlib.contextmanager
+def plain_flash_train():
+    """``ops.flash_attention`` replaced by :class:`PlainFlashFn` while the
+    block runs, as :func:`plain_flash` does for the forward alone."""
+    real = ops.flash_attention
+
+    def plain(q, k, v, *, causal=True, window=0, sm_scale=None,
+              block_q=128, block_k=128):
+        return PlainFlashFn.apply(q, k, v, causal, window, sm_scale,
+                                  block_q, block_k)
+
+    ops.flash_attention = plain
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+def loss_and_grads(loss_fn, params, tokens, labels):
+    """One microbatch's loss and gradients (in the parameters' dtype), as
+    the train step takes them."""
+    flat = [p.detach().requires_grad_() for p in tree_mod.leaves(params)]
+    with torch.enable_grad():
+        loss, _ = loss_fn(tree_mod.unflatten_like(params, flat), tokens,
+                          labels, None)
+        gs = torch.autograd.grad(loss, flat)
+    return loss.detach(), gs
+
+
+def normalised_distance(got, want) -> tuple:
+    """(||got - want|| / ||want|| over every leaf, the worst leaf's)."""
+    num = den = 0.0
+    worst = 0.0
+    for g, w in zip(got, want):
+        d2 = float((g.float() - w.float()).square().sum())
+        w2 = float(w.float().square().sum())
+        num, den = num + d2, den + w2
+        if w2:
+            worst = max(worst, math.sqrt(d2 / w2))
+    return math.sqrt(num / den), worst
+
+
+def drill_runs(tmp: str) -> dict:
+    """(e): the drilled run and two uninterrupted ones at reduced width."""
+    runs = {}
+    for name, extra in (("drilled", ["--inject-fault-at", str(DRILL_AT)]),
+                        ("clean", []), ("clean_again", [])):
+        d = os.path.join(tmp, name)
+        runs[name] = train_cli.run(DRILL_ARGV + ["--ckpt-dir", d] + extra,
+                                   verbose=False)
+    leaves = {k: tree_mod.leaves(r.state["params"]) for k, r in runs.items()}
+    deterministic = all(torch.equal(a, b) for a, b in
+                        zip(leaves["clean"], leaves["clean_again"]))
+    equal = all(torch.equal(a, b) for a, b in
+                zip(leaves["drilled"], leaves["clean"]))
+    dist, _ = normalised_distance(leaves["drilled"], leaves["clean"])
+    r = runs["drilled"].result
+    return {"argv": DRILL_ARGV, "drill_at": DRILL_AT,
+            "restarts": r.restarts, "faults_injected": r.faults_injected,
+            "final_step": r.final_step,
+            "device": str(runs["drilled"].device),
+            "steps_recorded": len(r.metrics_history),
+            "clean_runs_bit_equal": deterministic,
+            "drilled_bit_equal_clean": equal, "normalised_distance": dist,
+            "tol_if_not_deterministic": DRILL_NORM_TOL,
+            "losses": [m["loss"] for m in r.metrics_history]}
+
+
+def phase_train(smi: str, bwd_row: dict) -> int:
+    """(b) ``repro_torch.launch.train`` at qwen2-1.5b's full width and
+    depth between a reset and a read of the counts: every loss and grad
+    norm finite, step 0's loss near ln V, two forward launches (the
+    recompute) and one backward launch a layer and microbatch, the
+    forwards on ``wgmma_bf16``, no plain version; the step's ms, tokens a
+    second, kernels, busy share, host syncs and peak memory.  (c) One
+    microbatch's loss and gradients against the same under the plain flash
+    forward and backward.  (d) The same batch for ``OVERFIT_STEPS`` steps:
+    the loss falls.  (e) The resilient loop's drill at reduced width.
+    Fills ``bwd_row``'s launches from (b); returns the forward kernel's
+    launches in (b)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    checks = {}
+
+    # (b) the entry point
+    counts.reset()
+    t0 = time.perf_counter()
+    run = train_cli.run(TRAIN_ARGV, verbose=False)
+    sync()
+    entry_s = time.perf_counter() - t0
+    launched, plain = counts.snapshot()
+    by_instance = dict(counts.INSTANCES)
+    peak = torch.cuda.max_memory_allocated()
+    cfg, state, hist = run.cfg, run.state, run.result.metrics_history
+    params = state["params"]
+    layers = cfg.n_layers
+    fwd_want = 2 * layers * TRAIN_MB * TRAIN_STEPS
+    bwd_want = layers * TRAIN_MB * TRAIN_STEPS
+    losses = [m["loss"] for m in hist]
+    gnorms = [m["grad_norm"] for m in hist]
+    checks["b:full_width_bf16"] = (
+        (cfg.name, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+         cfg.head_dim, cfg.d_ff, cfg.vocab_size, params["embed"].dtype) ==
+        ("qwen2-1.5b", 28, 1536, 12, 2, 128, 8960, 151936, torch.bfloat16))
+    checks["b:steps_run"] = (run.result.final_step == TRAIN_STEPS
+                             and len(hist) == TRAIN_STEPS)
+    checks["b:losses_and_grad_norms_finite"] = all(
+        math.isfinite(x) for x in losses + gnorms)
+    checks["b:step0_loss_near_ln_v"] = \
+        abs(losses[0] - math.log(cfg.vocab_size)) <= TRAIN_LOSS0_TOL
+    checks["b:forward_twice_a_layer_and_microbatch"] = \
+        launched["flash_attention"] == fwd_want
+    checks["b:forward_on_wgmma_bf16"] = \
+        by_instance["flash_attention:wgmma_bf16"] == fwd_want
+    checks["b:backward_once_a_layer_and_microbatch"] = \
+        launched["flash_attention_bwd"] == bwd_want
+    checks["b:backward_bf16"] = \
+        by_instance["flash_attention_bwd:fma_bf16"] == bwd_want
+    checks["b:no_plain_version"] = not any(plain.values())
+    bwd_row["launches"] = launched["flash_attention_bwd"]
+    bwd_row["launches_by_path"] = {"train": launched["flash_attention_bwd"]}
+
+    step_s = run.step_seconds
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    step_fn = step_mod.make_train_step(cfg, run.rules, run.tcfg,
+                                       microbatches=TRAIN_MB)
+    loader = DataLoader(cfg, run.shape, device=DEV, seed=0)
+    batch = loader.device_batch(0)
+
+    def one_step():
+        return step_fn(state, batch.tokens, batch.labels)
+
+    prof = profile_calls(one_step, 1)
+    syncs = host_syncs(lambda: fault_tolerance._scalars(one_step()[1]))
+    checks["b:profiler_saw_the_card"] = prof["kernels_a_call"] > 0
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+
+    # (c) one microbatch with the kernels against the plain flash
+    loss_fn = step_mod.make_loss_fn(cfg, run.rules, run.tcfg)
+    tok = batch.tokens.reshape(TRAIN_BATCH // TRAIN_MB, TRAIN_MB, -1)[:, 0]
+    lab = batch.labels.reshape(TRAIN_BATCH // TRAIN_MB, TRAIN_MB, -1)[:, 0]
+    lk, gk = loss_and_grads(loss_fn, params, tok, lab)
+    with plain_flash_train():
+        lp, gp = loss_and_grads(loss_fn, params, tok, lab)
+    grad_dist, worst_leaf = normalised_distance(gk, gp)
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in gk)
+    del gk, gp
+    tol_c = train_grads_tol(cfg)
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    checks["c:grads_finite"] = grads_finite
+    checks["c:grads_within_norm_tol"] = grad_dist <= tol_c
+    checks["c:loss_within_norm_tol"] = loss_rel <= serve_logits_tol(cfg)
+
+    # (d) the same batch, repeated, from fresh moments
+    with torch.no_grad():
+        for t in (tree_mod.leaves(state["opt"].m)
+                  + tree_mod.leaves(state["opt"].v)):
+            t.zero_()
+        state["opt"].step.zero_()
+    tcfg_d = dataclasses.replace(run.tcfg, learning_rate=OVERFIT_LR,
+                                 warmup_steps=1, total_steps=OVERFIT_STEPS)
+    step_d = step_mod.make_train_step(cfg, run.rules, tcfg_d,
+                                      microbatches=TRAIN_MB)
+    t0 = time.perf_counter()
+    over = [step_d(state, batch.tokens, batch.labels)[1]["loss"]
+            for _ in range(OVERFIT_STEPS)]
+    over = torch.stack(over).tolist()
+    over_s = time.perf_counter() - t0
+    checks["d:losses_finite"] = all(math.isfinite(x) for x in over)
+    checks["d:loss_falls"] = over[0] - over[-1] > OVERFIT_DROP
+    del run, state, params, loader, batch, step_fn, step_d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the drill, at reduced width on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        drill = drill_runs(tmp)
+    checks["e:one_restart"] = (drill["restarts"] == 1
+                               and drill["faults_injected"] == 1)
+    checks["e:ran_to_the_end_on_the_card"] = (
+        drill["final_step"] == 6 and drill["device"].startswith("cuda"))
+    checks["e:params_equal_uninterrupted"] = (
+        drill["drilled_bit_equal_clean"] if drill["clean_runs_bit_equal"]
+        else drill["normalised_distance"] <= DRILL_NORM_TOL)
+
+    emit({"phase": "train", "card": smi, "argv": TRAIN_ARGV,
+          "config": cfg.name, "n_params": cfg.n_params(),
+          "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "microbatches": TRAIN_MB,
+          "batch_cut_from": MODEL_SHAPES["train_4k"].global_batch,
+          "entry_seconds": entry_s, "loop_seconds": float(sum(step_s)),
+          "step_ms_median": step_ms,
+          "step_ms": [x * 1e3 for x in step_s],
+          "tokens_per_s": tokens_per_step / (step_ms / 1e3),
+          "losses": losses, "grad_norms": gnorms,
+          "ln_vocab": math.log(cfg.vocab_size),
+          "launches": launched, "launches_by_instance": by_instance,
+          "plain_calls": plain,
+          "want_launches": {"flash_attention": fwd_want,
+                            "flash_attention_bwd": bwd_want},
+          "profile_one_step": prof,
+          "busy_share": prof["device_ms_a_call"] / step_ms,
+          "host_syncs_a_step": syncs, "peak_bytes": peak,
+          "c": {"loss_kernels": float(lk), "loss_plain": float(lp),
+                "loss_rel": loss_rel, "loss_tol": serve_logits_tol(cfg),
+                "grad_norm_dist": grad_dist, "worst_leaf_dist": worst_leaf,
+                "tol": tol_c},
+          "d": {"losses": over, "lr": OVERFIT_LR, "drop": over[0] - over[-1],
+                "min_drop": OVERFIT_DROP, "seconds": over_s},
+          "e": drill, "checks": checks,
+          "seconds": time.perf_counter() - t_phase})
+    for k_, ok in checks.items():
+        if not ok:
+            fail(f"train: check {k_}")
+    return launched["flash_attention"]
+
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -3290,11 +3755,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the moe, ssm and hybrid families: each run between a reset and a read
     families = phase_serve_families(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # training: the backward kernel's checks, then the entry point, which
+    # the phase runs between a reset and a read of the counts
+    bwd_row = phase_train_kernel()
+    train_fwd = phase_train(smi, bwd_row)
     flash_row = attention_rows[1]
     flash_row["launches_by_path"] = {"attention": flash_row["launches"],
                                      "serve": serve["launches"],
-                                     "serve_families": families}
-    flash_row["launches"] += serve["launches"] + families
+                                     "serve_families": families,
+                                     "train": train_fwd}
+    flash_row["launches"] += serve["launches"] + families + train_fwd
     flash_row["serve_call"] = serve["call"]
 
     phase_checks(records, launched, plain)
@@ -3307,6 +3779,7 @@ def main() -> int:
     ladder_rows[0]["launches"] += q_launched["contention_ladder"]
     kernels += ladder_rows
     kernels += attention_rows
+    kernels.append(bwd_row)
     sync()
     if FAILURES:
         sys.stderr.write("chip_smoke: %d failure(s):\n  %s\n"

@@ -1,0 +1,171 @@
+"""Checkpointing: manifest + per-leaf arrays, atomic, async, keep-N.
+
+The port of ``repro/checkpoint/manager.py`` for one device:
+
+* **the reference's layout**: a ``step_<n>/`` directory holds one ``.npy``
+  a leaf and ``manifest.json`` with each leaf's file, global shape and
+  dtype name, keyed by the leaf's path (:func:`repro_torch.tree.
+  flatten_with_path`: dict keys sorted, ``.m`` for a named tuple's field).
+  For the same tree the paths, files and manifest keys are the
+  reference's, so a float32 checkpoint written by either package restores
+  in the other.
+* **bfloat16 leaves**: numpy has no bfloat16 without ``ml_dtypes``, which
+  the card's machine may lack, so a bf16 leaf is stored as its 16-bit
+  patterns (a ``uint16`` array) with ``"dtype": "bfloat16"`` in the
+  manifest, and read back by its bits.
+* **atomic**: writes go to ``step_<n>.tmp/`` and are renamed into place
+  only after every leaf and the manifest are fsynced, so a killed job
+  never leaves a half-checkpoint that restore would pick up.
+* **async**: ``save_async`` copies the tensors to host memory, then writes
+  on a background thread; the loop waits only for the copy.
+* **keep-N GC**, the newest checkpoints kept.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+
+MANIFEST = "manifest.json"
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as numpy; bfloat16 by its bits (uint16)."""
+    t = t.detach().to("cpu", copy=True).contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).split(".")[1]
+
+
+def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    arr = np.array(arr, order="C")      # a 0-d leaf stays 0-d
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    # -- paths ---------------------------------------------------------------
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:08d}")
+
+    def steps(self) -> List[int]:
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                if os.path.exists(os.path.join(self.dir, name, MANIFEST)):
+                    out.append(int(name.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
+    # -- save ------------------------------------------------------------------
+    @staticmethod
+    def _snapshot(state):
+        """(path, host array, dtype name) of every leaf, copied now."""
+        return [(path, _to_numpy(t), _dtype_name(t))
+                for path, t in tree.flatten_with_path(state)]
+
+    def save(self, state, step: int) -> None:
+        self._write(self._snapshot(state), step)
+
+    def save_async(self, state, step: int) -> None:
+        self.wait()                       # one in flight at a time
+        host = self._snapshot(state)
+
+        def work():
+            try:
+                self._write(host, step)
+            except BaseException as e:    # noqa: BLE001 — re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _write(self, items, step: int) -> None:
+        final = self._step_dir(step)
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        manifest = {"step": step, "leaves": {}}
+        for path, arr, dtype_name in items:
+            fname = path.replace("/", ".") + ".npy"
+            with open(os.path.join(tmp, fname), "wb") as f:
+                np.save(f, arr)
+                f.flush()
+                os.fsync(f.fileno())
+            manifest["leaves"][path] = {
+                "file": fname, "shape": list(arr.shape),
+                "dtype": dtype_name}
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)             # the atomic commit point
+        self._gc()
+
+    def _gc(self) -> None:
+        steps = self.steps()
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+    # -- restore -----------------------------------------------------------------
+    def restore(self, target, step: Optional[int] = None,
+                device=None) -> Any:
+        """Restore into the structure of ``target`` (a tree of tensors, or
+        of ``meta`` tensors for shapes and dtypes alone): each leaf in the
+        target leaf's dtype, on ``device`` (default: the target leaf's
+        device, the CPU for a meta leaf).  A leaf whose shape differs from
+        the target's raises ``ValueError``; a missing leaf ``KeyError``."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        d = self._step_dir(step)
+        with open(os.path.join(d, MANIFEST)) as f:
+            manifest = json.load(f)
+        leaves = []
+        for path, tgt in tree.flatten_with_path(target):
+            meta = manifest["leaves"].get(path)
+            if meta is None:
+                raise KeyError(
+                    f"checkpoint step {step} missing leaf {path!r}")
+            arr = np.load(os.path.join(d, meta["file"]))
+            if list(arr.shape) != list(tgt.shape):
+                raise ValueError(
+                    f"leaf {path}: checkpoint shape {arr.shape} != "
+                    f"target {tuple(tgt.shape)}")
+            dev = device or ("cpu" if tgt.is_meta else tgt.device)
+            t = _from_numpy(arr, meta["dtype"]).to(tgt.dtype)
+            leaves.append(t.to(dev))
+        return tree.unflatten_like(target, leaves)

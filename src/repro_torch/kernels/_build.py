@@ -28,7 +28,7 @@ from repro_torch import compat
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("stream", "chase", "compute_probe", "contention",
-           "flash_attention", "flash_attention_tc")
+           "flash_attention", "flash_attention_tc", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # shared memory one block can use on an H100 SM (227 KB of the SM's 256 KB)
@@ -196,11 +196,13 @@ def member_layout(t: torch.Tensor) -> tuple:
     return t.shape[0], t.shape[1], t.stride(0)
 
 
-def empty_like_placed(t: torch.Tensor,
-                      shape: Optional[tuple] = None) -> torch.Tensor:
-    """An uninitialised tensor of ``t``'s dtype in the same memory as
-    ``t``: on its card, or pinned host memory for a pinned ``t``."""
+def empty_like_placed(t: torch.Tensor, shape: Optional[tuple] = None,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An uninitialised tensor of ``t``'s dtype (or ``dtype``) in the same
+    memory as ``t``: on its card, or pinned host memory for a pinned
+    ``t``."""
     shape = tuple(t.shape) if shape is None else shape
+    dtype = t.dtype if dtype is None else dtype
     if t.is_cuda:
-        return torch.empty(shape, dtype=t.dtype, device=t.device)
-    return torch.empty(shape, dtype=t.dtype, pin_memory=t.is_pinned())
+        return torch.empty(shape, dtype=dtype, device=t.device)
+    return torch.empty(shape, dtype=dtype, pin_memory=t.is_pinned())

@@ -16,12 +16,14 @@ from typing import Dict, Tuple
 KERNELS = ("read_hbm", "write_hbm", "write_hbm_seeded", "rmw_hbm",
            "copy_hbm", "read_vmem", "write_vmem", "chase_vmem", "chase_hbm",
            "mxu_probe", "contention_ladder", "probe_add_one", "triad_hbm",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN: Dict[str, int] = {k: 0 for k in KERNELS}
 INSTANCES: Dict[str, int] = {"flash_attention:wgmma_bf16": 0,
-                             "flash_attention:fma_f32": 0}
+                             "flash_attention:fma_f32": 0,
+                             "flash_attention_bwd:fma_bf16": 0,
+                             "flash_attention_bwd:fma_f32": 0}
 
 
 def reset() -> None:

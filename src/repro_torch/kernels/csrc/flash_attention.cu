@@ -11,7 +11,11 @@
 // count from 0 (top-left alignment, also when Sq != Sk): key j is admitted
 // for query i when j < Sk, j <= i (causal) and j > i - window (window > 0).
 // Accumulation is float32 for either input type.  A row with no admissible
-// key is written as 0, as the reference divides by 1 where l == 0.
+// key is written as 0, as the reference divides by 1 where l == 0.  With a
+// non-null lse pointer the epilogue also writes each row's log-sum-exp of
+// the scaled scores, m + log(l), float32 (B, H, Sq), for the backward
+// (csrc/flash_attention_bwd.cu); +inf for a row with no admissible key.
+// The serving path passes null and the kernel writes nothing more.
 //
 // Bound by operations: 4 * D float operations per admitted (query, key) pair
 // and head (q.k and p.v, a multiply and an add each).  At the shapes the
@@ -129,8 +133,9 @@ __device__ __forceinline__ bool admitted(int qi, int kj, int sk, int causal,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int H, int KVH,
-             int Sq, int Sk, int causal, int window, float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int H, int KVH, int Sq, int Sk,
+             int causal, int window, float scale) {
   constexpr int BK = Tile<D>::BK, QS = Tile<D>::QS;
   constexpr int NC = BK / 16;           // keys a thread in S
   constexpr int CPT = D / 16;           // columns of O a thread
@@ -266,6 +271,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRows; ++i) {
     const int r = ty * kRows + i;
     if (r >= q_valid) continue;
+    // the row's log-sum-exp of the scaled scores, for the backward; +inf
+    // marks a row with no admitted key (its p = exp(s - lse) is 0)
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * Sq + q0 + r] =
+          l[i] == 0.f ? __int_as_float(0x7f800000) : m[i] + logf(l[i]);
     const float safe = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -277,8 +287,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KVH, int Sq, int Sk, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int H, int KVH, int Sq, int Sk, int causal, int window,
            float scale, cudaStream_t stream) {
   const size_t smem = Tile<D>::smem_bytes;
   // above 48 KB a kernel must opt in; a refusal is reported, not ignored
@@ -288,21 +298,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (rc) return rc;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, H, KVH, Sq, Sk, causal,
-      window, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, H, KVH, Sq, Sk,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
-               int B, int H, int KVH, int Sq, int Sk, int causal, int window,
-               float scale, cudaStream_t st) {
+               float* lse, int B, int H, int KVH, int Sq, int Sk, int causal,
+               int window, float scale, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, B, H, KVH, Sq, Sk, causal, window, scale, st);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, KVH, Sq, Sk, causal, window, scale, st);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, KVH, Sq, Sk, causal, window, scale, st);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, KVH, Sq, Sk, causal, window, scale, st);
-    case 256: return launch<T, 256>(q, k, v, out, B, H, KVH, Sq, Sk, causal, window, scale, st);
+    case 16: return launch<T, 16>(q, k, v, out, lse, B, H, KVH, Sq, Sk, causal, window, scale, st);
+    case 32: return launch<T, 32>(q, k, v, out, lse, B, H, KVH, Sq, Sk, causal, window, scale, st);
+    case 64: return launch<T, 64>(q, k, v, out, lse, B, H, KVH, Sq, Sk, causal, window, scale, st);
+    case 128: return launch<T, 128>(q, k, v, out, lse, B, H, KVH, Sq, Sk, causal, window, scale, st);
+    case 256: return launch<T, 256>(q, k, v, out, lse, B, H, KVH, Sq, Sk, causal, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -316,16 +326,18 @@ const char* repro_error_string(int code) {
 }
 
 // dtype: 0 float32, 1 bfloat16.  Every tensor contiguous, 16-byte aligned.
+// lse: null, or float32 (B, H, Sq) for each row's log-sum-exp.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, int dtype, int B, int H, int KVH, int Sq,
-                          int Sk, int D, int causal, int window, float scale,
-                          void* stream) {
+                          void* out, void* lse, int dtype, int B, int H,
+                          int KVH, int Sq, int Sk, int D, int causal,
+                          int window, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, out, B, H, KVH, Sq, Sk, causal,
+    return dispatch_d<float>(D, q, k, v, out, l, B, H, KVH, Sq, Sk, causal,
                              window, scale, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, out, B, H, KVH, Sq, Sk,
+    return dispatch_d<__nv_bfloat16>(D, q, k, v, out, l, B, H, KVH, Sq, Sk,
                                      causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

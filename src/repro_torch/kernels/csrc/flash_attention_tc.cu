@@ -8,6 +8,10 @@
 // Key j is admitted for query i when j < Sk, j <= i (causal) and
 // j > i - window (window > 0), positions from 0 also when Sq != Sk.
 // Accumulation is float32.  A row with no admissible key is written as 0.
+// With a non-null lse pointer the epilogue also writes each row's
+// log-sum-exp of the scaled scores, float32 (B, H, Sq), for the backward
+// (csrc/flash_attention_bwd.cu); +inf for a row with no admissible key.
+// The serving path passes null and the kernel writes nothing more.
 //
 // Bound by operations: 4 * D operations per admitted (query, key) pair and
 // head.  At the chip check's shapes (S = 32768, B = 1), against 989 TFLOP/s
@@ -403,8 +407,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ out, int H, int KVH, int Sq,
-                int Sk, int causal, int window, float scale_log2) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int H, int KVH, int Sq, int Sk, int causal, int window,
+                float scale_log2) {
   using C = Cfg<D>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -586,6 +591,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int qi = r0 + 8 * r;
     if (qi >= Sq) continue;
+    // the row's log-sum-exp of the scaled scores (natural log), for the
+    // backward: p = 2^(s * scale_log2 - m * scale_log2) summed to l, so
+    // lse = (m * scale_log2 + log2 l) * ln 2; +inf for a row with no key
+    if (lse != nullptr && c0 == 0)
+      lse[head + qi] = l[r] == 0.f
+                           ? __int_as_float(0x7f800000)
+                           : (m[r] * scale_log2 + log2f(l[r])) *
+                                 0.6931471805599453f;
     const float safe = l[r] == 0.f ? 1.f : l[r];
     __nv_bfloat16* row = out + (head + qi) * D;
 #pragma unroll
@@ -643,8 +656,8 @@ int encode(CUtensorMap* map, const void* base, int rows, int planes,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KVH, int Sq, int Sk, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int H, int KVH, int Sq, int Sk, int causal, int window,
            float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
@@ -659,7 +672,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (rc) return rc;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_tc_kernel<D><<<grid, kThreads, C::smem_bytes, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, H, KVH, Sq, Sk, causal, window,
+      tq, tk, tv, (__nv_bfloat16*)out, lse, H, KVH, Sq, Sk, causal, window,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -673,19 +686,21 @@ const char* repro_error_string(int code) {
 }
 
 // dtype: 1 bfloat16 (the only one this instance takes).  Every tensor
-// contiguous and 16-byte aligned.
+// contiguous and 16-byte aligned.  lse: null, or float32 (B, H, Sq) for
+// each row's log-sum-exp.
 int repro_flash_attention_tc(const void* q, const void* k, const void* v,
-                             void* out, int dtype, int B, int H, int KVH,
-                             int Sq, int Sk, int D, int causal, int window,
-                             float scale, void* stream) {
+                             void* out, void* lse_, int dtype, int B, int H,
+                             int KVH, int Sq, int Sk, int D, int causal,
+                             int window, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  float* lse = (float*)lse_;
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 16: return launch<16>(q, k, v, out, B, H, KVH, Sq, Sk, causal, window, scale, st);
-    case 32: return launch<32>(q, k, v, out, B, H, KVH, Sq, Sk, causal, window, scale, st);
-    case 64: return launch<64>(q, k, v, out, B, H, KVH, Sq, Sk, causal, window, scale, st);
-    case 128: return launch<128>(q, k, v, out, B, H, KVH, Sq, Sk, causal, window, scale, st);
-    case 256: return launch<256>(q, k, v, out, B, H, KVH, Sq, Sk, causal, window, scale, st);
+    case 16: return launch<16>(q, k, v, out, lse, B, H, KVH, Sq, Sk, causal, window, scale, st);
+    case 32: return launch<32>(q, k, v, out, lse, B, H, KVH, Sq, Sk, causal, window, scale, st);
+    case 64: return launch<64>(q, k, v, out, lse, B, H, KVH, Sq, Sk, causal, window, scale, st);
+    case 128: return launch<128>(q, k, v, out, lse, B, H, KVH, Sq, Sk, causal, window, scale, st);
+    case 256: return launch<256>(q, k, v, out, lse, B, H, KVH, Sq, Sk, causal, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

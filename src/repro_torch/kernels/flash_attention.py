@@ -24,6 +24,17 @@ other inputs.  Only a CPU tensor takes the plain version,
 reference's algorithm at the given ``block_q``/``block_k``.  The kernels
 pick their own tiles for the card; the result does not depend on the
 tiling, as the reference's contract says.
+
+The gradient: where grad is enabled and q, k or v requires it,
+:func:`flash_attention` goes through :class:`FlashAttentionFn`.  Its
+forward runs the same kernel with the rows' log-sum-exp as a second
+output; its backward launches ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd`), which recomputes the scores from q, k, v,
+o and the log-sum-exp.  The reference has no backward kernel (its
+gradient of attention is XLA's autodiff of jnp); this is the gradient of
+the port's forward kernels' exact function.  On CPU tensors the same
+Function runs the plain forward and :func:`ref.flash_attention_bwd_ref`,
+the backward's algorithm in plain torch.
 """
 from __future__ import annotations
 
@@ -45,6 +56,10 @@ _ENTRY = {"wgmma_bf16": ("flash_attention_tc", "repro_flash_attention_tc",
                          (torch.bfloat16,)),
           "fma_f32": ("flash_attention", "repro_flash_attention",
                       (torch.float32, torch.bfloat16))}
+# the backward: one source of float32 FMAs, built for both dtypes; the
+# instance names the dtype that ran
+BWD_SOURCE, BWD_ENTRY = "flash_attention_bwd", "repro_flash_attention_bwd"
+BWD_INSTANCE = {torch.bfloat16: "fma_bf16", torch.float32: "fma_f32"}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -105,9 +120,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     card the kernel is ``INSTANCE[q.dtype]`` (see the notes in the CUDA
     sources).  ``block_q``/``block_k`` keep the reference's signature and
     tile only the plain version: on the card they have no effect, the
-    kernels' tiles are their own.  On the card, q, k or v that requires
-    grad raises (:func:`run_instance`): the kernels have no backward."""
+    kernels' tiles are their own.  Where grad is enabled and q, k or v
+    requires it, the call goes through :class:`FlashAttentionFn`, whose
+    backward is the backward kernel (the plain one on CPU tensors)."""
     _check_args(q, k, v, window, block_q, block_k)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, sm_scale,
+                                      block_q, block_k)
     if not _build.launches_kernel(q):
         counts.PLAIN["flash_attention"] += 1
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -123,20 +143,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def run_instance(instance: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, *, causal: bool = True, window: int = 0,
                  sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Launches the named kernel on card tensors.  :func:`flash_attention`
-    calls it with ``INSTANCE[q.dtype]``; a check calls it by name to hold
-    one kernel against the other on the same inputs.  Raises on what the
-    kernel does not take, on a failed launch, and when autograd would
-    need a gradient of the output: the kernels have no backward, and an
-    output written through ``ctypes`` has no ``grad_fn``, so q, k and v
-    would silently get none."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError(
-            "flash_attention: q, k or v requires grad, and the hand-written "
-            "kernel has no backward yet (ROADMAP queue 1, item 5: "
-            "training); call it under torch.no_grad() or with inputs that "
-            "need no gradient")
+    """Launches the named forward kernel on card tensors: the raw launch,
+    with no autograd.  :func:`flash_attention` calls it with
+    ``INSTANCE[q.dtype]``; a check calls it by name to hold one kernel
+    against the other on the same inputs.  Raises on what the kernel does
+    not take and on a failed launch."""
+    return _launch_forward(instance, q, k, v, causal=causal, window=window,
+                           sm_scale=sm_scale, lse=None)
+
+
+def _launch_forward(instance: str, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, *, causal: bool, window: int,
+                    sm_scale: Optional[float],
+                    lse: Optional[torch.Tensor]) -> torch.Tensor:
+    """The forward kernel's launch; with ``lse`` (float32 (B, H, Sq) on the
+    card) it also writes each row's log-sum-exp there."""
     if instance not in _ENTRY:
         raise ValueError(f"flash_attention: no instance {instance!r}; "
                          f"there are {sorted(_ENTRY)}")
@@ -156,12 +177,116 @@ def run_instance(instance: str, q: torch.Tensor, k: torch.Tensor,
     dev = _build.compute_device(q)
     out = _build.empty_like_placed(q)
     fn = _build.bind(source, entry,
-                     (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _F, _VP))
+                     (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _F, _VP))
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              None if lse is None else lse.data_ptr(),
               _DTYPE_CODE[q.dtype], b, h, kvh, sq, sk, d, int(bool(causal)),
               window, float(scale), _build.current_stream(dev))
     _build.check_launch(source, "flash_attention", code)
     counts.LAUNCHES["flash_attention"] += 1
     counts.INSTANCES[f"flash_attention:{instance}"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The gradient
+# ---------------------------------------------------------------------------
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its backward kernel.
+
+    The forward runs ``INSTANCE[q.dtype]`` with the log-sum-exp output (on
+    CPU tensors the plain version with ``return_lse``) and saves q, k, v,
+    the output and the log-sum-exp; the backward makes ``do`` contiguous
+    (it arrives transposed from ``models.attention.prefill_attention``) and
+    runs :func:`flash_attention_bwd`.  Under ``torch.utils.checkpoint`` the
+    forward runs twice (once more in the recompute) and the backward
+    once."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sm_scale, block_q, block_k):
+        if _build.launches_kernel(q):
+            refusal = kernel_refusal(q, k, v)
+            if refusal is not None:
+                raise ValueError(
+                    f"flash_attention: the kernel does not take {refusal}")
+            lse = _build.empty_like_placed(q, tuple(q.shape[:3]),
+                                           torch.float32)
+            out = _launch_forward(INSTANCE[q.dtype], q, k, v, causal=causal,
+                                  window=window, sm_scale=sm_scale, lse=lse)
+        else:
+            counts.PLAIN["flash_attention"] += 1
+            out, lse = ref.flash_attention_ref(
+                q, k, v, causal=causal, window=window, sm_scale=sm_scale,
+                block_q=block_q, block_k=block_k, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, sm_scale=sm_scale,
+                      block_q=block_q, block_k=block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        sm_scale: Optional[float] = None, block_q: int = 128,
+                        block_k: int = 128):
+    """(dq, dk, dv) of :func:`flash_attention` at ``do``, given its output
+    ``o`` and log-sum-exp ``lse`` (float32 (B, H, Sq)).
+
+    On the card: ``csrc/flash_attention_bwd.cu``, bound by operations,
+    ``10·D`` a head and admitted pair (see its notes); a call it does not
+    take, or a failed launch, raises.  On CPU tensors:
+    :func:`ref.flash_attention_bwd_ref`, tiled by ``block_q``/``block_k``
+    (the kernel's tiles are its own)."""
+    _check_args(q, k, v, window, block_q, block_k)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must have q's "
+                             f"shape, dtype and device, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+    if (lse.shape != q.shape[:3] or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError("flash_attention_bwd: lse must be float32 "
+                         f"{tuple(q.shape[:3])} on q's device, got "
+                         f"{tuple(lse.shape)} {lse.dtype} {lse.device}")
+    if not _build.launches_kernel(q):
+        counts.PLAIN["flash_attention_bwd"] += 1
+        return ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, causal=causal, window=window,
+            sm_scale=sm_scale, block_q=block_q, block_k=block_k)
+    refusal = kernel_refusal(q, k, v)
+    for name, t in (("o", o), ("do", do), ("lse", lse)):
+        if refusal is None and (not _build.launches_kernel(t)
+                                or not t.is_contiguous()
+                                or t.data_ptr() % 16):
+            refusal = f"{name} not contiguous and 16-byte aligned on the card"
+    if refusal is not None:
+        raise ValueError(
+            f"flash_attention_bwd: the kernel does not take {refusal}")
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    window = min(window, sq)
+    dev = _build.compute_device(q)
+    dq, dk, dv = (_build.empty_like_placed(t) for t in (q, k, v))
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    fn = _build.bind(BWD_SOURCE, BWD_ENTRY,
+                     (_VP,) * 10 + (_I,) * 9 + (_F, _VP))
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+              dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, kvh,
+              sq, sk, d, int(bool(causal)), window, float(scale),
+              _build.current_stream(dev))
+    _build.check_launch(BWD_SOURCE, "flash_attention_bwd", code)
+    counts.LAUNCHES["flash_attention_bwd"] += 1
+    counts.INSTANCES[f"flash_attention_bwd:{BWD_INSTANCE[q.dtype]}"] += 1
+    return dq, dk, dv

@@ -162,10 +162,22 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def _admitted_rows(sq: int, ik: int, block_q: int, block_k: int,
+                   causal: bool, window: int) -> Tuple[int, int]:
+    """[r0, r1): the rows of the query blocks iq whose skip predicates run
+    KV block ik, as the reference's body: causal
+    ``ik*bk <= iq*bq + bq - 1``, window ``ik*bk + bk - 1 > iq*bq - window``."""
+    k0 = ik * block_k
+    iq_lo = max(0, -(-(k0 - block_q + 1) // block_q)) if causal else 0
+    iq_hi = (-(-(k0 + block_k - 1 + window) // block_q) if window
+             else -(-sq // block_q))
+    return iq_lo * block_q, min(iq_hi * block_q, sq)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         sm_scale: Optional[float] = None, block_q: int = 128,
-                        block_k: int = 128) -> torch.Tensor:
+                        block_k: int = 128, return_lse: bool = False):
     """The JAX package's online-softmax algorithm (``_flash_body``) in
     PyTorch: a loop over KV blocks, each applied to every query block whose
     skip predicates admit it, all those rows at once.  Memory is O(S·block)
@@ -176,7 +188,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     positions both count from 0 (also when Sq != Sk), and a row with no
     admissible key returns 0 (the reference divides by 1 where ``l == 0``).
     A padded KV tail contributes nothing there, so only the real keys of
-    the last block are taken here."""
+    the last block are taken here.  With ``return_lse`` it returns
+    ``(out, lse)``: each row's log-sum-exp of the scaled scores, ``m +
+    log(l)``, float32 (B, H, Sq), ``+inf`` for a row with no admissible key
+    (what the forward kernels write for the backward)."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     g = h // kvh
@@ -192,13 +207,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_pos = torch.arange(sq, device=q.device)
     for ik in range(n_k):
         k0, k1 = ik * block_k, min((ik + 1) * block_k, sk)
-        # the query blocks iq whose predicates run this KV block:
-        # causal  ik*bk <= iq*bq + bq - 1
-        # window  ik*bk + bk - 1 > iq*bq - window
-        iq_lo = max(0, -(-(k0 - block_q + 1) // block_q)) if causal else 0
-        iq_hi = (-(-(k0 + block_k - 1 + window) // block_q) if window
-                 else -(-sq // block_q))
-        r0, r1 = iq_lo * block_q, min(iq_hi * block_q, sq)
+        r0, r1 = _admitted_rows(sq, ik, block_q, block_k, causal, window)
         if r0 >= r1:
             continue
         kf = k[:, :, None, k0:k1].float()               # (b, kvh, 1, bk, d)
@@ -220,7 +229,64 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m[..., r0:r1, :] = m_new
         acc[..., r0:r1, :] = acc_prev * alpha + p @ vf
     safe = torch.where(l == 0.0, 1.0, l)
-    return (acc / safe).reshape(b, h, sq, d).to(q.dtype)
+    out = (acc / safe).reshape(b, h, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0.0, torch.inf, m + torch.log(safe))
+    return out, lse.reshape(b, h, sq)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            sm_scale: Optional[float] = None,
+                            block_q: int = 128, block_k: int = 128
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_ref` at ``do``, by the
+    recomputation the backward kernel runs (``csrc/flash_attention_bwd.cu``)
+    and in the same blocks as the forward: ``delta = rowsum(do * o)``, then
+    per KV block and the query rows that run it ``p = exp(scale·q k^T -
+    lse)`` (0 where masked, and for a row with no key, whose lse is
+    ``+inf``), ``dv += p^T do``, ``ds = p (do v^T - delta)``, ``dk += scale
+    · ds^T q``, ``dq += scale · ds k``.  dk and dv sum over the H / KVH query
+    heads that read a KV head.  Float32 throughout; the gradients in the
+    inputs' dtype.  ``o`` and ``lse`` are the forward's (``return_lse``)."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    block_q, block_k = min(block_q, sq), min(block_k, sk)
+    n_k = -(-sk // block_k)
+    qf = q.float().reshape(b, kvh, g, sq, d)
+    dof = do.float().reshape(b, kvh, g, sq, d)
+    lse_f = lse.float().reshape(b, kvh, g, sq, 1)
+    delta = (dof * o.float().reshape(b, kvh, g, sq, d)).sum(-1, keepdim=True)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((b, kvh, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    q_pos = torch.arange(sq, device=q.device)
+    for ik in range(n_k):
+        k0, k1 = ik * block_k, min((ik + 1) * block_k, sk)
+        r0, r1 = _admitted_rows(sq, ik, block_q, block_k, causal, window)
+        if r0 >= r1:
+            continue
+        kf = k[:, :, None, k0:k1].float()               # (b, kvh, 1, bk, d)
+        vf = v[:, :, None, k0:k1].float()
+        s = qf[..., r0:r1, :] @ kf.transpose(-1, -2) * scale
+        mask = _attention_mask(q_pos[r0:r1],
+                               torch.arange(k0, k1, device=q.device),
+                               causal, window)
+        p = torch.where(mask, torch.exp(s - lse_f[..., r0:r1, :]), 0.0)
+        do_r = dof[..., r0:r1, :]
+        dv[:, :, k0:k1] += (p.transpose(-1, -2) @ do_r).sum(2)
+        ds = p * (do_r @ vf.transpose(-1, -2) - delta[..., r0:r1, :])
+        dk[:, :, k0:k1] += (ds.transpose(-1, -2) @ qf[..., r0:r1, :]
+                            ).sum(2) * scale
+        dq[..., r0:r1, :] += ds @ kf * scale
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # --- kernel-support probe ----------------------------------------------------

@@ -11,7 +11,11 @@ and the model's layout is (B, S, H, hd), so q, k, v and the output each
 take one transposed copy (:func:`prefill_attention`).  The kernel admits
 positions from 0 for q and k alike and has no logit softcap: decode, which
 attends one query at an offset, stays on the plain torch functions below,
-as it is jnp in the reference, and a softcap is refused.
+as it is jnp in the reference, and a softcap is refused.  In train mode,
+with grad enabled, the wrapper goes through its autograd Function, whose
+backward is the hand-written backward kernel
+(``csrc/flash_attention_bwd.cu``); prefill runs under ``no_grad`` in the
+engine and launches the forward alone.
 
 The plain functions (:func:`causal_attention`, :func:`window_attention`,
 :func:`causal_window_fallback`, and the decode pair over :func:`_gqa_attend`)

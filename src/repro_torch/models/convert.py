@@ -8,6 +8,11 @@ array), into the port's, on a given device, bit for bit.
 A JAX bfloat16 array becomes an ``ml_dtypes`` bfloat16 numpy array, which
 ``torch.from_numpy`` does not take: its bits go across as ``uint16`` and
 are viewed as ``torch.bfloat16`` on the other side.
+
+:func:`train_state_from_numpy` carries a whole reference train state
+across the same way: ``params``, the optimizer's ``OptState(m, v, step)``
+as the port's :class:`repro_torch.optim.adamw.OptState`, and the int8-EF
+error state ``err`` where there is one.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.compat import resolve_device
+from repro_torch.optim.adamw import OptState
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -40,3 +46,19 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         return tensor_from_numpy(node, dev)
 
     return conv(tree)
+
+
+def train_state_from_numpy(state: Dict[str, Any], device="cuda"
+                           ) -> Dict[str, Any]:
+    """The reference's ``TrainState`` (``{"params", "opt", ["err"]}``), its
+    leaves as numpy arrays and ``opt`` its ``OptState`` named tuple, as the
+    port's, on ``device``, bit for bit."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    out = {"params": params_from_numpy(state["params"], dev),
+           "opt": OptState(m=params_from_numpy(opt.m, dev),
+                           v=params_from_numpy(opt.v, dev),
+                           step=tensor_from_numpy(opt.step, dev))}
+    if "err" in state:
+        out["err"] = params_from_numpy(state["err"], dev)
+    return out

@@ -33,6 +33,7 @@ import math
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
@@ -245,12 +246,21 @@ def forward(
     write_pos: Optional[int] = None,      # absolute position (decode)
     frontend: Optional[Dict[str, torch.Tensor]] = None,
     constrain: Optional[Callable[[torch.Tensor, str], torch.Tensor]] = None,
+    remat: str = "none",                  # none | layer
     q_chunk: int = 256,
     max_len: int = 0,                     # cache capacity (prefill)
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, Any]]:
-    """tokens: (B, S) int -> (hidden (B,S,D), caches', aux)."""
+    """tokens: (B, S) int -> (hidden (B,S,D), caches', aux).
+
+    ``remat="layer"`` in train mode runs each period of the stacked layers
+    through ``torch.utils.checkpoint`` (non-reentrant), as the reference
+    wraps its scan body in ``jax.checkpoint``: the period's activations are
+    recomputed in the backward pass instead of kept.  The tail layers are
+    not wrapped, as in the reference."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
+    if remat not in ("none", "layer"):
+        raise ValueError(f"remat must be none or layer: {remat!r}")
     plan = make_plan(cfg)
     cst = constrain or (lambda v, _n: v)
     x = cst(embed_tokens(params, tokens, cfg, frontend), "hidden")
@@ -263,15 +273,33 @@ def forward(
 
     aux = _zero_aux(cfg, x.device)
 
-    emitted: Dict[str, List[Params]] = {}
-    for r in range(plan.n_full):
+    def one_period(x, r: int):
+        """Layers p0..p<period-1> of period r -> (x, aux, new caches)."""
+        a = _zero_aux(cfg, x.device)
+        ncs = []
         for p in range(plan.period):
             key = f"p{p}"
             c = _index(old[key], r) if old is not None else None
             x, nc, la = blocks.layer_apply(
                 _index(params["scan"][key], r), x, layer_idx=p, cache=c,
                 delta_cache=delta, **layer_kw)
-            aux = _acc_aux(aux, la)
+            a = _acc_aux(a, la)
+            ncs.append((key, nc))
+        return x, a, ncs
+
+    emitted: Dict[str, List[Params]] = {}
+    aux_keys = list(aux)
+    for r in range(plan.n_full):
+        if remat == "layer" and mode == "train":
+            def body(x_, r=r):
+                y, a, _ = one_period(x_, r)
+                return (y, *(a[k] for k in aux_keys))
+            x, *vals = checkpoint(body, x, use_reentrant=False)
+            aux = _acc_aux(aux, dict(zip(aux_keys, vals)))
+            continue
+        x, la, ncs = one_period(x, r)
+        aux = _acc_aux(aux, la)
+        for key, nc in ncs:
             if nc is not None:
                 emitted.setdefault(key, []).append(nc)
 

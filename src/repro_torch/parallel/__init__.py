@@ -1,1 +1,1 @@
-"""Sharding rules (the one-device subset the serving engine reads)."""
+"""Sharding rules and gradient compression (the one-device subsets)."""

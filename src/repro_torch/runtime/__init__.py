@@ -1,2 +1,2 @@
-"""Runtime fault tolerance: the straggler monitor the serving watchdog
-builds on."""
+"""Runtime fault tolerance: the straggler monitor and the resilient
+train loop."""

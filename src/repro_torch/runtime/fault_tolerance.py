@@ -1,26 +1,39 @@
-"""Straggler monitoring and step-pinned drills.
+"""Fault tolerance: the resilient train loop and the straggler monitor.
 
-The port of ``repro/runtime/fault_tolerance.py``'s
-:class:`StragglerEvent`, :class:`StragglerMonitor` and :func:`drill_at`,
-which the serving watchdog (:mod:`repro_torch.serve.monitor`) builds on.
-``ResilientLoop`` and ``elastic_remesh`` come with the training slice.
+The port of ``repro/runtime/fault_tolerance.py`` for one device:
 
+* :class:`ResilientLoop` — wraps the train step; on an injected fault it
+  restores the newest checkpoint, rebuilds the (restart-safe) data stream
+  at the restored step, and continues.  Fault drills go through the
+  SHARED seam (:class:`repro_torch.core.exec.resilience.FaultSpec` — one
+  spelling, one env var, one deterministic hash schedule): pass
+  ``faults="runtime=0.1,seed=3"`` / a :class:`FaultSpec`, or ``None`` to
+  read ``REPRO_FAULT_SPEC`` as the sweep dispatcher does; ``fault_hook``
+  takes a step-pinned drill (:func:`drill_at`).
 * :class:`StragglerMonitor` — per-step wall-time EWMA + rolling median;
-  a step slower than ``threshold x`` the running median is flagged.
+  a step slower than ``threshold x`` the running median is flagged.  The
+  serving watchdog (:mod:`repro_torch.serve.monitor`) builds on it.
 * :func:`drill_at` — a one-shot fault at a given step, in the shared
   fault spelling (:class:`repro_torch.core.exec.resilience.InjectedFault`).
+
+``elastic_remesh`` moves a state onto another mesh and waits for the
+multi-device slice.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, List, Optional
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.core.exec.resilience import InjectedFault
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core.exec.resilience import (FaultInjector, FaultSpec,
+                                              InjectedFault, resolve_faults)
 
-__all__ = ["InjectedFault", "StragglerEvent", "StragglerMonitor",
-           "drill_at"]
+__all__ = ["InjectedFault", "FaultSpec", "LoopResult", "ResilientLoop",
+           "StragglerEvent", "StragglerMonitor", "drill_at"]
 
 
 @dataclass
@@ -88,3 +101,124 @@ def drill_at(at_step: int) -> Callable[[int], None]:
             raise InjectedFault("runtime_error", f"train-drill-{step}")
 
     return hook
+
+
+@dataclass
+class LoopResult:
+    final_step: int
+    metrics_history: List[Dict[str, float]] = field(default_factory=list)
+    restarts: int = 0
+    faults_injected: int = 0
+    straggler_events: List[StragglerEvent] = field(default_factory=list)
+    # the state the loop ended with: a restore replaces the caller's
+    # tensors, so an in-place step's caller reads its final state here
+    state: Any = None
+
+
+def _scalars(metrics) -> Dict[str, float]:
+    """The 0-d metrics as floats: the tensors among them reach the host in
+    one copy (one sync a step), the rest as they are."""
+    keys = [k for k, v in metrics.items() if np.ndim(v) == 0]
+    tens = [k for k in keys if isinstance(metrics[k], torch.Tensor)]
+    out = {k: float(metrics[k]) for k in keys if k not in tens}
+    if tens:
+        vals = torch.stack([metrics[k].detach().to(torch.float64)
+                            for k in tens]).tolist()
+        out.update(zip(tens, vals))
+    return {k: out[k] for k in keys}
+
+
+class ResilientLoop:
+    """Checkpoint/restart train loop with straggler tracking.
+
+    ``step_fn(state, batch) -> (state, metrics)``; ``batch_fn(step) ->
+    batch`` must be restart-safe (a pure function of the step index — see
+    :class:`repro_torch.data.pipeline.SyntheticSource`).  The step may
+    update the state in place (the port's train step does): a fault is
+    injected before a step starts, so the state it interrupts is whole.
+
+    ``faults`` resolves exactly like the sweep coordinator's
+    (:func:`repro_torch.core.exec.resilience.resolve_faults`): ``None``
+    reads ``REPRO_FAULT_SPEC``, ``False``/``"off"`` pins injection off, a
+    spec string parses, a :class:`FaultSpec` passes through.  Each step
+    is one injection site (``train-step-<n>``), so a restart that replays
+    the step sees a fresh deterministic draw.  A restore puts every leaf
+    back on the device and in the dtype of the state it replaces.  With
+    ``ckpt=None`` nothing is written (a state too large for the disk's
+    time): a fault then goes on from the state as it is, at the first
+    step, as the reference does before its first checkpoint.
+    """
+
+    def __init__(self, step_fn: Callable, batch_fn: Callable,
+                 ckpt: Optional[CheckpointManager], *, checkpoint_every: int = 100,
+                 max_restarts: int = 3,
+                 faults=False,
+                 fault_hook: Optional[Callable[[int], None]] = None,
+                 monitor: Optional[StragglerMonitor] = None,
+                 async_checkpoint: bool = True):
+        self.step_fn = step_fn
+        self.batch_fn = batch_fn
+        self.ckpt = ckpt
+        self.checkpoint_every = checkpoint_every
+        self.max_restarts = max_restarts
+        self.fault_spec = resolve_faults(faults)
+        self._injector: Optional[FaultInjector] = (
+            self.fault_spec.injector() if self.fault_spec else None)
+        self.fault_hook = fault_hook
+        self.monitor = monitor or StragglerMonitor()
+        self.async_checkpoint = async_checkpoint
+
+    def _maybe_inject(self, step: int) -> None:
+        if self._injector is not None:
+            kind = self._injector.check(f"train-step-{step}", "dispatch")
+            if kind is not None:
+                raise self._injector.error(kind, f"train-step-{step}")
+        if self.fault_hook is not None:
+            self.fault_hook(step)
+
+    def run(self, state, n_steps: int, start_step: int = 0) -> LoopResult:
+        result = LoopResult(final_step=start_step)
+        step = start_step
+        restarts = 0
+        while step < n_steps:
+            try:
+                self._maybe_inject(step)
+                batch = self.batch_fn(step)
+                t0 = time.perf_counter()
+                state, metrics = self.step_fn(state, batch)
+                scalars = _scalars(metrics)       # waits for the step
+                wall = time.perf_counter() - t0
+                ev = self.monitor.record(step, wall)
+                if ev is not None:
+                    result.straggler_events.append(ev)
+                result.metrics_history.append(scalars)
+                step += 1
+                if self.ckpt is not None and (
+                        step % self.checkpoint_every == 0
+                        or step == n_steps):
+                    if self.async_checkpoint:
+                        self.ckpt.save_async(state, step)
+                    else:
+                        self.ckpt.save(state, step)
+            except InjectedFault:
+                result.faults_injected += 1
+                restarts += 1
+                if restarts > self.max_restarts:
+                    raise
+                restore_step = None
+                if self.ckpt is not None:
+                    self.ckpt.wait()
+                    restore_step = self.ckpt.latest_step()
+                if restore_step is None:
+                    # no checkpoint yet: go on from the state as it is, at
+                    # the first step, as the reference does
+                    step = start_step
+                    continue
+                state = self.ckpt.restore(state, restore_step)
+                step = restore_step
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        result.final_step = step
+        result.restarts = restarts
+        result.state = state
+        return result

@@ -1,1 +1,1 @@
-"""Training: only the sharding hook the serving engine needs so far."""
+"""Training: the microbatched step, chunked cross-entropy, AdamW."""

@@ -271,7 +271,14 @@ def test_the_dtype_picks_the_kernel_by_a_fixed_table():
     assert entry["wgmma_bf16"][2] == (torch.bfloat16,)
     assert set(flash_attention.INSTANCE.values()) == set(entry)
     assert {e[0] for e in entry.values()} <= set(_build.SOURCES)
-    assert set(counts.INSTANCES) == {f"flash_attention:{i}" for i in entry}
+    assert {k for k in counts.INSTANCES if k.startswith(
+        "flash_attention:")} == {f"flash_attention:{i}" for i in entry}
+    # the backward: one source for both dtypes, an instance a dtype
+    assert flash_attention.BWD_SOURCE in _build.SOURCES
+    assert {k for k in counts.INSTANCES if k.startswith(
+        "flash_attention_bwd:")} == {
+        f"flash_attention_bwd:{i}"
+        for i in flash_attention.BWD_INSTANCE.values()}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -304,7 +311,8 @@ def test_run_instance_refuses_before_the_device():
 
 
 # ---------------------------------------------------------------------------
-# Gradients: the plain path differentiates; the card's kernels refuse to
+# Gradients: the wrapper's autograd Function, whose backward on the CPU is
+# the backward kernel's plain version
 # ---------------------------------------------------------------------------
 
 # float32 gradients of the online softmax against the dense oracle's, held
@@ -341,3 +349,221 @@ def test_plain_path_gradients_match_the_dense_oracle(b, h, kvh, s, d, causal,
                                    rtol=0)
         np.testing.assert_allclose(got.numpy(), jax_want.numpy(),
                                    atol=GRAD_ATOL, rtol=0)
+
+
+# the flash gradients against the reference, held to 1e-5 of the largest
+# |grad| (float32; the blockwise sums and the dense ones are grouped
+# differently, about 1e-7 of it on these inputs)
+GRAD_REL = 1e-5
+
+
+def _jax_oracle(causal, window, sq, sk):
+    """The reference's dense oracle with the flash contract for a row that
+    admits no key (0, where the dense softmax over equal scores gives the
+    mean of v), so that both are the same function."""
+    qp = np.arange(sq)[:, None]
+    kp = np.arange(sk)[None, :]
+    ok = np.ones((sq, sk), bool)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    has_key = jnp.asarray(ok.any(1)[None, None, :, None])
+
+    def f(q, k, v):
+        out = jref.attention_ref(q, k, v, causal=causal, window=window)
+        return jnp.where(has_key, out, 0.0)
+
+    return f
+
+
+def _flash_grads(arrays, g, **kw):
+    """(output, [dq, dk, dv]) of ``ops.flash_attention`` on the CPU, with
+    the counts of the path it took."""
+    qkv = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    counts.reset()
+    out = ops.flash_attention(*qkv, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    (out * torch.from_numpy(g)).sum().backward()
+    assert counts.PLAIN["flash_attention"] == 1
+    assert counts.PLAIN["flash_attention_bwd"] == 1
+    assert not any(counts.LAUNCHES.values())
+    return out, [t.grad for t in qkv]
+
+
+GRAD_CASES = (
+    [(b, h, kvh, s, s, d, causal, window, 128, 128)
+     for b, h, kvh, s, d, causal, window in CASES]
+    + [(1, 2, 2, 192, 192, 64, True, 0, 128, 128),       # ragged
+       (1, 2, 2, 320, 320, 64, True, 64, 128, 128),      # ragged + window
+       (1, 4, 2, 200, 328, 64, True, 0, 128, 128),       # Sq < Sk
+       (1, 4, 2, 328, 200, 64, False, 0, 128, 128),      # Sq > Sk
+       (1, 2, 1, 64, 16, 32, False, 8, 128, 128),        # rows with no key
+       (1, 4, 2, 120, 40, 32, True, 16, 32, 16),         # both, tiled
+       (1, 4, 1, 256, 256, 256, True, 0, 128, 128),      # head dim 256
+       (1, 4, 1, 320, 320, 256, True, 64, 128, 128)]
+    + [(1, 2, 2, 512, 512, 64, True, 0, bq, bk) for bq, bk in TILINGS])
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,window,bq,bk", GRAD_CASES)
+def test_flash_gradients_match_the_reference(b, h, kvh, sq, sk, d, causal,
+                                             window, bq, bk):
+    """dq, dk, dv through the wrapper's Function (the plain forward and
+    ``ref.flash_attention_bwd_ref``) against ``jax.vjp`` of the reference's
+    dense oracle, on the same numpy inputs."""
+    arrays = _qkv(b, h, kvh, sq, sk, d, seed=11, scale=0.5 if d < 256
+                  else 3.0 ** 0.5)
+    g = np.random.default_rng(12).standard_normal(
+        (b, h, sq, d)).astype(np.float32)
+    out, got = _flash_grads(arrays, g, causal=causal, window=window,
+                            block_q=bq, block_k=bk)
+    jout, vjp = jax.vjp(_jax_oracle(causal, window, sq, sk),
+                        *map(jnp.asarray, arrays))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               atol=F32_ATOL, rtol=0)
+    for name, t, w in zip("qkv", got, vjp(jnp.asarray(g))):
+        w = np.asarray(w)
+        assert np.isfinite(t.numpy()).all(), name
+        err = float(np.abs(t.numpy() - w).max())
+        assert err <= GRAD_REL * float(np.abs(w).max()), (name, err)
+
+
+def test_rows_with_no_key_get_exactly_zero_gradient():
+    """A window with Sq != Sk leaves rows with no admitted key: their
+    output is 0 and so is their dq, with no NaN anywhere."""
+    arrays = _qkv(1, 2, 1, 64, 16, 32, seed=3)
+    g = np.ones((1, 2, 64, 32), np.float32)
+    out, (dq, dk, dv) = _flash_grads(arrays, g, causal=False, window=8)
+    assert (out.detach()[:, :, 16 - 1 + 8:] == 0).all()
+    assert (dq[:, :, 16 - 1 + 8:] == 0).all()
+    for t in (dq, dk, dv):
+        assert torch.isfinite(t).all()
+    _, lse = ref.flash_attention_ref(*map(torch.from_numpy, arrays),
+                                     causal=False, window=8,
+                                     return_lse=True)
+    assert torch.isinf(lse[:, :, 16 - 1 + 8:]).all()
+    assert torch.isfinite(lse[:, :, :16 - 1 + 8]).all()
+
+
+@pytest.mark.parametrize("arch,layer", [("qwen2-1.5b", 0),
+                                        ("gemma3-1b", 0),     # local
+                                        ("gemma3-1b", 5)])    # global
+def test_train_attention_layer_gradients_match_the_reference(arch, layer):
+    """``attention_layer(mode="train")``: the gradients of x and of every
+    parameter through the port's flash Function against ``jax.grad`` of
+    the reference's jnp train attention, from converted weights."""
+    from repro.configs.base import get_config as jget_config
+    from repro.models import attention as jattn
+    from repro.models import lm as jlm
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, convert
+    jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    jp = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    key, r = ("p0", layer) if "p0" in jp["scan"] and len(jp["scan"]) == 1 \
+        else (f"p{layer % len(jp['scan'])}", layer // len(jp["scan"]))
+    jl = jax.tree.map(lambda a: np.asarray(a[r]), jp["scan"][key]["attn"])
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((2, 24, cfg.d_model)) * 0.5).astype(np.float32)
+    g = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
+
+    def jloss(p, xx):
+        y, _ = jattn.attention_layer(p, xx, cfg=jcfg, layer_idx=layer,
+                                     mode="train", q_chunk=8)
+        return jnp.sum(y * g)
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(
+        jax.tree.map(jnp.asarray, jl), jnp.asarray(x))
+    tl = {k: t.requires_grad_() for k, t in
+          convert.params_from_numpy(jl, "cpu").items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    counts.reset()
+    y, _ = attention.attention_layer(tl, tx, cfg=cfg, layer_idx=layer,
+                                     mode="train", q_chunk=8)
+    (y * torch.from_numpy(g)).sum().backward()
+    assert counts.PLAIN["flash_attention_bwd"] == 1
+    pairs = [("x", tx.grad, jgx)] + [(k, tl[k].grad, jgp[k]) for k in jl]
+    for name, got, want in pairs:
+        want = np.asarray(want)
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= GRAD_REL * float(np.abs(want).max()), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,sq,sk,kvh", [
+    (True, 0, 96, 96, 2), (True, 24, 96, 96, 1), (False, 0, 70, 50, 2),
+    (False, 8, 60, 16, 1)])
+def test_backward_alone_matches_autograd_of_the_dense_oracle(
+        dtype, causal, window, sq, sk, kvh):
+    """``flash_attention_bwd_ref`` given the forward's output and
+    log-sum-exp, against autograd through the port's dense oracle on the
+    same values in float32 (rows with no key masked to 0 as the flash
+    contract says): float32 within 1e-5 of max |grad|.  bf16 inputs: the
+    backward computes in float32 and rounds once, so dv is within one bf16
+    rounding of the float32 gradient (2^-7 |want| + 2^-12 max |want|);
+    the output it is given is bf16, rounded once, and delta = rowsum(do o)
+    carries that rounding into ds where dP and delta nearly cancel, so dq
+    and dk (and dv) are held by a normalised error of one rounding,
+    ||got - want|| / ||want|| <= 2^-8."""
+    b, h, d = 2, 4, 32
+    arrays = _qkv(b, h, kvh, sq, sk, d, seed=5)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
+    do = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (b, h, sq, d)).astype(np.float32)).to(dtype)
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     block_q=32, block_k=16, return_lse=True)
+    got = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                      window=window, block_q=32, block_k=16)
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    has_key = torch.isfinite(lse)[..., None]
+    dense = torch.where(has_key, ref.attention_ref(
+        qf, kf, vf, causal=causal, window=window), 0.0)
+    want = torch.autograd.grad(dense, (qf, kf, vf), do.float())
+    for name, t, w in zip("qkv", got, want):
+        assert t.dtype == dtype
+        top = float(w.abs().max())
+        d_ = (t.float() - w).abs()
+        if dtype == torch.float32:
+            assert float(d_.max()) <= GRAD_REL * top, name
+            continue
+        assert float(d_.norm() / w.norm()) <= 2.0 ** -8, name
+        if name == "v":
+            assert float((d_ / (2.0 ** -7 * w.abs()
+                                + 2.0 ** -12 * top)).max()) <= 1.0
+
+
+def test_the_function_runs_only_where_a_gradient_is_wanted():
+    """Without grad (or with inputs that need none) the wrapper takes the
+    plain forward alone: no Function, no log-sum-exp, no backward."""
+    arrays = _qkv(1, 2, 1, 64, 64, 32, seed=9)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    counts.reset()
+    out = ops.flash_attention(q, k, v)
+    assert out.grad_fn is None
+    with torch.no_grad():
+        out = ops.flash_attention(q.requires_grad_(), k, v)
+    assert out.grad_fn is None
+    assert counts.PLAIN["flash_attention"] == 2
+    assert counts.PLAIN["flash_attention_bwd"] == 0
+
+
+@pytest.mark.parametrize("what,error", [
+    ("o_shape", "o must have q's shape"),
+    ("do_dtype", "do must have q's shape, dtype"),
+    ("lse_shape", "lse must be float32"),
+    ("lse_dtype", "lse must be float32")])
+def test_the_backward_refuses_bad_arguments_before_the_device(what, error):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 64, 64, 32))
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True)
+    do = torch.ones_like(o)
+    if what == "o_shape":
+        o = o[:, :, :32]
+    elif what == "do_dtype":
+        do = do.double()
+    elif what == "lse_shape":
+        lse = lse[..., None]
+    else:
+        lse = lse.double()
+    counts.reset()
+    with pytest.raises(ValueError, match=error):
+        flash_attention.flash_attention_bwd(q, k, v, o, lse, do)
+    assert not any(counts.PLAIN.values())

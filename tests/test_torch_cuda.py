@@ -586,28 +586,104 @@ def test_flash_attention_refuses_on_the_card(card):
     assert not any(counts.LAUNCHES.values()) and not any(counts.PLAIN.values())
 
 
-@pytest.mark.parametrize("which", ["q", "k", "v"])
+# the backward kernel's cases: causal, windowed, GQA, Sq != Sk, rows with
+# no key, and head dims 16 to 256
+BWD_CASES = [
+    (1, 4, 2, 256, 256, 64, True, 0), (1, 4, 1, 320, 320, 256, True, 64),
+    (2, 6, 2, 200, 200, 128, True, 0), (1, 4, 2, 200, 328, 32, True, 0),
+    (1, 4, 2, 328, 200, 16, False, 96), (1, 2, 1, 200, 16, 64, False, 8),
+]
+
+
+def _bwd_inputs(card, case, dtype, seed=0):
+    """q, k, v, do and the forward kernel's output and log-sum-exp."""
+    b, h, kvh, sq, sk, d, causal, window = case
+    q, k, v = _qkv(card, b, h, kvh, sq, sk, d, dtype, seed=seed)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (b, h, sq, d)).astype(np.float32)).to(card, dtype)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=card)
+    o = flash_attention._launch_forward(
+        flash_attention.INSTANCE[dtype], q, k, v, causal=causal,
+        window=window, sm_scale=None, lse=lse)
+    return q, k, v, do, o, lse, dict(causal=causal, window=window)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_refuses_a_gradient_it_cannot_give(card, which,
-                                                           dtype):
-    """The kernels have no backward: a card call whose q, k or v requires
-    grad raises, where it would return an output without ``grad_fn``; the
-    same call under ``torch.no_grad()`` launches the kernel."""
-    q, k, v = _qkv(card, 1, 2, 1, 128, 128, 64, dtype)
-    t = {"q": q, "k": k, "v": v}[which]
-    t.requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_attention.flash_attention(q, k, v)
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_attention.run_instance("fma_f32", q, k, v)
-    assert not any(counts.LAUNCHES.values()) and not any(counts.PLAIN.values())
-    with torch.no_grad():
-        out = flash_attention.flash_attention(q, k, v)
-    assert out.grad_fn is None and not out.requires_grad
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_backward_kernel_matches_its_plain_version(card, case, dtype):
+    """dq, dk, dv of the backward kernel against ``flash_attention_bwd_ref``
+    on the same inputs (the forward kernel's o and log-sum-exp): float32
+    within 1e-5 of max |grad|; bf16 against the float32 plain backward of
+    the same values within one bf16 rounding (2^-7 |want| + 2^-12
+    max |want|).  A row with no key gets dq exactly 0; the log-sum-exp
+    equals the plain forward's, +inf on exactly those rows."""
+    q, k, v, do, o, lse, kw = _bwd_inputs(card, case, dtype)
+    _, lse_plain = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_plain))
+    fin = torch.isfinite(lse)
+    assert float((lse - lse_plain)[fin].abs().max()) <= 1e-3
+    counts.reset()
+    got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES["flash_attention_bwd"] == 1
+    assert counts.INSTANCES["flash_attention_bwd:"
+                            + flash_attention.BWD_INSTANCE[dtype]] == 1
+    if dtype == torch.float32:
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    else:
+        want = ref.flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, o)), lse, do.float(), **kw)
+    for t, w in zip(got, want):
+        assert t.dtype == dtype and torch.isfinite(t).all()
+        top = float(w.abs().max())
+        d_ = (t.float() - w.float()).abs()
+        if dtype == torch.float32:
+            assert float(d_.max()) <= 1e-5 * top
+        else:
+            assert float((d_ / (2.0 ** -7 * w.abs()
+                                + 2.0 ** -12 * top)).max()) <= 1.0
+    assert (got[0].float().abs().amax(-1)[torch.isinf(lse)] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(card, dtype):
+    """No atomics: two backward launches give the same bits."""
+    q, k, v, do, o, lse, kw = _bwd_inputs(card, BWD_CASES[2], dtype)
+    a = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    b = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gradients_through_the_function_on_the_card(card, dtype):
+    """``flash_attention`` with inputs that require grad goes through
+    ``FlashAttentionFn``: one forward launch with its log-sum-exp, one
+    backward launch, no plain version, and the gradients of the card's
+    kernels equal the plain Function's on the CPU within the kernels'
+    limits."""
+    case = (1, 4, 2, 200, 200, 64, True, 48)
+    q, k, v, do, _, _, kw = _bwd_inputs(card, case, dtype, seed=3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts.reset()
+    out = flash_attention.flash_attention(*leaves, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    out.backward(do)
+    torch.cuda.synchronize()
     assert counts.LAUNCHES["flash_attention"] == 1
-    want = ref.flash_attention_ref(q.detach(), k.detach(), v.detach())
-    assert float((out.float() - want.float()).abs().max()) <= (
-        2e-5 if dtype == torch.float32 else 2e-2)
+    assert counts.LAUNCHES["flash_attention_bwd"] == 1
+    assert not any(counts.PLAIN.values())
+    cpu = [t.detach().cpu().float().requires_grad_() for t in (q, k, v)]
+    ref_out = flash_attention.flash_attention(*cpu, **kw)
+    ref_out.backward(do.cpu().float())
+    for t, w in zip(leaves, cpu):
+        g, w = t.grad.float().cpu(), w.grad
+        top = float(w.abs().max())
+        if dtype == torch.float32:
+            assert float((g - w).abs().max()) <= 1e-5 * top
+        else:
+            # the bf16 output o carries one rounding into delta: a
+            # normalised error of one rounding
+            assert float((g - w).norm() / w.norm()) <= 2.0 ** -8
 
 
 # --- the serving path: the model's prefill on the flash kernel, and a KV

@@ -69,6 +69,20 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert proc.stdout.startswith("clean")
 
 
+def test_the_training_modules_import_without_jax():
+    """The training slice's modules are among those the test above
+    imports in a process that must end without JAX or the JAX package."""
+    assert {"repro_torch.tree", "repro_torch.optim.adamw",
+            "repro_torch.parallel.compression", "repro_torch.train.step",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.launch.train"} <= set(_modules())
+    example = os.path.join(ROOT, "examples", "torch", "train_tiny_lm.py")
+    text = open(example, encoding="utf-8").read()
+    assert not FORBIDDEN["imports jax"].search(text)
+    assert not FORBIDDEN["imports the JAX package"].search(text)
+
+
 FORBIDDEN = {
     "imports jax": re.compile(r"^\s*(import|from)\s+jax\b", re.M),
     "imports the JAX package": re.compile(
@@ -136,8 +150,8 @@ def test_library_attention_only_in_the_yardstick():
 def test_kernel_sources_are_in_the_package():
     names = sorted(os.listdir(os.path.join(PKG, "kernels", "csrc")))
     assert names == ["chase.cu", "compute_probe.cu", "contention.cu",
-                     "flash_attention.cu", "flash_attention_tc.cu",
-                     "roles.cuh", "stream.cu"]
+                     "flash_attention.cu", "flash_attention_bwd.cu",
+                     "flash_attention_tc.cu", "roles.cuh", "stream.cu"]
     assert sorted(f"{n}.cu" for n in _build.SOURCES) == \
         [n for n in names if n.endswith(".cu")]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
