@@ -30,9 +30,9 @@ host memory, the MoE's and the SSD's shares of the card's time), and the
 training path (``repro_torch.launch.train`` at qwen2-1.5b's full width and
 depth in bf16: microbatches -> lm.forward with per-layer remat -> the
 flash kernel -> chunked cross-entropy -> the hand-written flash backward
-kernel -> AdamW -> the resilient loop) — checks the results, and times
-every kernel beside its bound.  One JSON object per phase goes to
-standard output; the last line is
+kernel on the tensor cores -> AdamW -> the resilient loop) — checks the
+results, and times every kernel beside its bound.  One JSON object per
+phase goes to standard output; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase makes the exit code non-zero and withholds that line.
 Without a CUDA device it exits non-zero and prints no result.
@@ -46,6 +46,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2367,13 +2368,15 @@ def phase_attention() -> list:
         checks[f"no_plain_version:{k}"] = plain[k] == 0
     checks["small_cases"] = all(c_["ok"] for c_ in small)
     # the products on the tensor cores, as the built SASS shows them:
-    # HGMMA (wgmma) in the bf16 flash kernel, HMMA (mma.sync) in the probe
-    sass = {"flash_attention_tc": sass_counts("flash_attention_tc",
-                                              ("HGMMA", "HMMA")),
-            "compute_probe": sass_counts("compute_probe",
-                                         ("HGMMA", "HMMA"))}
+    # HGMMA (wgmma) in the bf16 flash kernels, forward and backward, HMMA
+    # (mma.sync) in the probe
+    sass = {lib: sass_counts(lib, ("HGMMA", "HMMA"))
+            for lib in ("flash_attention_tc", "flash_attention_bwd_tc",
+                        "compute_probe")}
     checks["sass_hgmma:flash_attention_tc"] = \
         sass["flash_attention_tc"]["HGMMA"] > 0
+    checks["sass_hgmma:flash_attention_bwd_tc"] = \
+        sass["flash_attention_bwd_tc"]["HGMMA"] > 0
     checks["sass_hmma:compute_probe"] = sass["compute_probe"]["HMMA"] > 0
     emit({"phase": "attention", "n_small_cases": len(small),
           "n_small_ok": sum(c_["ok"] for c_ in small),
@@ -2482,30 +2485,67 @@ def timed_generate(engine, prompts, **kw):
     return res, [(b - a) / 1e6 for a, b in zip(stamps, stamps[1:])]
 
 
+# the port's flash kernels, forward and backward, by their function names
+FLASH_KERNEL_RE = re.compile(
+    r"::(flash_tc_kernel|flash_kernel|bwd_rows_kernel|bwd_dkdv_tc_kernel|"
+    r"bwd_dq_tc_kernel|bwd_delta_kernel|bwd_dkdv_kernel|bwd_dq_kernel)<")
+# traces of the card taken at most where one may have lost records: a
+# trace never gains any, but one of 96 marker records went missing in one
+# of six mamba2 prefills, and 4 of 8 traces of a qwen2-1.5b training step
+# (17 116 kernels) lost 2-79 scattered records, on the H100
+TRACES = 5
+
+
 def profile_calls(fn, n: int) -> dict:
     """``fn`` run ``n`` times under ``torch.profiler`` after one warm call:
-    each call's kernels, their device time summed, and the six kernels
-    with the most of it.  The card's activity alone is traced (the host's
-    op events made the trace's processing take minutes); the profiler
-    slows the host, so the call's wall time is the caller's, taken
-    without it."""
+    each call's kernels, their device time summed, the six kernels with
+    the most of it, and the time of the port's flash kernels, forward and
+    backward, wherever they rank.  The trace is taken again until a new
+    one counts every kernel as an earlier one did, up to ``TRACES`` in all;
+    the numbers are that trace's when two agreed (``whole``), else the
+    fullest's (a call whose kernels depend on its data, as an MoE layer's
+    do, may never agree), and ``count_diff`` lists the kernels whose counts
+    differed (each name's first 120 characters: their counts in trace
+    order).  The card's activity alone is traced (the host's op events
+    made the trace's processing take minutes); the profiler slows the
+    host, so the call's wall time is the caller's, taken without it."""
     fn()
     sync()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        sync()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: dict = {}
-    for e in kernels:
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + e.time_range.elapsed_us() / 1e3 / n)
-    return {"kernels_a_call": len(kernels) / n,
-            "device_ms_a_call": sum(by_name.values()),
-            "top_device_ms": sorted(by_name.items(),
-                                    key=lambda kv: -kv[1])[:6]}
+    traces = []
+    for _ in range(TRACES):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            sync()
+        count: dict = {}
+        ms: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                count[e.name] = count.get(e.name, 0) + 1
+                ms[e.name] = (ms.get(e.name, 0.0)
+                              + e.time_range.elapsed_us() / 1e3 / n)
+        whole = any(count == c for c, _ in traces)
+        traces.append((count, ms))
+        if whole:
+            break
+    count, ms = (traces[-1] if whole else
+                 max(traces, key=lambda t: sum(t[0].values())))
+    diff: dict = {}
+    for name in set().union(*(c for c, _ in traces)):
+        seen = [c.get(name, 0) for c, _ in traces]
+        if len(set(seen)) > 1:
+            key = name[:120]
+            diff[key] = [a + b for a, b in
+                         zip(diff.get(key, [0] * len(seen)), seen)]
+    return {"kernels_a_call": sum(count.values()) / n,
+            "device_ms_a_call": sum(ms.values()),
+            "traces": len(traces), "whole": whole,
+            "kernels_by_trace": [sum(c.values()) / n for c, _ in traces],
+            "count_diff": diff,
+            "top_device_ms": sorted(ms.items(), key=lambda kv: -kv[1])[:6],
+            "flash_device_ms": {k: v for k, v in ms.items()
+                                if FLASH_KERNEL_RE.search(k)}}
 
 
 def serve_monitor():
@@ -2779,19 +2819,13 @@ def width_tuple(cfg, params) -> tuple:
             params["embed"].dtype)
 
 
-# part_shares: traces taken at most, where one lost a marker kernel's record
-# (one of 96 in one of six mamba2 prefills on the H100: the shares after it
-# were misattributed)
-PART_TRACES = 3
-
-
 def part_shares(fn, parts) -> dict:
     """Device time of ``fn`` by part, from one ``torch.profiler`` trace of
     the card: each ``(module, name, label)`` function is wrapped so that a
     marker kernel (``torch.cuda._sleep(1)``, one ``spin_kernel``) runs
     before and after every call, and each kernel between a pair is the
     part's that the host recorded for that call.  A trace that lacks a
-    marker's record is taken again, up to ``PART_TRACES`` in all; the
+    marker's record is taken again, up to ``TRACES`` in all; the
     shares are the last trace's, and ``markers_seen`` says whether it was
     whole."""
     order: list = []
@@ -2811,7 +2845,7 @@ def part_shares(fn, parts) -> dict:
     try:
         fn()
         sync()
-        for traces in range(1, PART_TRACES + 1):
+        for traces in range(1, TRACES + 1):
             order.clear()
             with torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -3270,6 +3304,11 @@ BWD_CASES = [
 # value, the limit 2^-7), the floor for elements that cancel to near zero
 BWD_F32_REL = 1e-5
 BWD_BF16_FLOOR = 2.0 ** -12
+# the products the tensor-core backward executes a head and admitted pair,
+# against the 10 * D counted: the scores twice, p and ds as two bf16 terms
+# (csrc/flash_attention_bwd_tc.cu); at D 256 both warpgroups compute the
+# scores of a step
+BWD_TC_EXECUTED_PER_D = {16: 20, 32: 20, 64: 20, 128: 20, 256: 28}
 # the forward kernels' log-sum-exp against the plain version's: values of
 # order 1-10, the tensor-core kernel summing in exp2 and the plain version
 # in exp, float32 either way; +inf on exactly the same rows
@@ -3297,8 +3336,10 @@ def grad_errors(got, want, dtype) -> dict:
 def bwd_case(label, b, h, kvh, sq, sk, d, causal, window, dtype, seed,
              timed: bool) -> dict:
     """One backward case: the forward kernel's output and log-sum-exp,
-    then the backward kernel, its plain version and the float32 oracle on
-    the same inputs; timings where ``timed``."""
+    then the backward kernel of ``BWD_INSTANCE[dtype]`` (twice: the same
+    bits), its plain version and the float32 oracle on the same inputs; a
+    bf16 case also runs the FMA kernel built for bf16 (``fma_bf16``) and
+    holds the tensor-core kernel against it; timings where ``timed``."""
     kw = dict(causal=causal, window=window)
     q, k, v = qkv(b, h, kvh, sq, sk, d, dtype, seed=seed, scale=PEAKED_QK,
                   v_scale=V_SCALE)
@@ -3314,17 +3355,22 @@ def bwd_case(label, b, h, kvh, sq, sk, d, causal, window, dtype, seed,
     lse_err = float((lse - lse_plain)[finite].abs().max()) if bool(
         finite.any()) else 0.0
     lse_inf_same = bool(torch.equal(torch.isinf(lse), ~finite))
-    before = counts.LAUNCHES["flash_attention_bwd"]
+    instance = flash_attention.BWD_INSTANCE[dtype]
+    key = f"flash_attention_bwd:{instance}"
+    before = counts.LAUNCHES["flash_attention_bwd"], counts.INSTANCES[key]
     got = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     again = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    launched = counts.LAUNCHES["flash_attention_bwd"] - before
+    launched = counts.LAUNCHES["flash_attention_bwd"] - before[0]
+    launched_instance = counts.INSTANCES[key] - before[1]
     deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
     del again
     plain = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     rec = {"case": label, "shape_q": [b, h, sq, d], "kv": [b, kvh, sk, d],
-           "dtype": str(dtype).split(".")[1], **kw,
-           "launches": launched, "deterministic": deterministic,
+           "dtype": str(dtype).split(".")[1], **kw, "instance": instance,
+           "launches": launched, "launches_of_instance": launched_instance,
+           "deterministic": deterministic,
            "lse_max_abs_err": lse_err, "lse_inf_rows_agree": lse_inf_same}
+    fma = None
     if dtype == torch.float32:
         rec["vs_plain"] = grad_errors(got, plain, dtype)
         rec["ok"] = all(e["rel_to_max"] <= BWD_F32_REL and e["finite"]
@@ -3332,11 +3378,17 @@ def bwd_case(label, b, h, kvh, sq, sk, d, causal, window, dtype, seed,
     else:
         oracle = ref.flash_attention_bwd_ref(
             *(t.float() for t in (q, k, v, o)), lse, do.float(), **kw)
+        fma = flash_attention.run_bwd_instance("fma_bf16", q, k, v, o, lse,
+                                               do, **kw)
         rec["vs_f32_oracle"] = grad_errors(got, oracle, dtype)
+        rec["vs_fma_bf16"] = grad_errors(got, fma, dtype)
+        rec["fma_bf16_vs_f32_oracle"] = grad_errors(fma, oracle, dtype)
         rec["plain_vs_f32_oracle"] = grad_errors(plain, oracle, dtype)
         del oracle
         rec["ok"] = all(e["scaled_err"] <= 1.0 and e["finite"]
-                        for e in rec["vs_f32_oracle"].values())
+                        for part in ("vs_f32_oracle", "vs_fma_bf16",
+                                     "fma_bf16_vs_f32_oracle")
+                        for e in rec[part].values())
     # rows with no admitted key: their dq is exactly 0
     no_key = torch.isinf(lse)
     if bool(no_key.any()):
@@ -3345,65 +3397,100 @@ def bwd_case(label, b, h, kvh, sq, sk, d, causal, window, dtype, seed,
                                       [no_key] == 0).all())
         rec["ok"] = rec["ok"] and rec["no_key_dq_zero"]
     rec["ok"] = bool(rec["ok"] and deterministic and launched == 2
+                     and launched_instance == 2
                      and lse_inf_same and lse_err <= LSE_ATOL)
     if timed:
         pairs = admitted_pairs(sq, sk, causal, window)
         ops_ = 10 * d * h * b * pairs
+        ops_exec = BWD_TC_EXECUTED_PER_D[d] * d * h * b * pairs
         bytes_ = (sum(t.numel() for t in (q, k, v, o, do, q, k, v))
                   * q.element_size() + lse.numel() * 4)
         b_ms, b_by = bound(bytes_, ops_, BF16_TC_OPS_PER_S)
+        exec_ms, _ = bound(bytes_, ops_exec, BF16_TC_OPS_PER_S)
         fp32_ms, _ = bound(bytes_, ops_)
         ms = time_ms(lambda: flash_attention.flash_attention_bwd(
-            q, k, v, o, lse, do, **kw), 3)
+            q, k, v, o, lse, do, **kw), 5)
         rec.update({
-            "admitted_pairs": pairs, "operations": ops_, "bytes": bytes_,
+            "admitted_pairs": pairs, "operations": ops_,
+            "operations_executed": ops_exec, "bytes": bytes_,
             "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-            "bound_ms_fp32": fp32_ms, "tflops": ops_ / ms / 1e9,
+            "bound_ms_executed": exec_ms, "bound_ms_fp32": fp32_ms,
+            "tflops": ops_ / ms / 1e9,
+            "ms_fma_bf16": time_ms(lambda: flash_attention.run_bwd_instance(
+                "fma_bf16", q, k, v, o, lse, do, **kw), 3),
             "plain_ms": time_ms(lambda: ref.flash_attention_bwd_ref(
                 q, k, v, o, lse, do, **kw), 1),
             "library_ms": library_attention_ms(
-                q, k, v, 3, window_mask(sq, sk, window) if window else None,
+                q, k, v, 5, window_mask(sq, sk, window) if window else None,
                 do=do),
             "library_call": "backward of SDPA, enable_gqa, " + (
                 "attn_mask (S, S) bool" if window else "is_causal")})
-    del got, plain, q, k, v, o, do, lse
+        rec["tflops_fma_bf16"] = ops_ / rec["ms_fma_bf16"] / 1e9
+    del got, plain, fma, q, k, v, o, do, lse
     return rec
+
+
+def bwd_spills() -> dict:
+    """ptxas' report of the tensor-core backward's kernels (every build
+    leaves it beside the library): registers and spills a kernel and
+    head dim, and whether the D 128 kernels spill nothing."""
+    report = _build.ptxas_report("flash_attention_bwd_tc")
+    kernels = {}
+    for name, r in report.items():
+        for kern in ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel",
+                     "bwd_rows_kernel"):
+            if kern in name:
+                d = name.split(kern + "ILi")[1].split("E")[0]
+                kernels[f"{kern}<{d}>"] = r
+    d128 = [r for k_, r in kernels.items() if k_.endswith("<128>")
+            and "rows" not in k_]
+    return {"kernels": kernels,
+            "d128_no_spills": len(d128) == 2 and all(
+                r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                for r in d128)}
 
 
 def phase_train_kernel() -> dict:
     """(a) of the ``train`` phase: the backward kernel against its plain
     version and the float32 oracle on the card, at the train shape, at
-    gemma3-1b's local layer and at the small edge cases; the forward's
-    log-sum-exp against the plain version's.  Launches here are checks,
-    not the path.  Returns the kernel's row of the ``kernels`` line (its
-    launches filled in by the caller)."""
+    gemma3-1b's local layer and at the small edge cases (bf16 also against
+    the FMA kernel built for bf16); the forward's log-sum-exp against the
+    plain version's; ptxas' registers and spills.  Launches here are
+    checks, not the path.  Returns the kernel's row of the ``kernels``
+    line (its launches filled in by the caller)."""
     t0 = time.perf_counter()
     recs = [bwd_case(*c, seed=20 + i, timed=i < 2)
             for i, c in enumerate(BWD_CASES)]
     for r in recs:
         if not r["ok"]:
             fail(f"train: backward case {r['case']}")
+    spills = bwd_spills()
+    if not spills["d128_no_spills"]:
+        fail("train: the D 128 backward kernels spill registers")
     emit({"phase": "train_kernel", "cases": recs,
           "f32_rel_limit": BWD_F32_REL, "bf16_rtol": BF16_RTOL,
-          "bf16_floor_of_max": BWD_BF16_FLOOR,
+          "bf16_floor_of_max": BWD_BF16_FLOOR, "ptxas": spills,
           "seconds": time.perf_counter() - t0})
     main = recs[0]
     worst = max(max(e["max_abs_err"] for e in
                     (r.get("vs_plain") or r["vs_f32_oracle"]).values())
                 for r in recs)
     return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": CSRC + "flash_attention_bwd.cu",
+            "source": CSRC + "flash_attention_bwd_tc.cu",
+            "source_f32": CSRC + "flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:96 (its "
                         "gradient; the reference differentiates jnp at "
                         "src/repro/models/attention.py:328-360)",
             "launches": 0, "max_abs_err": worst,
             **{k_: main[k_] for k_ in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "bound_ms_fp32",
-                                       "library_ms", "tflops")},
+                                       "bound_by", "bound_ms_executed",
+                                       "bound_ms_fp32", "library_ms",
+                                       "tflops", "ms_fma_bf16")},
             "shape": "the qwen2-1.5b train call; every call under calls",
             "calls": [{k_: r[k_] for k_ in (
-                "case", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "library_call", "tflops")}
+                "case", "ms", "ms_fma_bf16", "plain_ms", "bound_ms",
+                "bound_by", "bound_ms_executed", "library_ms",
+                "library_call", "tflops", "tflops_fma_bf16")}
                 for r in recs if "ms" in r]}
 
 
@@ -3541,11 +3628,12 @@ def phase_train(smi: str, bwd_row: dict) -> int:
     depth between a reset and a read of the counts: every loss and grad
     norm finite, step 0's loss near ln V, two forward launches (the
     recompute) and one backward launch a layer and microbatch, the
-    forwards on ``wgmma_bf16``, no plain version; the step's ms, tokens a
-    second, kernels, busy share, host syncs and peak memory.  (c) One
-    microbatch's loss and gradients against the same under the plain flash
-    forward and backward.  (d) The same batch for ``OVERFIT_STEPS`` steps:
-    the loss falls.  (e) The resilient loop's drill at reduced width.
+    forwards and the backwards on ``wgmma_bf16``, no plain version; the
+    step's ms, tokens a second, kernels, busy share, host syncs and peak
+    memory.  (c) One microbatch's loss and gradients against the same
+    under the plain flash forward and backward.  (d) The same batch for
+    ``OVERFIT_STEPS`` steps: the loss falls.  (e) The resilient loop's
+    drill at reduced width.
     Fills ``bwd_row``'s launches from (b); returns the forward kernel's
     launches in (b)."""
     t_phase = time.perf_counter()
@@ -3585,7 +3673,7 @@ def phase_train(smi: str, bwd_row: dict) -> int:
     checks["b:backward_once_a_layer_and_microbatch"] = \
         launched["flash_attention_bwd"] == bwd_want
     checks["b:backward_bf16"] = \
-        by_instance["flash_attention_bwd:fma_bf16"] == bwd_want
+        by_instance["flash_attention_bwd:wgmma_bf16"] == bwd_want
     checks["b:no_plain_version"] = not any(plain.values())
     bwd_row["launches"] = launched["flash_attention_bwd"]
     bwd_row["launches_by_path"] = {"train": launched["flash_attention_bwd"]}

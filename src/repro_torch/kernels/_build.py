@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -28,7 +29,8 @@ from repro_torch import compat
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("stream", "chase", "compute_probe", "contention",
-           "flash_attention", "flash_attention_tc", "flash_attention_bwd")
+           "flash_attention", "flash_attention_tc", "flash_attention_bwd",
+           "flash_attention_bwd_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # shared memory one block can use on an H100 SM (227 KB of the SM's 256 KB)
@@ -61,10 +63,16 @@ def _library_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{tag}.so"
 
 
+def _report_path(name: str) -> Path:
+    return _library_path(name).with_suffix(".ptxas.txt")
+
+
 def compile_source(name: str, *, verbose: bool = False) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = _library_path(name)
-    if out.exists():
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+    ptxas' report (registers, spills a kernel) is kept beside the library,
+    where :func:`ptxas_report` reads it; ``verbose`` echoes it to stderr."""
+    out, report = _library_path(name), _report_path(name)
+    if out.exists() and report.exists():
         return out
     nvcc = compat.nvcc_path()
     if nvcc is None:
@@ -77,10 +85,8 @@ def compile_source(name: str, *, verbose: bool = False) -> Path:
     fd, tmp = tempfile.mkstemp(prefix=f".{name}-", suffix=".so",
                                dir=out.parent)
     os.close(fd)
-    cmd: List[str] = [nvcc, *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd: List[str] = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+                      str(CSRC / f"{name}.cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -89,11 +95,50 @@ def compile_source(name: str, *, verbose: bool = False) -> Path:
                 f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
         if verbose:
             sys.stderr.write(proc.stderr)    # ptxas' register and smem report
+        report.write_text(proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+_ENTRY_RE = re.compile(r"Compiling entry function '([^']+)'")
+_FRAME_RE = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                       r"(\d+) bytes spill loads")
+_REGS_RE = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """ptxas' ``-v`` report as {kernel (mangled): {registers, stack_bytes,
+    spill_stores, spill_loads}}, each line read under the entry function
+    being compiled before it."""
+    out: Dict[str, Dict[str, int]] = {}
+    cur: Optional[str] = None
+    for line in text.splitlines():
+        m = _ENTRY_RE.search(line)
+        if m:
+            cur = m.group(1)
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = _FRAME_RE.search(line)
+        if m:
+            out[cur].update(stack_bytes=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = _REGS_RE.search(line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spills of every kernel of ``csrc/<name>.cu``, from the
+    report its build left beside its library."""
+    compile_source(name)
+    return parse_ptxas(_report_path(name).read_text())
 
 
 def build_all(names: Iterable[str] = SOURCES, *,
@@ -118,14 +163,15 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def bind(name: str, fn: str, argtypes: Sequence) -> "ctypes._CFuncPtr":
+def bind(name: str, fn: str, argtypes: Sequence,
+         restype=ctypes.c_int) -> "ctypes._CFuncPtr":
     """A C entry point with its argument types declared (an undeclared
     pointer would be passed as a 32-bit int and cut)."""
     f = _bound.get((name, fn))
     if f is None:
         f = getattr(library(name), fn)
         f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
+        f.restype = restype
         _bound[(name, fn)] = f
     return f
 

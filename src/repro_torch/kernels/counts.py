@@ -22,6 +22,7 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN: Dict[str, int] = {k: 0 for k in KERNELS}
 INSTANCES: Dict[str, int] = {"flash_attention:wgmma_bf16": 0,
                              "flash_attention:fma_f32": 0,
+                             "flash_attention_bwd:wgmma_bf16": 0,
                              "flash_attention_bwd:fma_bf16": 0,
                              "flash_attention_bwd:fma_f32": 0}
 

@@ -28,13 +28,18 @@ tiling, as the reference's contract says.
 The gradient: where grad is enabled and q, k or v requires it,
 :func:`flash_attention` goes through :class:`FlashAttentionFn`.  Its
 forward runs the same kernel with the rows' log-sum-exp as a second
-output; its backward launches ``csrc/flash_attention_bwd.cu``
-(:func:`flash_attention_bwd`), which recomputes the scores from q, k, v,
-o and the log-sum-exp.  The reference has no backward kernel (its
-gradient of attention is XLA's autodiff of jnp); this is the gradient of
-the port's forward kernels' exact function.  On CPU tensors the same
-Function runs the plain forward and :func:`ref.flash_attention_bwd_ref`,
-the backward's algorithm in plain torch.
+output; its backward (:func:`flash_attention_bwd`) recomputes the scores
+from q, k, v, o and the log-sum-exp in the kernel of another fixed table,
+:data:`BWD_INSTANCE`: bfloat16 goes to ``csrc/flash_attention_bwd_tc.cu``
+(``wgmma_bf16``: every product on the tensor cores, p and ds as two bf16
+terms), float32 to ``csrc/flash_attention_bwd.cu`` (``fma_f32``, float32
+FMAs).  That source is built for bfloat16 too (``fma_bf16``), which only a
+check launches by name (:func:`run_bwd_instance`).  The reference has no
+backward kernel (its gradient of attention is XLA's autodiff of jnp);
+this is the gradient of the port's forward kernels' exact function.  On
+CPU tensors the same Function runs the plain forward and
+:func:`ref.flash_attention_bwd_ref`, the backward's algorithm in plain
+torch.
 """
 from __future__ import annotations
 
@@ -56,10 +61,18 @@ _ENTRY = {"wgmma_bf16": ("flash_attention_tc", "repro_flash_attention_tc",
                          (torch.bfloat16,)),
           "fma_f32": ("flash_attention", "repro_flash_attention",
                       (torch.float32, torch.bfloat16))}
-# the backward: one source of float32 FMAs, built for both dtypes; the
-# instance names the dtype that ran
-BWD_SOURCE, BWD_ENTRY = "flash_attention_bwd", "repro_flash_attention_bwd"
-BWD_INSTANCE = {torch.bfloat16: "fma_bf16", torch.float32: "fma_f32"}
+# the backward kernel each dtype runs on the card: a fixed table, not a
+# fallback; instance -> (source under csrc/, C entry point, dtypes it
+# takes).  The FMA source is built for bfloat16 too (``fma_bf16``), so that
+# a check can hold the tensor-core kernel against it on the same inputs.
+BWD_INSTANCE = {torch.bfloat16: "wgmma_bf16", torch.float32: "fma_f32"}
+_BWD_ENTRY = {"wgmma_bf16": ("flash_attention_bwd_tc",
+                             "repro_flash_attention_bwd_tc",
+                             (torch.bfloat16,)),
+              "fma_f32": ("flash_attention_bwd", "repro_flash_attention_bwd",
+                          (torch.float32,)),
+              "fma_bf16": ("flash_attention_bwd", "repro_flash_attention_bwd",
+                           (torch.bfloat16,))}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -234,19 +247,10 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        *, causal: bool = True, window: int = 0,
-                        sm_scale: Optional[float] = None, block_q: int = 128,
-                        block_k: int = 128):
-    """(dq, dk, dv) of :func:`flash_attention` at ``do``, given its output
-    ``o`` and log-sum-exp ``lse`` (float32 (B, H, Sq)).
-
-    On the card: ``csrc/flash_attention_bwd.cu``, bound by operations,
-    ``10·D`` a head and admitted pair (see its notes); a call it does not
-    take, or a failed launch, raises.  On CPU tensors:
-    :func:`ref.flash_attention_bwd_ref`, tiled by ``block_q``/``block_k``
-    (the kernel's tiles are its own)."""
+def _check_bwd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                    window: int, block_q: int, block_k: int) -> None:
+    """What any caller of the backward must pass, the card or the CPU."""
     _check_args(q, k, v, window, block_q, block_k)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -258,12 +262,52 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd: lse must be float32 "
                          f"{tuple(q.shape[:3])} on q's device, got "
                          f"{tuple(lse.shape)} {lse.dtype} {lse.device}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        sm_scale: Optional[float] = None, block_q: int = 128,
+                        block_k: int = 128):
+    """(dq, dk, dv) of :func:`flash_attention` at ``do``, given its output
+    ``o`` and log-sum-exp ``lse`` (float32 (B, H, Sq)).
+
+    On the card: ``BWD_INSTANCE[q.dtype]``, bound by operations, ``10·D``
+    a head and admitted pair (see the notes in the CUDA sources); a call
+    it does not take, or a failed launch, raises.  On CPU tensors:
+    :func:`ref.flash_attention_bwd_ref`, tiled by ``block_q``/``block_k``
+    (the kernels' tiles are their own)."""
+    _check_bwd_args(q, k, v, o, lse, do, window, block_q, block_k)
     if not _build.launches_kernel(q):
         counts.PLAIN["flash_attention_bwd"] += 1
         return ref.flash_attention_bwd_ref(
             q, k, v, o, lse, do, causal=causal, window=window,
             sm_scale=sm_scale, block_q=block_q, block_k=block_k)
-    refusal = kernel_refusal(q, k, v)
+    if q.dtype not in BWD_INSTANCE:
+        raise ValueError("flash_attention_bwd: the kernel does not take "
+                         + kernel_refusal(q, k, v))
+    return run_bwd_instance(BWD_INSTANCE[q.dtype], q, k, v, o, lse, do,
+                            causal=causal, window=window, sm_scale=sm_scale)
+
+
+def run_bwd_instance(instance: str, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+                     do: torch.Tensor, *, causal: bool = True,
+                     window: int = 0, sm_scale: Optional[float] = None):
+    """Launches the named backward kernel on card tensors and returns
+    (dq, dk, dv).  :func:`flash_attention_bwd` calls it with
+    ``BWD_INSTANCE[q.dtype]``; a check calls it by name to hold one kernel
+    against the other on the same inputs.  Raises ``ValueError`` on an
+    unknown instance, a dtype the instance does not take and what the
+    kernels do not take (CPU tensors among them), and on a failed
+    launch."""
+    if instance not in _BWD_ENTRY:
+        raise ValueError(f"flash_attention_bwd: no instance {instance!r}; "
+                         f"there are {sorted(_BWD_ENTRY)}")
+    source, entry, dtypes = _BWD_ENTRY[instance]
+    _check_bwd_args(q, k, v, o, lse, do, window, 1, 1)
+    refusal = (f"dtype {q.dtype} in the {instance} kernel"
+               if q.dtype not in dtypes else kernel_refusal(q, k, v))
     for name, t in (("o", o), ("do", do), ("lse", lse)):
         if refusal is None and (not _build.launches_kernel(t)
                                 or not t.is_contiguous()
@@ -278,15 +322,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window = min(window, sq)
     dev = _build.compute_device(q)
     dq, dk, dv = (_build.empty_like_placed(t) for t in (q, k, v))
-    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
-    fn = _build.bind(BWD_SOURCE, BWD_ENTRY,
-                     (_VP,) * 10 + (_I,) * 9 + (_F, _VP))
+    # the rows' scratch: delta (B, H, Sq) for the FMA kernel; padded rows
+    # of lse and delta for the tensor-core kernel, as its library says
+    if instance == "wgmma_bf16":
+        n_scratch = _build.bind(source, entry + "_scratch", (_I, _I, _I),
+                                ctypes.c_longlong)(b, h, sq)
+    else:
+        n_scratch = b * h * sq
+    delta = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    fn = _build.bind(source, entry, (_VP,) * 10 + (_I,) * 9 + (_F, _VP))
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
               do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
               dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, kvh,
               sq, sk, d, int(bool(causal)), window, float(scale),
               _build.current_stream(dev))
-    _build.check_launch(BWD_SOURCE, "flash_attention_bwd", code)
+    _build.check_launch(source, "flash_attention_bwd", code)
     counts.LAUNCHES["flash_attention_bwd"] += 1
-    counts.INSTANCES[f"flash_attention_bwd:{BWD_INSTANCE[q.dtype]}"] += 1
+    counts.INSTANCES[f"flash_attention_bwd:{instance}"] += 1
     return dq, dk, dv

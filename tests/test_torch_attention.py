@@ -273,12 +273,13 @@ def test_the_dtype_picks_the_kernel_by_a_fixed_table():
     assert {e[0] for e in entry.values()} <= set(_build.SOURCES)
     assert {k for k in counts.INSTANCES if k.startswith(
         "flash_attention:")} == {f"flash_attention:{i}" for i in entry}
-    # the backward: one source for both dtypes, an instance a dtype
-    assert flash_attention.BWD_SOURCE in _build.SOURCES
+    # the backward: a table of its own, every source in the build, a count
+    # for every instance (the bf16 FMA build too, which only checks launch)
+    bwd = flash_attention._BWD_ENTRY
+    assert set(flash_attention.BWD_INSTANCE.values()) <= set(bwd)
+    assert {e[0] for e in bwd.values()} <= set(_build.SOURCES)
     assert {k for k in counts.INSTANCES if k.startswith(
-        "flash_attention_bwd:")} == {
-        f"flash_attention_bwd:{i}"
-        for i in flash_attention.BWD_INSTANCE.values()}
+        "flash_attention_bwd:")} == {f"flash_attention_bwd:{i}" for i in bwd}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

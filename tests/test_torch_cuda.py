@@ -9,6 +9,8 @@ fixture, never at import).  On a machine with a card:
 ``chip_smoke.py`` makes the same comparisons at the main path's sizes.
 """
 import ctypes
+import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -652,6 +654,72 @@ def test_flash_backward_is_deterministic(card, dtype):
     a = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     b = flash_attention.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _scaled_err(got, want) -> float:
+    """The largest |got - want| / (2^-7 |want| + 2^-12 max |want|): at most
+    1 within one bf16 rounding of ``want``."""
+    g, w = got.float(), want.float()
+    top = float(w.abs().max())
+    return float(((g - w).abs() / (2.0 ** -7 * w.abs() + 2.0 ** -12 * top))
+                 .max())
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_backward_tc_matches_the_fma_kernel(card, case):
+    """The tensor-core backward (``wgmma_bf16``) against the FMA kernel
+    built for bf16 (``fma_bf16``) on the same inputs, drawn as the chip
+    check draws them (q and k at sqrt 3, v at 0.5: a peaked softmax, where
+    p or ds in one bf16 term would fail), at every head dim of the cases:
+    within one bf16 rounding of each other, and each within one rounding
+    of the float32 oracle."""
+    b, h, kvh, sq, sk, d, causal, window = case
+    rng = np.random.default_rng(11)
+
+    def draw(shape, sd):
+        return torch.from_numpy((rng.standard_normal(shape) * sd).astype(
+            np.float32)).to(card, torch.bfloat16)
+
+    q, k = draw((b, h, sq, d), 3 ** 0.5), draw((b, kvh, sk, d), 3 ** 0.5)
+    v, do = draw((b, kvh, sk, d), 0.5), draw((b, h, sq, d), 1.0)
+    kw = dict(causal=causal, window=window)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=card)
+    o = flash_attention._launch_forward("wgmma_bf16", q, k, v, sm_scale=None,
+                                        lse=lse, **kw)
+    counts.reset()
+    tc = flash_attention.run_bwd_instance("wgmma_bf16", q, k, v, o, lse, do,
+                                          **kw)
+    fma = flash_attention.run_bwd_instance("fma_bf16", q, k, v, o, lse, do,
+                                           **kw)
+    torch.cuda.synchronize()
+    assert counts.INSTANCES["flash_attention_bwd:wgmma_bf16"] == 1
+    assert counts.INSTANCES["flash_attention_bwd:fma_bf16"] == 1
+    oracle = ref.flash_attention_bwd_ref(
+        *(t.float() for t in (q, k, v, o)), lse, do.float(), **kw)
+    for t, f, w in zip(tc, fma, oracle):
+        assert t.dtype == torch.bfloat16 and torch.isfinite(t).all()
+        assert _scaled_err(t, w) <= 1.0
+        assert _scaled_err(f, w) <= 1.0
+        assert _scaled_err(t, f) <= 1.0
+    assert (tc[0].float().abs().amax(-1)[torch.isinf(lse)] == 0).all()
+
+
+def test_flash_backward_tc_spills_nothing_and_issues_hgmma(card):
+    """ptxas' report of the tensor-core backward: its two kernels at D 128
+    (the train path's head dim) spill nothing; its SASS holds HGMMA."""
+    report = _build.ptxas_report("flash_attention_bwd_tc")
+    d128 = {name: r for name, r in report.items() if "ILi128E" in name
+            and ("bwd_dkdv_tc_kernel" in name or "bwd_dq_tc_kernel" in name)}
+    assert len(d128) == 2, sorted(report)
+    for r in d128.values():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, d128
+    cuobjdump = os.path.join(os.path.dirname(compat.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass",
+         str(_build.compile_source("flash_attention_bwd_tc"))],
+        capture_output=True, text=True, check=True).stdout
+    assert any(w.split(".")[0] == "HGMMA" for w in sass.split())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -151,7 +151,8 @@ def test_kernel_sources_are_in_the_package():
     names = sorted(os.listdir(os.path.join(PKG, "kernels", "csrc")))
     assert names == ["chase.cu", "compute_probe.cu", "contention.cu",
                      "flash_attention.cu", "flash_attention_bwd.cu",
-                     "flash_attention_tc.cu", "roles.cuh", "stream.cu"]
+                     "flash_attention_bwd_tc.cu", "flash_attention_tc.cu",
+                     "flash_tc.cuh", "roles.cuh", "stream.cu"]
     assert sorted(f"{n}.cu" for n in _build.SOURCES) == \
         [n for n in names if n.endswith(".cu")]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
