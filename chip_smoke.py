@@ -65,6 +65,8 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from repro_torch import compat  # noqa: E402
+from repro_torch.analysis import cost, roofline  # noqa: E402
+from repro_torch.configs.base import ShapeSpec, TrainConfig  # noqa: E402
 from repro_torch.configs import SHAPES as MODEL_SHAPES  # noqa: E402
 from repro_torch.configs import ServeConfig, get_config  # noqa: E402
 from repro_torch.core import coordinator as coordinator_mod  # noqa: E402
@@ -100,6 +102,8 @@ from repro_torch import tree as tree_mod  # noqa: E402
 from repro_torch.data.pipeline import DataLoader  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.parallel.sharding import make_rules  # noqa: E402
 from repro_torch.runtime import fault_tolerance  # noqa: E402
 from repro_torch.train import step as step_mod  # noqa: E402
 from repro_torch.models import attention, lm  # noqa: E402
@@ -1000,9 +1004,13 @@ STACKED = ("r", "s", "c", "x", "b", "l", "m")
 # the batched per-member figure must be this close to the lone observer's
 LONE_REL = 0.15
 # turns each of the lone observer and the batched group, taken in
-# alternation, for a stream group in pinned host memory: its PCIe rate
-# moves between allocations and over time
-LONE_TURNS = 3
+# alternation, for a stream group in pinned host memory, each turn on
+# pinned pages of its own: the PCIe read rate is the allocation's (on an
+# H100 80GB HBM3 at 700 W, 256 MiB to 1 GiB allocations of one process
+# read at 25.3 to 34.0 GB/s, each steady from turn to turn, as this
+# script's batched_vs_alone turns print them), so both sides' medians are
+# taken over as many allocations
+LONE_TURNS = 5
 BATCH_CAP = 1 << 30            # bytes of one stacked chunk, at most
 
 
@@ -1216,7 +1224,7 @@ def phase_matrix() -> dict:
     for k, ok in checks.items():
         if not ok:
             fail(f"matrix: check {k}")
-    return {"coord": coord, "groups": groups}
+    return {"coord": coord, "groups": groups, "db_surface": db_surface}
 
 
 def phase_lone(matrix: dict) -> None:
@@ -1224,9 +1232,10 @@ def phase_lone(matrix: dict) -> None:
     alone through make_shaped_workload(...).run: the card's counterpart of
     the reference's test_batched_chase_latency_matches_naive.  A stream
     group in pinned host memory is measured again here, in turns with its
-    lone observer (``LONE_TURNS`` each, alternating, the lone observer on
-    one allocation throughout), and their medians are compared; every
-    other group's figure from the matrix phase against one lone run."""
+    lone observer (``LONE_TURNS`` each, alternating, every turn of either
+    on pinned pages no other turn read), and their medians are compared;
+    every other group's figure from the matrix phase against one lone
+    run."""
     coord, lone, out, ok = matrix["coord"], {}, [], True
     for g in matrix["groups"]:
         pool, strategy, shape, buf, iters = g["_key"]
@@ -1271,21 +1280,35 @@ def phase_lone(matrix: dict) -> None:
 
 def lone_turns(coord, g: dict) -> dict:
     """The lone observer's GB/s and the batched group's per-member GB/s,
-    ``LONE_TURNS`` each in alternating turns (lone first): the lone
-    workload keeps its one allocation, the group is measured as the matrix
-    phase measured it, by ``measure_group`` with the same arguments."""
+    ``LONE_TURNS`` each in alternating turns (lone first): each turn a new
+    lone workload, the group measured as the matrix phase measured it, by
+    ``measure_group`` with the same arguments.  Every turn's buffers are
+    held until the last turn, so no turn is handed pages an earlier one
+    read (the pinned allocator hands a freed block out again)."""
     strategy, pool, buf, n, iters, kw = g["_call"]
-    wl = workloads.make_shaped_workload(strategy, pool, buf, kw.get("shape"))
     turns = {"alone": [], "batched": []}
+    lone, held, place = [], [], pool.place
+
+    def holding_place(data):
+        out = place(data)
+        held.append(out)
+        return out
+
+    pool.place = holding_place
     try:
         for _ in range(LONE_TURNS):
-            turns["alone"].append(figure(wl.run(iters))[1])
+            lone.append(workloads.make_shaped_workload(strategy, pool, buf,
+                                                       kw.get("shape")))
+            turns["alone"].append(figure(lone[-1].run(iters))[1])
             results, _ = coordinator_mod.measure_group(strategy, pool, buf,
                                                        n, iters, **kw)
             sync()
             turns["batched"].append([figure(r)[1] for r in results])
     finally:
-        wl.release()
+        del pool.place
+        for wl in lone:
+            wl.release()
+        held.clear()
     return turns
 
 
@@ -1321,7 +1344,7 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> tuple:
     chain_host = chase.chain_buffer(n_big, 0)
     chain_big = torch.from_numpy(chain_host).to(DEV)
     probe_a = radius_09(0)
-    probe_ops = PROBE_ITERS * 2 * 128 ** 3
+    probe_ops, probe_bytes = compute_probe.work(PROBE_ITERS)
     # the probe's products as it runs them: three TF32 passes (3xTF32)
     probe_tc_ops = 3 * probe_ops
 
@@ -1345,27 +1368,34 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> tuple:
     # the kernels launched one CTA a chunk, and their chunk's name
     chunked = {"write_hbm": "write", "write_hbm_seeded": "write",
                "rmw_hbm": "rmw", "copy_hbm": "copy"}
+
+    def work(name, elems, repeats=1):
+        """The package's count of a stream kernel, as (bytes, ops)."""
+        flops, nbytes_ = stream.work(name, elems, repeats=repeats)
+        return nbytes_, flops
+
     # name -> (source, replaces, kernel, plain, library, bytes, ops, calls)
     table = [
         ("read_hbm", "stream.cu", "src/repro/kernels/stream.py:100",
          lambda: stream.read_hbm(x), lambda: ref.read_ref(x),
-         lambda: x.sum(), nbytes, rows * 128, n),
+         lambda: x.sum(), *work("read_hbm", rows * 128), n),
         ("write_hbm", "stream.cu", "src/repro/kernels/stream.py:116",
          lambda: stream.write_hbm(rows, out=dst),
          lambda: ref.write_ref(rows, 1.0, DEV),
-         lambda: torch.full((rows, 128), 1.0, device=DEV), nbytes, 0, n),
+         lambda: torch.full((rows, 128), 1.0, device=DEV),
+         *work("write_hbm", rows * 128), n),
         ("write_hbm_seeded", "stream.cu", "src/repro/kernels/stream.py:137",
          lambda: stream.write_hbm_seeded(seed, n_w * blk, block_rows=blk,
                                          out=dst[:n_w * blk]),
          lambda: ref.write_seeded_ref(n_w * blk, 1.0, seed),
          lambda: torch.full((n_w * blk, 128), 1.0, device=DEV),
-         n_w * blk * 512 + 4, n_w * blk * 128, n),
+         *work("write_hbm_seeded", n_w * blk * 128), n),
         ("rmw_hbm", "stream.cu", "src/repro/kernels/stream.py:151",
          lambda: stream.rmw_hbm(x), lambda: ref.rmw_ref(x),
-         lambda: x + 1, 2 * nbytes, rows * 128, n),
+         lambda: x + 1, *work("rmw_hbm", rows * 128), n),
         ("copy_hbm", "stream.cu", "src/repro/kernels/stream.py:164",
          lambda: stream.copy_hbm(x), lambda: ref.copy_ref(x),
-         lambda: x.clone(), 2 * nbytes, 0, n),
+         lambda: x.clone(), *work("copy_hbm", rows * 128), n),
         ("mixed_hbm", "stream.cu", "src/repro/kernels/stream.py:189",
          lambda: stream.mixed_hbm(x, read_fraction=2 / 3, seed=seed),
          lambda: ref.mixed_ref(x, 2 / 3), None, nbytes + 4,
@@ -1373,13 +1403,13 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> tuple:
         ("read_vmem", "stream.cu", "src/repro/kernels/stream.py:248",
          lambda: stream.read_vmem(small, repeats=8),
          lambda: ref.read_vmem_ref(small, 8), lambda: small.sum() * 8,
-         small.numel() * 4, 8 * small.numel(), 10 * n),
+         *work("read_vmem", small.numel(), repeats=8), 10 * n),
         ("write_vmem", "stream.cu", "src/repro/kernels/stream.py:260",
          lambda: stream.write_vmem(small.shape[0], repeats=8,
                                    out=small_dst),
          lambda: ref.write_vmem_ref(small.shape[0], 8, DEV),
          lambda: torch.full(tuple(small.shape), 7.0, device=DEV),
-         small.numel() * 4, 0, 10 * n),
+         *work("write_vmem", small.numel()), 10 * n),
         ("chase_vmem", "chase.cu", "src/repro/kernels/chase.py:101",
          lambda: chase.chase_vmem(chain_small,
                                   n_steps=chain_small.shape[0]),
@@ -1398,7 +1428,7 @@ def phase_perf(at_main: dict, launched: dict, records: dict) -> tuple:
          lambda: compute_probe.mxu_probe(probe_a, iters=PROBE_ITERS),
          lambda: ref.mxu_probe_ref(probe_a, PROBE_ITERS),
          lambda: torch.linalg.matrix_power(probe_a, PROBE_ITERS + 1),
-         2 * probe_a.numel() * 4, probe_ops, n),
+         probe_bytes, probe_ops, n),
     ]
     kernels = []
     for name, src, replaces, kern, plain, lib, bytes_, ops_, calls in table:
@@ -1551,22 +1581,10 @@ def check_ladder(prog, rtol: float, what: str) -> dict:
             "ok": ok}
 
 
-def ladder_bytes(prog, step: int = 0) -> int:
-    """Bytes the roles of one step move: each pass of a stream its rows
-    once (copy and rmw twice, the mixed stream its read and written
-    rows), a chase one 32-byte sector a hop, the idle spin none."""
-    total = 0
-    for e in range(prog.table.shape[1]):
-        code, rows, n, rd, wr = (int(v) for v in
-                                 prog.roles[prog.table[step, e]][:5])
-        line = rows * 512
-        total += n * {contention.READ: line, contention.SEEDED_WRITE: line,
-                      contention.RMW: 2 * line, contention.COPY: 2 * line,
-                      contention.MIXED: (rd + wr) * 512,
-                      contention.CHASE_GLOBAL: rows * SECTOR_BYTES,
-                      contention.CHASE_SHARED: rows * SECTOR_BYTES
-                      }.get(code, 0)
-    return total
+def ladder_bytes(prog) -> int:
+    """Bytes the roles of the program's first step move, as the package
+    counts them (``contention.ladder_work``)."""
+    return contention.ladder_work(prog.table[:1], prog.roles).bytes
 
 
 def rung_table(spec: ScenarioSpec, k: int):
@@ -2137,14 +2155,6 @@ def qkv(b, h, kvh, sq, sk, d, dtype, seed=0, scale=0.5, v_scale=None):
     return out
 
 
-def admitted_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """The (query, key) pairs the masks admit, positions from 0."""
-    qp = np.arange(sq)
-    hi = np.minimum(sk, qp + 1) if causal else np.full(sq, sk)
-    lo = np.maximum(0, qp - window + 1) if window else np.zeros(sq, np.int64)
-    return int(np.maximum(0, hi - lo).sum())
-
-
 def diff(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max())
 
@@ -2322,10 +2332,15 @@ def phase_attention() -> list:
         err = diff(out, want)
         worst, norm_err = scaled_errors(out, want)
         del want
-        pairs = admitted_pairs(seq, seq, kw["causal"], kw["window"])
-        ops_ = 4 * cfg.head_dim * cfg.n_heads * ATTN_BATCH * pairs
-        # q, k and v read once, the output (q's shape) written once
-        bytes_ = sum(x.numel() for x in (q, *t)) * q.element_size()
+        pairs = flash_attention.admitted_pairs(seq, seq, kw["causal"],
+                                               kw["window"])
+        # the package's count: 4·D a head and admitted pair; q, k and v
+        # read once, the output (q's shape) written once
+        ops_, bytes_ = flash_attention.forward_work(*t, **kw)
+        # (d) of the roofline: the counter counts the same work
+        counted = cost.analyze(ops.flash_attention, *t, **kw).kernels
+        checks[f"counter_equals_row:{label}"] = \
+            counted == {"flash_attention": [1, ops_, bytes_]}
         b_ms, b_by = bound(bytes_, ops_, BF16_TC_OPS_PER_S)
         fp32_ms, _ = bound(bytes_, ops_)
         ms = time_ms(lambda: ops.flash_attention(*t, **kw), 3)
@@ -2390,8 +2405,8 @@ def phase_attention() -> list:
         if not ok:
             fail(f"attention: check {k_}")
 
-    nbytes = rows * 512
-    t_ms, t_by = bound(3 * nbytes, 2 * rows * 128)
+    t_ops, t_bytes = stream.work("triad_hbm", rows * 128)
+    t_ms, t_by = bound(t_bytes, t_ops)
     main = recs[0]
     return [
         {"name": "triad_hbm", "route": "cuda", "source": CSRC + "stream.cu",
@@ -2661,9 +2676,8 @@ def phase_serve(smi: str) -> dict:
     # one layer's flash call at this shape, as the model makes it
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     fkw = dict(causal=True, sm_scale=akw["scale"])
-    pairs = admitted_pairs(SERVE_PROMPT, SERVE_PROMPT, True, 0)
-    f_ops = 4 * cfg.head_dim * cfg.n_heads * SERVE_BATCH * pairs
-    f_bytes = (2 * qt.numel() + kt.numel() + vt.numel()) * qt.element_size()
+    f_ops, f_bytes = flash_attention.forward_work(qt, kt, vt, causal=True,
+                                                  window=0)
     f_bound, f_by = bound(f_bytes, f_ops, BF16_TC_OPS_PER_S)
     f_ms = time_ms(lambda: ops.flash_attention(qt, kt, vt, **fkw), 20)
     call = {"shape": f"q {tuple(qt.shape)}, k, v {tuple(kt.shape)} "
@@ -2687,6 +2701,9 @@ def phase_serve(smi: str) -> dict:
     tok = toks[:, :1].contiguous()
     prof_decode = profile_calls(
         lambda: decode(params, caches, tok, SERVE_PROMPT), 2)
+    # the roofline's counts of the same two calls
+    roof_prefill = count_call(prefill, params, prompts)
+    roof_decode = count_call(decode, params, caches, tok, SERVE_PROMPT)
     del caches
 
     # (c) the cache in device memory and in pinned host memory, timed loop
@@ -2743,6 +2760,10 @@ def phase_serve(smi: str) -> dict:
     prof_prefill["device_busy_share"] = \
         prof_prefill["device_ms_a_call"] / prefill_ms
     prof_decode["device_busy_share"] = prof_decode["device_ms_a_call"] / hbm_ms
+    roofline_line(f"{cfg.name} serve prefill", cfg, SERVE_PREFILL_SHAPE,
+                  roof_prefill, prefill_ms, SERVE_BATCH)
+    roofline_line(f"{cfg.name} serve decode", cfg, SERVE_DECODE_SHAPE,
+                  roof_decode, hbm_ms, SERVE_BATCH)
     emit({"phase": "serve", "card": smi, "argv": SERVE_ARGV,
           "config": cfg.name, "n_params": sum(
               t.numel() for t in lm.leaves(params)),
@@ -3142,6 +3163,10 @@ def family_profile(cfg, engine, prompts, toks, max_len: int,
         prof["decode_step"]["device_ms_a_call"] / step_ms
     syncs = {"prefill": host_syncs(lambda: prefill(params, prompts)),
              "decode_step": host_syncs(step)}
+    # the roofline's counts of the same two calls
+    roof = {"prefill": count_call(prefill, params, prompts),
+            "decode_step": count_call(decode, params, caches, tok,
+                                      SERVE_PROMPT)}
 
     shares = {
         "prefill": part_shares(lambda: prefill(params, prompts), (
@@ -3153,7 +3178,8 @@ def family_profile(cfg, engine, prompts, toks, max_len: int,
     del caches
     sync()
     return {"prefill_ms": prefill_ms, "prefill_peak_bytes": peak,
-            "profile": prof, "host_syncs": syncs, "device_shares": shares}
+            "profile": prof, "host_syncs": syncs, "device_shares": shares,
+            "roofline": roof}
 
 
 def phase_serve_families(smi: str) -> int:
@@ -3219,6 +3245,11 @@ def phase_serve_families(smi: str) -> int:
         host_ms = statistics.median(placed["host_steps"])
 
         prof = family_profile(cfg, engine, prompts, toks, max_len, hbm_ms)
+        roof = prof.pop("roofline")
+        roofline_line(f"{cfg.name} serve prefill", cfg, SERVE_PREFILL_SHAPE,
+                      roof["prefill"], prof["prefill_ms"], SERVE_BATCH)
+        roofline_line(f"{cfg.name} serve decode", cfg, SERVE_DECODE_SHAPE,
+                      roof["decode_step"], hbm_ms, SERVE_BATCH)
         checks["d:profiler_saw_the_card"] = all(
             p["kernels_a_call"] > 0 for p in prof["profile"].values())
         # one sync a MoE layer (its segment sizes), none elsewhere
@@ -3400,11 +3431,17 @@ def bwd_case(label, b, h, kvh, sq, sk, d, causal, window, dtype, seed,
                      and launched_instance == 2
                      and lse_inf_same and lse_err <= LSE_ATOL)
     if timed:
-        pairs = admitted_pairs(sq, sk, causal, window)
-        ops_ = 10 * d * h * b * pairs
+        pairs = flash_attention.admitted_pairs(sq, sk, causal, window)
+        # the package's count: 10·D a head and admitted pair; q, k, v, o,
+        # do and the log-sum-exp read once, dq, dk and dv written once
+        ops_, bytes_ = flash_attention.backward_work(q, k, v, **kw)
         ops_exec = BWD_TC_EXECUTED_PER_D[d] * d * h * b * pairs
-        bytes_ = (sum(t.numel() for t in (q, k, v, o, do, q, k, v))
-                  * q.element_size() + lse.numel() * 4)
+        # (d) of the roofline: the counter counts the same work
+        counted = cost.analyze(flash_attention.flash_attention_bwd, q, k, v,
+                               o, lse, do, **kw).kernels
+        rec["counter_equals_row"] = \
+            counted == {"flash_attention_bwd": [1, ops_, bytes_]}
+        rec["ok"] = rec["ok"] and rec["counter_equals_row"]
         b_ms, b_by = bound(bytes_, ops_, BF16_TC_OPS_PER_S)
         exec_ms, _ = bound(bytes_, ops_exec, BF16_TC_OPS_PER_S)
         fp32_ms, _ = bound(bytes_, ops_)
@@ -3690,6 +3727,9 @@ def phase_train(smi: str, bwd_row: dict) -> int:
 
     prof = profile_calls(one_step, 1)
     syncs = host_syncs(lambda: fault_tolerance._scalars(one_step()[1]))
+    roofline_line(f"{cfg.name} train step", cfg, TRAIN_SHAPE,
+                  count_call(step_fn, state, batch.tokens, batch.labels),
+                  step_ms, TRAIN_BATCH * TRAIN_SEQ)
     checks["b:profiler_saw_the_card"] = prof["kernels_a_call"] > 0
     tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
 
@@ -3772,6 +3812,153 @@ def phase_train(smi: str, bwd_row: dict) -> int:
     return launched["flash_attention"]
 
 
+# ---------------------------------------------------------------------------
+# the roofline of every model path: the cost counter's count of the calls
+# that serve, serve_families and train time, beside their measured times
+# ---------------------------------------------------------------------------
+
+# the served and trained shapes, as roofline.model_flops reads them
+SERVE_PREFILL_SHAPE = ShapeSpec("serve_prefill", SERVE_PROMPT, SERVE_BATCH,
+                                "prefill")
+SERVE_DECODE_SHAPE = ShapeSpec("serve_decode", SERVE_PROMPT + SERVE_NEW,
+                               SERVE_BATCH, "decode")
+TRAIN_SHAPE = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+# (b): a path measured faster than this share of its bound means the
+# count is short
+ROOF_MIN = 0.95
+# (c): the reduced() qwen2-1.5b counted on both devices: batch, sequence
+SAME_B, SAME_S = 2, 128
+# the matrix phase's surface CurveDB (set by main), the lines, the
+# counting passes' seconds
+ROOF = {"db": None, "lines": [], "seconds": 0.0}
+
+
+def count_call(fn, *args) -> tuple:
+    """(the counter's Cost of one ``fn(*args)``, its seconds)."""
+    sync()
+    t0 = time.perf_counter()
+    c = cost.analyze(fn, *args)
+    sync()
+    return c, time.perf_counter() - t0
+
+
+def skipped_products(cfg, shape, logits_tokens: int) -> tuple:
+    """(a): the FLOPs of ``model_flops`` that the path runs no product
+    for, and why.  ``n_active_params`` counts the input embedding, which
+    is a gather when untied (2·V·d a token, 6·V·d in training), and the
+    unembedding at every token, where a prefill makes the logits of the
+    last position alone (``logits_tokens`` a call)."""
+    per = 6.0 if shape.kind == "train" else 2.0
+    tokens = shape.global_batch if shape.kind == "decode" else shape.tokens
+    c = cfg.param_counts()
+    parts = {}
+    if not cfg.tie_embeddings:
+        parts["input embedding, a gather"] = per * c["embed"] * tokens
+    if logits_tokens < tokens:
+        parts[f"logits at {logits_tokens} of {tokens} tokens"] = \
+            per * (c["unembed"] or c["embed"]) * (tokens - logits_tokens)
+    return sum(parts.values()), parts
+
+
+def roofline_line(path: str, cfg, shape, counted: tuple, measured_ms: float,
+                  logits_tokens: int) -> None:
+    """One path's line: the RooflineTerms of its count (``count_call``),
+    the movement bytes, the shape, the memory term at the datasheet's
+    rate and at the CurveDB's effective rate, the measured ms, measured /
+    t_bound and the MFU; checks (a) and (b)."""
+    c, seconds = counted
+    terms = roofline.compute_terms(c, cfg=cfg, shape=shape,
+                                   mesh_desc="1 x H100", n_devices=1)
+    skipped, why = skipped_products(cfg, shape, logits_tokens)
+    floor = terms.model_flops - skipped
+    eff_bw = roofline.effective_hbm_bw(
+        ROOF["db"], n_stressors=0, rw_ratio=roofline.workload_rw_mix(shape))
+    measured_s = measured_ms / 1e3
+    checks = {"a:useful_ratio_positive": terms.useful_ratio > 0,
+              "a:no_product_missed": c.flops >= floor,
+              "b:not_faster_than_roofline":
+                  measured_s >= ROOF_MIN * terms.t_bound}
+    ops_ = sorted(c.ops.items(), key=lambda kv: -kv[1][2])
+    line = {"phase": "roofline", "path": path, "config": cfg.name,
+            "n_layers": cfg.n_layers, **dataclasses.asdict(terms),
+            "bottleneck": terms.bottleneck, "t_bound": terms.t_bound,
+            "roofline_fraction": terms.roofline_fraction,
+            "movement_bytes": c.movement_bytes,
+            "shape": dataclasses.asdict(shape),
+            "t_memory_datasheet": c.bytes / roofline.HBM_BW,
+            "effective_hbm_bw": eff_bw,
+            "t_memory_effective": c.bytes / eff_bw,
+            "measured_ms": measured_ms,
+            "measured_over_bound": measured_s / terms.t_bound,
+            "mfu": terms.model_flops / (measured_s * roofline.PEAK_FLOPS),
+            "skipped_flops": skipped, "skipped_by_term": why,
+            "counted_over_floor": c.flops / floor,
+            "kernels": c.kernels, "top_ops_by_bytes": ops_[:8],
+            "top_ops_by_flops": sorted(c.ops.items(),
+                                       key=lambda kv: -kv[1][1])[:4],
+            "count_seconds": seconds, "checks": checks}
+    if terms.useful_ratio > 1:
+        line["above_1"] = ("model_flops counts %.6g FLOPs that the path runs "
+                           "no product for: %s" % (skipped, ", ".join(why)))
+    emit(line)
+    ROOF["seconds"] += seconds
+    ROOF["lines"].append({k: line[k] for k in (
+        "path", "bottleneck", "t_bound", "measured_ms",
+        "measured_over_bound", "mfu", "useful_ratio")})
+    for k_, ok in checks.items():
+        if not ok:
+            fail(f"roofline {path}: check {k_}")
+
+
+def roofline_same_count() -> None:
+    """(c): a ``reduced()`` qwen2-1.5b in bf16, its prefill and one train
+    step (two microbatches, remat by layer), counted once on CPU tensors
+    and once on the card in this process: equal flops and bytes, so the
+    card's path hides no operation from the counter.  Lists the aten
+    operations and kernels whose counts differ."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    tcfg = TrainConfig(total_steps=10, warmup_steps=2, loss_chunk=64,
+                       microbatches=2)
+    rules = make_rules(cfg, make_host_mesh(1, 1), global_batch=SAME_B)
+    raw = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (SAME_B, SAME_S + 1))
+    counted = {}
+    for where, dev in (("cpu", torch.device("cpu")), ("card", DEV)):
+        state = step_mod.init_state(
+            cfg, tcfg, torch.Generator(device=dev).manual_seed(0))
+        tokens = torch.from_numpy(raw[:, :-1]).long().to(dev)
+        labels = torch.from_numpy(raw[:, 1:]).long().to(dev)
+        prefill = make_prefill_step(cfg, rules, max_len=SAME_S + 8)
+        step = step_mod.make_train_step(cfg, rules, tcfg, microbatches=2)
+        counted[where] = {
+            "prefill": cost.analyze(prefill, state["params"], tokens),
+            "train_step": cost.analyze(step, state, tokens, labels)}
+    checks, calls = {}, {}
+    for call in ("prefill", "train_step"):
+        a, b = counted["cpu"][call], counted["card"][call]
+        differ = {name: (a.ops.get(name), b.ops.get(name))
+                  for name in set(a.ops) | set(b.ops)
+                  if a.ops.get(name) != b.ops.get(name)}
+        if a.kernels != b.kernels:
+            differ["kernels"] = (a.kernels, b.kernels)
+        calls[call] = {"cpu": [a.flops, a.bytes], "card": [b.flops, b.bytes],
+                       "movement_bytes": [a.movement_bytes,
+                                          b.movement_bytes],
+                       "kernels": b.kernels, "differ": differ}
+        checks[f"c:same_flops:{call}"] = a.flops == b.flops
+        checks[f"c:same_bytes:{call}"] = a.bytes == b.bytes
+    seconds = time.perf_counter() - t0
+    ROOF["seconds"] += seconds
+    emit({"phase": "roofline_same_count", "config": cfg.name,
+          "batch": SAME_B, "seq": SAME_S, "dtype": "bfloat16",
+          "calls": calls, "checks": checks, "seconds": seconds})
+    for k_, ok in checks.items():
+        if not ok:
+            fail(f"roofline: check {k_}")
+
 
 def main() -> int:
     smi = phase_device()
@@ -3803,6 +3990,7 @@ def main() -> int:
         fail("matrix: a plain version ran on the card's path")
 
     phase_lone(matrix)
+    ROOF["db"] = matrix["db_surface"]
     del matrix
 
     # the executed contention ladder, between a reset and a read of the
@@ -3849,6 +4037,10 @@ def main() -> int:
     # the phase runs between a reset and a read of the counts
     bwd_row = phase_train_kernel()
     train_fwd = phase_train(smi, bwd_row)
+    # the roofline: (c), then every path's line (printed in its phase)
+    roofline_same_count()
+    emit({"phase": "roofline_done", "card": smi, "paths": ROOF["lines"],
+          "seconds": ROOF["seconds"]})
     flash_row = attention_rows[1]
     flash_row["launches_by_path"] = {"attention": flash_row["launches"],
                                      "serve": serve["launches"],

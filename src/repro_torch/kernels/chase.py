@@ -97,16 +97,29 @@ def strided_chain_buffer(n_lines: int, stride: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def work(name: str, buf: torch.Tensor, n_steps: int) -> counts.Work:
+    """The counted work of a chase over ``buf``'s members: no operation;
+    ``chase_vmem`` stages each chain into shared memory once (its lines'
+    bytes), ``chase_hbm`` loads one 32-byte sector a hop.  A chase is
+    bound by the latency of one load, which neither count sees."""
+    g, rows, _ = _build.member_layout(buf)
+    if name == "chase_vmem":
+        return counts.Work(0, g * rows * LANE * 4)
+    return counts.Work(0, g * n_steps * counts.SECTOR_BYTES)
+
+
 def _chase(name: str, buf: torch.Tensor, n_steps: int) -> torch.Tensor:
     _build.check_buffer(buf, dtypes=(torch.int32,), what=name, members=True)
     if n_steps < 0:
         raise ValueError(f"{name}: n_steps must be >= 0")
+    w = work(name, buf, n_steps)
     if not _build.launches_kernel(buf):
-        counts.PLAIN[name] += 1
-        if buf.dim() == 3:
-            return torch.tensor(ref.chase_members_ref(buf, n_steps),
+        with counts.plain(name, w):
+            if buf.dim() == 3:
+                return torch.tensor(ref.chase_members_ref(buf, n_steps),
+                                    dtype=torch.int32)
+            return torch.tensor(ref.chase_ref(buf, n_steps),
                                 dtype=torch.int32)
-        return torch.tensor(ref.chase_ref(buf, n_steps), dtype=torch.int32)
     dev = _build.compute_device(buf)
     g, rows, stride = _build.member_layout(buf)
     out = torch.empty(g, dtype=torch.int32, device=dev)
@@ -121,7 +134,7 @@ def _chase(name: str, buf: torch.Tensor, n_steps: int) -> torch.Tensor:
                          (_VP, _LL, _I, _I, _VP, _VP))
         code = fn(buf.data_ptr(), stride, g, n_steps, out.data_ptr(), stream)
     _build.check_launch("chase", name, code)
-    counts.LAUNCHES[name] += 1
+    counts.launched(name, w)
     return out.reshape(buf.shape[:-2])
 
 

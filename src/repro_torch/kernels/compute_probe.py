@@ -21,6 +21,12 @@ N = 128
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 
 
+def work(iters: int) -> counts.Work:
+    """The probe's counted work: ``iters`` products of ``2·128³``
+    operations, the operand read once and the result written once."""
+    return counts.Work(iters * 2 * N ** 3, 2 * N * N * 4)
+
+
 def mxu_probe(a: torch.Tensor, *, iters: int = 64) -> torch.Tensor:
     """a: (128, 128) float32.  Returns a^(iters+1) to float32 accuracy.
 
@@ -39,12 +45,12 @@ def mxu_probe(a: torch.Tensor, *, iters: int = 64) -> torch.Tensor:
     if iters < 0:
         raise ValueError("mxu_probe: iters must be >= 0")
     if not _build.launches_kernel(a):
-        counts.PLAIN["mxu_probe"] += 1
-        return ref.mxu_probe_ref(a, iters)
+        with counts.plain("mxu_probe", work(iters)):
+            return ref.mxu_probe_ref(a, iters)
     dev = _build.compute_device(a)
     out = torch.empty((N, N), dtype=torch.float32, device=dev)
     fn = _build.bind("compute_probe", "repro_mxu_probe", (_VP, _VP, _I, _VP))
     code = fn(a.data_ptr(), out.data_ptr(), iters, _build.current_stream(dev))
     _build.check_launch("compute_probe", "mxu_probe", code)
-    counts.LAUNCHES["mxu_probe"] += 1
+    counts.launched("mxu_probe", work(iters))
     return out

@@ -104,6 +104,25 @@ def _check_tables(table: np.ndarray, roles: np.ndarray, group_of: np.ndarray,
         raise ValueError("contention_ladder: a group id out of range")
 
 
+def ladder_work(table, roles) -> counts.Work:
+    """The counted work of a ladder launch over every step of ``table``:
+    each pass of a stream its rows once (copy and rmw twice, the mixed
+    stream its read and written rows), a chase one 32-byte sector a hop,
+    the idle spin nothing; an operation an element the read, rmw, seeded
+    write and the mixed stream's read rows add."""
+    flops = nbytes = 0
+    for role in np.asarray(roles)[np.asarray(table)].reshape(-1, ROLE_FIELDS):
+        code, rows, n, rd, wr = (int(v) for v in role[:5])
+        line = rows * LANE * 4
+        nbytes += n * {READ: line, SEEDED_WRITE: line, RMW: 2 * line,
+                       COPY: 2 * line, MIXED: (rd + wr) * LANE * 4,
+                       CHASE_GLOBAL: rows * counts.SECTOR_BYTES,
+                       CHASE_SHARED: rows * counts.SECTOR_BYTES}.get(code, 0)
+        flops += n * {READ: rows, SEEDED_WRITE: rows, RMW: rows,
+                      MIXED: rd}.get(code, 0) * LANE
+    return counts.Work(flops, nbytes)
+
+
 def contention_ladder(xf: torch.Tensor, xi: torch.Tensor, dst: torch.Tensor,
                       table, roles, group_of, leaders, *,
                       ctas_per_engine: int, skew_ns: int = 0,
@@ -132,11 +151,12 @@ def contention_ladder(xf: torch.Tensor, xi: torch.Tensor, dst: torch.Tensor,
     _check_tables(table, roles, group_of, leaders, n_eng, rows_max)
     if ctas_per_engine < 1:
         raise ValueError("contention_ladder: ctas_per_engine must be >= 1")
+    w = ladder_work(table, roles)
     if not _build.launches_kernel(xf):
-        counts.PLAIN["contention_ladder"] += 1
-        return ref.contention_ladder_ref(xf, xi, table, roles, group_of,
-                                         leaders, skew_ns=skew_ns,
-                                         skip_start_wait=skip_start_wait)
+        with counts.plain("contention_ladder", w):
+            return ref.contention_ladder_ref(
+                xf, xi, table, roles, group_of, leaders, skew_ns=skew_ns,
+                skip_start_wait=skip_start_wait)
     dev = _build.compute_device(xf)
     steps = table.shape[0]
     ctas = ctas_per_engine
@@ -165,7 +185,7 @@ def contention_ladder(xf: torch.Tensor, xi: torch.Tensor, dst: torch.Tensor,
               int(bool(skip_start_wait)), int(barrier_timeout_s * 1e9),
               chase_smem, _build.current_stream(dev))
     _build.check_launch("contention", "contention_ladder", code)
-    counts.LAUNCHES["contention_ladder"] += 1
+    counts.launched("contention_ladder", w)
     # the partials are summed outside the kernel, as the TPU program
     # reduces its per-block partials; the stamps reduce over each
     # engine's CTAs: the last arrival, the first begin, the last end
@@ -184,14 +204,15 @@ def probe_add_one(x: torch.Tensor) -> torch.Tensor:
             not x.is_contiguous():
         raise ValueError("probe_add_one: want a contiguous (8, 128) float32 "
                          f"block, got {tuple(x.shape)} {x.dtype}")
+    w = counts.Work(x.numel(), 2 * x.numel() * 4)
     if not _build.launches_kernel(x):
-        counts.PLAIN["probe_add_one"] += 1
-        return ref.probe_add_one_ref(x)
+        with counts.plain("probe_add_one", w):
+            return ref.probe_add_one_ref(x)
     dev = _build.compute_device(x)
     out = torch.empty((8, LANE), dtype=torch.float32, device=dev)
     fn = _build.bind("contention", "repro_probe_add_one", (_VP, _VP, _I, _VP))
     code = fn(x.data_ptr(), out.data_ptr(), x.numel(),
               _build.current_stream(dev))
     _build.check_launch("contention", "probe_add_one", code)
-    counts.LAUNCHES["probe_add_one"] += 1
+    counts.launched("probe_add_one", w)
     return out

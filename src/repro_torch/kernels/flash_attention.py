@@ -44,8 +44,10 @@ torch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, counts, ref
@@ -104,6 +106,42 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ">= 1")
 
 
+@functools.lru_cache(maxsize=256)
+def admitted_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the masks admit, positions from 0."""
+    qp = np.arange(sq)
+    hi = np.minimum(sk, qp + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, qp - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def forward_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: int,
+                 lse: bool = False) -> counts.Work:
+    """The forward's counted work: ``4·D`` operations a head and admitted
+    pair (the two products), q, k and v read once, the output written
+    once, and the float32 log-sum-exp where the call writes one."""
+    b, h, sq, d = q.shape
+    pairs = admitted_pairs(sq, k.shape[2], bool(causal), min(window, sq))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return counts.Work(4 * d * h * b * pairs,
+                       nbytes + (b * h * sq * 4 if lse else 0))
+
+
+def backward_work(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, *, causal: bool,
+                  window: int) -> counts.Work:
+    """The backward's counted work: ``10·D`` operations a head and
+    admitted pair (the five products; the tensor-core kernel executes
+    more, see ``csrc/flash_attention_bwd_tc.cu``), q, k, v, o, do and the
+    log-sum-exp read once, dq, dk and dv written once."""
+    b, h, sq, d = q.shape
+    pairs = admitted_pairs(sq, k.shape[2], bool(causal), min(window, sq))
+    nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+        * q.element_size()
+    return counts.Work(10 * d * h * b * pairs, nbytes + b * h * sq * 4)
+
+
 def kernel_refusal(q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> Optional[str]:
     """Why the CUDA kernel would not take these inputs, or None when it
@@ -142,10 +180,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return FlashAttentionFn.apply(q, k, v, causal, window, sm_scale,
                                       block_q, block_k)
     if not _build.launches_kernel(q):
-        counts.PLAIN["flash_attention"] += 1
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       sm_scale=sm_scale, block_q=block_q,
-                                       block_k=block_k)
+        with counts.plain("flash_attention", forward_work(
+                q, k, v, causal=causal, window=window)):
+            return ref.flash_attention_ref(
+                q, k, v, causal=causal, window=window, sm_scale=sm_scale,
+                block_q=block_q, block_k=block_k)
     refusal = kernel_refusal(q, k, v)
     if refusal is not None:
         raise ValueError(f"flash_attention: the kernel does not take {refusal}")
@@ -197,8 +236,9 @@ def _launch_forward(instance: str, q: torch.Tensor, k: torch.Tensor,
               _DTYPE_CODE[q.dtype], b, h, kvh, sq, sk, d, int(bool(causal)),
               window, float(scale), _build.current_stream(dev))
     _build.check_launch(source, "flash_attention", code)
-    counts.LAUNCHES["flash_attention"] += 1
-    counts.INSTANCES[f"flash_attention:{instance}"] += 1
+    counts.launched("flash_attention", forward_work(
+        q, k, v, causal=causal, window=window, lse=lse is not None),
+        instance)
     return out
 
 
@@ -230,10 +270,12 @@ class FlashAttentionFn(torch.autograd.Function):
             out = _launch_forward(INSTANCE[q.dtype], q, k, v, causal=causal,
                                   window=window, sm_scale=sm_scale, lse=lse)
         else:
-            counts.PLAIN["flash_attention"] += 1
-            out, lse = ref.flash_attention_ref(
-                q, k, v, causal=causal, window=window, sm_scale=sm_scale,
-                block_q=block_q, block_k=block_k, return_lse=True)
+            with counts.plain("flash_attention", forward_work(
+                    q, k, v, causal=causal, window=window, lse=True)):
+                out, lse = ref.flash_attention_ref(
+                    q, k, v, causal=causal, window=window,
+                    sm_scale=sm_scale, block_q=block_q, block_k=block_k,
+                    return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = dict(causal=causal, window=window, sm_scale=sm_scale,
                       block_q=block_q, block_k=block_k)
@@ -279,10 +321,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (the kernels' tiles are their own)."""
     _check_bwd_args(q, k, v, o, lse, do, window, block_q, block_k)
     if not _build.launches_kernel(q):
-        counts.PLAIN["flash_attention_bwd"] += 1
-        return ref.flash_attention_bwd_ref(
-            q, k, v, o, lse, do, causal=causal, window=window,
-            sm_scale=sm_scale, block_q=block_q, block_k=block_k)
+        with counts.plain("flash_attention_bwd", backward_work(
+                q, k, v, causal=causal, window=window)):
+            return ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal=causal, window=window,
+                sm_scale=sm_scale, block_q=block_q, block_k=block_k)
     if q.dtype not in BWD_INSTANCE:
         raise ValueError("flash_attention_bwd: the kernel does not take "
                          + kernel_refusal(q, k, v))
@@ -337,6 +380,6 @@ def run_bwd_instance(instance: str, q: torch.Tensor, k: torch.Tensor,
               sq, sk, d, int(bool(causal)), window, float(scale),
               _build.current_stream(dev))
     _build.check_launch(source, "flash_attention_bwd", code)
-    counts.LAUNCHES["flash_attention_bwd"] += 1
-    counts.INSTANCES[f"flash_attention_bwd:{instance}"] += 1
+    counts.launched("flash_attention_bwd", backward_work(
+        q, k, v, causal=causal, window=window), instance)
     return dq, dk, dv

@@ -76,6 +76,25 @@ def _stream_grid(n_vec: int, device: torch.device) -> int:
                       _sm_count(device) * CTAS_PER_SM))
 
 
+def work(name: str, elems: int, elem_bytes: int = 4,
+         repeats: int = 1) -> counts.Work:
+    """The counted work of the stream kernel ``name`` over ``elems``
+    elements of ``elem_bytes`` each (the output's, for the writes): the
+    bytes it moves to or from the buffer's memory, each element once (an
+    on-chip walk ``repeats`` times moves it once), and an operation an
+    element it adds (the reads' sums, rmw's +1, the seeded write's +seed,
+    the triad's product and sum)."""
+    nbytes = elems * elem_bytes
+    return {"read_hbm": counts.Work(elems, nbytes),
+            "write_hbm": counts.Work(0, nbytes),
+            "write_hbm_seeded": counts.Work(elems, nbytes + 4),
+            "rmw_hbm": counts.Work(elems, 2 * nbytes),
+            "copy_hbm": counts.Work(0, 2 * nbytes),
+            "triad_hbm": counts.Work(2 * elems, 3 * nbytes),
+            "read_vmem": counts.Work(repeats * elems, nbytes),
+            "write_vmem": counts.Work(0, nbytes)}[name]
+
+
 def _launch(fn: str, argtypes, *args) -> None:
     code = _build.bind("stream", fn, argtypes)(*args)
     _build.check_launch("stream", fn, code)
@@ -119,9 +138,10 @@ def read_hbm(x: torch.Tensor, *,
                         members=True)
     g, rows, stride = _build.member_layout(x)
     _grid_blocks(rows, block_rows)
+    w = work("read_hbm", g * rows * LANE)
     if not _build.launches_kernel(x):
-        counts.PLAIN["read_hbm"] += 1
-        return ref.read_ref(x)
+        with counts.plain("read_hbm", w):
+            return ref.read_ref(x)
     dev = _build.compute_device(x)
     n_vec = rows * LANE // 4
     grid = max(1, _stream_grid(n_vec * g, dev) // g)
@@ -129,7 +149,7 @@ def read_hbm(x: torch.Tensor, *,
     _launch("repro_read_hbm", (_VP, _VP, _LL, _LL, _I, _I, _VP),
             x.data_ptr(), partials.data_ptr(), n_vec, stride // 4, g, grid,
             _build.current_stream(dev))
-    counts.LAUNCHES["read_hbm"] += 1
+    counts.launched("read_hbm", w)
     return partials.sum(dim=-1) if x.dim() == 3 else partials.sum()
 
 
@@ -142,10 +162,12 @@ def _write(name: str, seed: Optional[torch.Tensor], shape_rows: int,
                              != _build.launches_kernel(dst)):
         raise ValueError(f"{name}: seed and destination must both be "
                          "reachable from the card, or both on the CPU")
+    w = work(name, shape_rows * LANE)
     if not _build.launches_kernel(dst):
-        counts.PLAIN[name] += 1
-        return dst.copy_(ref.write_ref(shape_rows, value) if seed is None
-                         else ref.write_seeded_ref(shape_rows, value, seed))
+        with counts.plain(name, w):
+            return dst.copy_(
+                ref.write_ref(shape_rows, value) if seed is None
+                else ref.write_seeded_ref(shape_rows, value, seed))
     dev = _build.compute_device(dst)
     n_vec = dst.numel() // 4
     _launch("repro_write_hbm", (_VP, _LL, _F, _VP, _I, _VP),
@@ -153,7 +175,7 @@ def _write(name: str, seed: Optional[torch.Tensor], shape_rows: int,
             None if seed is None else seed.data_ptr(),
             chunk_grid(n_vec, kernel_chunk_vec("write")),
             _build.current_stream(dev))
-    counts.LAUNCHES[name] += 1
+    counts.launched(name, w)
     return dst
 
 
@@ -244,9 +266,10 @@ def rmw_hbm(x: torch.Tensor, *,
     does: on its card, or in pinned host memory, which the bulk copies
     read and write over PCIe."""
     _elementwise(x, (torch.float32, torch.bfloat16), block_rows, "rmw_hbm")
+    w = work("rmw_hbm", x.numel(), x.element_size())
     if not _build.launches_kernel(x):
-        counts.PLAIN["rmw_hbm"] += 1
-        return ref.rmw_ref(x)
+        with counts.plain("rmw_hbm", w):
+            return ref.rmw_ref(x)
     dev = _build.compute_device(x)
     out = _build.empty_like_placed(x)
     n_vec = x.numel() * x.element_size() // 16
@@ -254,7 +277,7 @@ def rmw_hbm(x: torch.Tensor, *,
             x.data_ptr(), out.data_ptr(), n_vec,
             chunk_grid(n_vec, kernel_chunk_vec("rmw")),
             int(x.dtype == torch.bfloat16), _build.current_stream(dev))
-    counts.LAUNCHES["rmw_hbm"] += 1
+    counts.launched("rmw_hbm", w)
     return out
 
 
@@ -271,9 +294,10 @@ def copy_hbm(x: torch.Tensor, *,
     card, or in pinned host memory (over PCIe)."""
     _elementwise(x, (torch.float32, torch.bfloat16, torch.int32),
                  block_rows, "copy_hbm")
+    w = work("copy_hbm", x.numel(), x.element_size())
     if not _build.launches_kernel(x):
-        counts.PLAIN["copy_hbm"] += 1
-        return ref.copy_ref(x)
+        with counts.plain("copy_hbm", w):
+            return ref.copy_ref(x)
     dev = _build.compute_device(x)
     out = _build.empty_like_placed(x)
     n_vec = x.numel() * x.element_size() // 16
@@ -281,7 +305,7 @@ def copy_hbm(x: torch.Tensor, *,
             out.data_ptr(), n_vec,
             chunk_grid(n_vec, kernel_chunk_vec("copy")),
             _build.current_stream(dev))
-    counts.LAUNCHES["copy_hbm"] += 1
+    counts.launched("copy_hbm", w)
     return out
 
 
@@ -306,9 +330,10 @@ def triad_hbm(b: torch.Tensor, c: torch.Tensor, *, scalar: float = 3.0,
     _grid_blocks(b.shape[0], block_rows)
     if b.device != c.device or b.is_pinned() != c.is_pinned():
         raise ValueError("triad_hbm: b and c must lie in the same memory")
+    w = work("triad_hbm", b.numel())
     if not _build.launches_kernel(b):
-        counts.PLAIN["triad_hbm"] += 1
-        return ref.triad_ref(b, c, scalar)
+        with counts.plain("triad_hbm", w):
+            return ref.triad_ref(b, c, scalar)
     dev = _build.compute_device(b)
     out = _build.empty_like_placed(b)
     n_vec = b.numel() // 4
@@ -316,7 +341,7 @@ def triad_hbm(b: torch.Tensor, c: torch.Tensor, *, scalar: float = 3.0,
             b.data_ptr(), c.data_ptr(), out.data_ptr(), n_vec, float(scalar),
             chunk_grid(n_vec, kernel_chunk_vec("triad")),
             _build.current_stream(dev))
-    counts.LAUNCHES["triad_hbm"] += 1
+    counts.launched("triad_hbm", w)
     return out
 
 
@@ -423,11 +448,12 @@ def read_vmem(x: torch.Tensor, *, repeats: int = 16) -> torch.Tensor:
                         members=True)
     if repeats < 1:
         raise ValueError("read_vmem: repeats must be >= 1")
-    if not _build.launches_kernel(x):
-        counts.PLAIN["read_vmem"] += 1
-        return ref.read_vmem_ref(x, repeats)
-    dev = _build.compute_device(x)
     g, rows, stride = _build.member_layout(x)
+    w = work("read_vmem", g * rows * LANE, repeats=repeats)
+    if not _build.launches_kernel(x):
+        with counts.plain("read_vmem", w):
+            return ref.read_vmem_ref(x, repeats)
+    dev = _build.compute_device(x)
     lay = vmem_layout(rows, _sm_count(dev))
     partials = torch.empty((g, lay.ctas), dtype=torch.float32, device=dev)
     out = torch.empty(g, dtype=torch.float32, device=dev)
@@ -437,7 +463,7 @@ def read_vmem(x: torch.Tensor, *, repeats: int = 16) -> torch.Tensor:
             x.data_ptr(), partials.data_ptr(), out.data_ptr(),
             _ticket(dev, st).data_ptr(), rows * LANE // 4, stride // 4, g,
             lay.slice_rows * (LANE // 4), repeats, st)
-    counts.LAUNCHES["read_vmem"] += 1
+    counts.launched("read_vmem", w)
     return out if x.dim() == 3 else out[0]
 
 
@@ -455,15 +481,16 @@ def write_vmem(shape_rows: int, *, repeats: int = 16, device="cuda",
     if repeats < 1:
         raise ValueError("write_vmem: repeats must be >= 1")
     dst = _destination(shape_rows, device, out, "write_vmem")
+    w = work("write_vmem", shape_rows * LANE)
     if not _build.launches_kernel(dst):
-        counts.PLAIN["write_vmem"] += 1
-        return dst.copy_(ref.write_vmem_ref(shape_rows, repeats))
+        with counts.plain("write_vmem", w):
+            return dst.copy_(ref.write_vmem_ref(shape_rows, repeats))
     dev = _build.compute_device(dst)
     lay = vmem_layout(shape_rows, _sm_count(dev))
     _launch("repro_write_vmem", (_VP, _LL, _I, _I, _VP),
             dst.data_ptr(), dst.numel() // 4, lay.slice_rows * (LANE // 4),
             repeats, _build.current_stream(dev))
-    counts.LAUNCHES["write_vmem"] += 1
+    counts.launched("write_vmem", w)
     return dst
 
 

@@ -52,7 +52,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "repro_torch.parallel.sharding", "repro_torch.train.step",
             "repro_torch.launch.mesh", "repro_torch.launch.serve",
             "repro_torch.serve.engine", "repro_torch.serve.monitor",
-            "repro_torch.runtime.fault_tolerance"} <= set(mods)
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.analysis", "repro_torch.analysis.cost",
+            "repro_torch.analysis.roofline",
+            "repro_torch.analysis.profile"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
