@@ -47,6 +47,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -998,6 +999,9 @@ def phase_checks(records: dict, launched: dict, plain: dict) -> None:
 # ---------------------------------------------------------------------------
 
 MATRIX_ITERS = 50
+# the surface's uncontended hbm read edge (H100_SXM's fitted model) must
+# lie this close to the same run's measured 1 GiB read
+EDGE_REL = 0.10
 # letters whose group is measured over a stacked member axis (streams and
 # random chases); every other letter's group shares one measurement
 STACKED = ("r", "s", "c", "x", "b", "l", "m")
@@ -1108,9 +1112,12 @@ def check_plan(name: str, plan, caps: dict, objects) -> dict:
             "predicted_step_ns": plan.total_predicted_ns()}
 
 
-def phase_matrix() -> dict:
+def phase_matrix(read_gbps: float) -> dict:
     """Drives the loop through its entry points.  Returns what the lone
-    re-measurement needs: every signature group measured."""
+    re-measurement needs: every signature group measured.  ``read_gbps``:
+    the main path's 1 GiB ``r`` read of this run, which the surface's
+    uncontended ``hbm`` edge (the device tree's model) must lie within
+    ``EDGE_REL`` of."""
     coord = CoreCoordinator(PoolManager(H100_SXM, DEV), H100_SXM,
                             backend="cuda", device=DEV)
     runs = []            # (call, specs, MatrixResult) of each run_matrix
@@ -1211,7 +1218,12 @@ def phase_matrix() -> dict:
             checks[f"curvedb_round_trip:{name}"] = round_trips(d, tmp, name)
     checks["pools_released"] = not any(p.allocated
                                        for p in coord.pools.pools())
+    edge_gbps = roofline.effective_hbm_bw(db_surface, n_stressors=0) / 1e9
+    checks["hbm_r_edge_near_main_path_read"] = \
+        abs(edge_gbps - read_gbps) <= EDGE_REL * read_gbps
     emit({"phase": "matrix", "platform": H100_SXM.name, "backend": "cuda",
+          "hbm_r_edge_gbps": edge_gbps, "main_path_read_gbps": read_gbps,
+          "edge_over_read": edge_gbps / read_gbps,
           "iters": MATRIX_ITERS, "seconds": round(loop_seconds, 2),
           "groups": [{k: v for k, v in g.items() if not k.startswith("_")}
                      for g in groups],
@@ -2509,6 +2521,11 @@ FLASH_KERNEL_RE = re.compile(
 # of six mamba2 prefills, and 4 of 8 traces of a qwen2-1.5b training step
 # (17 116 kernels) lost 2-79 scattered records, on the H100
 TRACES = 5
+# part_shares: the small kernels a trace starts with, and the host's wait,
+# the card idle, between them and the call (a trace's first records can be
+# lost, see part_shares)
+TRACE_PADS = 64
+TRACE_SETTLE_S = 0.1
 
 
 def profile_calls(fn, n: int) -> dict:
@@ -2848,7 +2865,13 @@ def part_shares(fn, parts) -> dict:
     part's that the host recorded for that call.  A trace that lacks a
     marker's record is taken again, up to ``TRACES`` in all; the
     shares are the last trace's, and ``markers_seen`` says whether it was
-    whole."""
+    whole.  Late in this script a trace loses its first 31 kernel records
+    (on an H100 80GB HBM3 at 700 W: of a mamba2 prefill, its first 30
+    kernels and its first marker, in every trace; in a fresh process
+    none): each trace therefore starts with ``TRACE_PADS`` small kernels
+    of its own, waits ``TRACE_SETTLE_S`` on the host, the card idle, and
+    only then runs the call; the pads, the kernels before that idle gap,
+    are left out."""
     order: list = []
     saved = []
     for module, name, label in parts:
@@ -2863,6 +2886,8 @@ def part_shares(fn, parts) -> dict:
             return out
 
         setattr(module, name, marked)
+    by_trace = []
+    pad = torch.zeros(1, device=DEV)
     try:
         fn()
         sync()
@@ -2870,13 +2895,26 @@ def part_shares(fn, parts) -> dict:
             order.clear()
             with torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(TRACE_PADS):
+                    pad.add_(1.0)
+                sync()
+                time.sleep(TRACE_SETTLE_S)
                 fn()
                 sync()
             events = sorted(
                 (e for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA),
                 key=lambda e: e.time_range.start)
-            markers = sum("spin_kernel" in e.name for e in events)
+            # the call starts after the one idle gap among the first events
+            gap_us = TRACE_SETTLE_S / 2 * 1e6
+            first = next((i for i in range(1, min(len(events),
+                                                   TRACE_PADS + 1))
+                          if events[i].time_range.start
+                          - events[i - 1].time_range.end > gap_us), 0)
+            events = events[first:]
+            at = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+            markers = len(at)
+            by_trace.append([markers, len(events), at[:1], first])
             if markers == 2 * len(order):
                 break
     finally:
@@ -2896,6 +2934,9 @@ def part_shares(fn, parts) -> dict:
             ms[inside] += t
     return {"device_ms": total, "markers_seen": markers,
             "markers_expected": 2 * len(order), "traces": traces,
+            # each trace's markers, kernels, its first marker's place and
+            # the pads seen
+            "by_trace": by_trace,
             "parts": {label: {"calls": order.count(label),
                               "device_ms": ms[label],
                               "share": ms[label] / total if total else None}
@@ -3813,6 +3854,263 @@ def phase_train(smi: str, bwd_row: dict) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the distributed phase: the mesh path of launch/train over NCCL, world 1
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3
+DIST_ARGV = ["--arch", "qwen2-1.5b", "--steps", str(DIST_STEPS),
+             "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+             "--microbatches", str(TRAIN_MB), "--remat", "layer",
+             "--seed", "0", "--no-checkpoint", "--no-advice",
+             "--data", "1", "--model", "1"]
+# (a): the mesh path's losses and parameters beside the one-device step's
+# (the same arithmetic on one rank; one bf16 rounding allowed a leaf,
+# relative to the leaf's largest element)
+DIST_LOSS_REL = 1e-5
+DIST_LEAF_REL = 2.0 ** -8
+
+
+# (c): the metrics a step all-reduces over the batch group: ce_loss,
+# tokens, loss, and with experts moe_aux and moe_drop_frac
+DIST_METRICS = 3
+DIST_MOE_METRICS = 5
+
+
+def planned_collectives(rules, tcfg, params_struct) -> list:
+    """(c)'s oracle: the collectives one train step on ``rules.mesh``
+    must run, as its specs imply them, in launch order, ``[kind, operand
+    bytes, group size]`` a call (the operand as ``analysis.cost`` counts
+    it: an all-gather's input, an all-reduce's tensor).  Each parameter
+    gathered over its spec's axes; over the batch axes each float32
+    gradient block all-reduced (after its int8 scale's MAX with
+    ``int8_ef``), then the metrics; the sums of squares all-reduced once
+    a set of moment axes; each updated block gathered over the axes
+    ZeRO-1 adds."""
+    from repro_torch.parallel import collectives
+    mesh = rules.mesh
+    specs = step_mod.state_specs(rules.cfg, rules, tcfg, params_struct)
+    flat = tree_mod.leaves(params_struct)
+    pspecs = tree_mod.leaves(specs["params"])
+    mspecs = tree_mod.leaves(specs["opt"].m)
+
+    def axes(named):
+        return tuple(a for a in mesh.axis_names if a in named)
+
+    def size(ax):
+        return math.prod(mesh.axis_sizes[a] for a in ax)
+
+    def nbytes(p, spec, itemsize):
+        return math.prod(collectives.block_shape(tuple(p.shape), spec,
+                                                 mesh)) * itemsize
+
+    calls = []
+    for p, ps in zip(flat, pspecs):
+        ax = axes(collectives.spec_axes(ps))
+        if ax:
+            calls.append(["all-gather", nbytes(p, ps, p.element_size()),
+                          size(ax)])
+    batch = axes(rules.batch)
+    if batch:
+        for p, ps in zip(flat, pspecs):
+            if tcfg.grad_compression == "int8_ef":
+                calls.append(["all-reduce", 4, size(batch)])
+            calls.append(["all-reduce", nbytes(p, ps, 4), size(batch)])
+        n = DIST_MOE_METRICS if rules.cfg.moe is not None else DIST_METRICS
+        calls.append(["all-reduce", 4 * n, size(batch)])
+    keys = [axes(collectives.spec_axes(ms)) for ms in mspecs]
+    for key in dict.fromkeys(k for k in keys if k):
+        calls.append(["all-reduce", 4 * keys.count(key), size(key)])
+    for p, ps, ms in zip(flat, pspecs, mspecs):
+        ax = axes(collectives.spec_axes(
+            collectives.relative_spec(ps, ms, p.dim())))
+        if ax:
+            calls.append(["all-gather", nbytes(p, ms, p.element_size()),
+                          size(ax)])
+    return calls
+
+
+def phase_distributed(smi: str) -> dict:
+    """qwen2-1.5b at full width and depth through ``launch.train``'s mesh
+    path: one process group (``nccl``, rank 0, world 1, a file store in a
+    temporary directory, destroyed in a ``finally``; no subprocess), the
+    (1, 1) mesh bound to it, ZeRO-1 on, ``train``'s shape and settings,
+    ``DIST_STEPS`` steps from the same seed, state and batches as a
+    one-device run of the same launcher before the group exists.  (a) the
+    losses within ``DIST_LOSS_REL`` and every parameter leaf within one
+    bf16 rounding of the one-device run's, and how many are bit-equal;
+    (b) ``compressed_psum`` over the NCCL group on one step's float32
+    gradients, leaf by leaf, bit-equal to ``compress_decompress``; (c)
+    the collectives ``analysis.cost`` counts in one sharded step equal,
+    in order, kind and bytes, those the specs imply
+    (:func:`planned_collectives`), and a ``roofline`` line with its
+    collective term; (d) ``elastic_remesh`` (1,1) -> (1,1) through the
+    host gives the state back bit-equal; (e) rows 12 and 12b launched in
+    the mesh run, their plain versions not.  Returns the mesh run's
+    launches of both kernels."""
+    from repro_torch.launch.mesh import describe
+    from repro_torch.parallel import collectives, compression
+    from repro_torch.runtime.fault_tolerance import elastic_remesh
+    t_phase = time.perf_counter()
+    checks = {}
+
+    # the one-device run of today's step, before any process group
+    if collectives.initialized():
+        fail("distributed: a process group existed before the phase")
+    one = train_cli.run(DIST_ARGV, verbose=False)
+    sync()
+    one_losses = [m["loss"] for m in one.result.metrics_history]
+    one_params = [t.to("cpu") for t in tree_mod.leaves(one.state["params"])]
+    one_step_ms = statistics.median(one.step_seconds[1:]) * 1e3
+    checks["one_device_mesh_unbound"] = not one.mesh.bound
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    store_dir = tempfile.mkdtemp(prefix="repro_dist_")
+    created = False
+    try:
+        created = collectives.setup("nccl", rank=0, world_size=1,
+                                    store_path=os.path.join(store_dir,
+                                                            "store"))
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        t0 = time.perf_counter()
+        run = train_cli.run(DIST_ARGV, verbose=False)
+        sync()
+        entry_s = time.perf_counter() - t0
+        launched, plain = counts.snapshot()
+        by_instance = dict(counts.INSTANCES)
+        peak = torch.cuda.max_memory_allocated()
+        cfg, state, mesh = run.cfg, run.state, run.mesh
+        layers = cfg.n_layers
+        fwd_want = 2 * layers * TRAIN_MB * DIST_STEPS
+        bwd_want = layers * TRAIN_MB * DIST_STEPS
+        checks["group_nccl_world_1"] = (
+            torch.distributed.get_backend() == "nccl"
+            and torch.distributed.get_world_size() == 1)
+        checks["mesh_bound_1x1"] = (mesh.bound and mesh.rank == 0 and
+                                    describe(mesh) == "data=1xmodel=1")
+        checks["zero1_on"] = run.tcfg.zero1 and run.shardings is not None
+        checks["full_width_bf16"] = (
+            (cfg.n_layers, cfg.d_model, cfg.vocab_size,
+             state["params"]["embed"].dtype)
+            == (28, 1536, 151936, torch.bfloat16))
+
+        # (a) the losses and the parameters beside the one-device run's
+        losses = [m["loss"] for m in run.result.metrics_history]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(losses, one_losses)) if losses else math.inf
+        checks["a:steps_run"] = len(losses) == len(one_losses) == DIST_STEPS
+        checks["a:losses_within_1e-5_rel"] = loss_rel <= DIST_LOSS_REL
+        leaf_rel, bit_equal = [], 0
+        for t, o in zip(tree_mod.leaves(state["params"]), one_params):
+            t = t.to("cpu")
+            bit_equal += int(torch.equal(t, o))
+            scale = float(o.float().abs().max())
+            leaf_rel.append(float((t.float() - o.float()).abs().max())
+                            / max(scale, 1e-30))
+        checks["a:leaves_within_one_bf16_rounding"] = \
+            len(leaf_rel) == len(one_params) and \
+            max(leaf_rel) <= DIST_LEAF_REL
+        del one_params
+
+        step_ms = statistics.median(run.step_seconds[1:]) * 1e3
+        step_fn = step_mod.make_train_step(cfg, run.rules, run.tcfg,
+                                           microbatches=TRAIN_MB)
+        loader = DataLoader(cfg, run.shape, device=DEV, seed=0)
+        batch = loader.device_batch(0)
+
+        # (b) compressed_psum over the NCCL group = compress_decompress
+        grads_fn = step_mod.make_grads_fn(cfg, run.rules, run.tcfg,
+                                          microbatches=TRAIN_MB)
+        _, grads = grads_fn(state["params"], batch.tokens, batch.labels)
+        psum_equal, n_leaves = 0, len(grads)
+        group = collectives.axis_group(mesh, run.rules.batch).group
+        while grads:
+            g = {"g": grads.pop(0)}
+            e = {"g": torch.zeros_like(g["g"])}
+            m1, e1 = compression.compressed_psum(g, e, group)
+            m2, e2 = compression.compress_decompress(g, e)
+            psum_equal += int(torch.equal(m1["g"], m2["g"])
+                              and torch.equal(e1["g"], e2["g"]))
+            del g, e, m1, e1, m2, e2
+        checks["b:compressed_psum_equals_compress_decompress"] = \
+            psum_equal == n_leaves
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) elastic_remesh (1,1) -> (1,1) through the host
+        t0 = time.perf_counter()
+        again = elastic_remesh(state, run.shardings, shardings=run.shardings)
+        remesh_s = time.perf_counter() - t0
+        remesh_equal = all(
+            torch.equal(a, b) and a.device == b.device and
+            a.data_ptr() != b.data_ptr()
+            for a, b in zip(tree_mod.leaves(again), tree_mod.leaves(state)))
+        checks["d:remesh_bit_equal"] = remesh_equal and \
+            len(tree_mod.leaves(again)) == len(tree_mod.leaves(state))
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the collectives one sharded step runs, counted
+        counted = count_call(step_fn, state, batch.tokens, batch.labels)
+        c = counted[0]
+        want = planned_collectives(
+            run.rules, run.tcfg, step_mod.state_struct(cfg, run.tcfg)["params"])
+        got = [[o.kind, o.bytes_per_call, o.group_size]
+               for o in c.collectives]
+        checks["c:collectives_as_the_specs_imply"] = got == want
+        checks["c:collective_bytes"] = \
+            c.collective_bytes == sum(n for _, n, _ in want)
+        roofline_line(f"{cfg.name} train step on a 1x1 mesh (nccl)", cfg,
+                      TRAIN_SHAPE, counted, step_ms,
+                      TRAIN_BATCH * TRAIN_SEQ)
+
+        # (e) the kernels of the path
+        checks["e:forward_twice_a_layer_and_microbatch"] = \
+            launched["flash_attention"] == fwd_want
+        checks["e:forward_on_wgmma_bf16"] = \
+            by_instance["flash_attention:wgmma_bf16"] == fwd_want
+        checks["e:backward_once_a_layer_and_microbatch"] = \
+            launched["flash_attention_bwd"] == bwd_want
+        checks["e:backward_on_wgmma_bf16"] = \
+            by_instance["flash_attention_bwd:wgmma_bf16"] == bwd_want
+        checks["e:no_plain_version"] = not any(plain.values())
+        del run, state, loader, batch, step_fn, counted, c
+    finally:
+        if created:
+            collectives.teardown()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    checks["group_destroyed"] = not collectives.initialized()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "distributed", "card": smi, "argv": DIST_ARGV,
+          "backend": "nccl", "world_size": 1, "mesh": "data=1xmodel=1",
+          "entry_seconds": entry_s,
+          "losses": losses, "one_device_losses": one_losses,
+          "loss_rel_max": loss_rel, "leaf_rel_max": max(leaf_rel),
+          "leaves": len(leaf_rel), "leaves_bit_equal": bit_equal,
+          "psum_leaves_bit_equal": psum_equal,
+          "collectives": got, "collectives_planned": want,
+          "collective_bytes": sum(n for _, n, _ in want),
+          "remesh_seconds": remesh_s,
+          "step_ms_median": step_ms, "one_device_step_ms_median": one_step_ms,
+          "step_over_one_device": step_ms / one_step_ms,
+          "peak_bytes": peak, "launches": launched,
+          "launches_by_instance": by_instance, "plain_calls": plain,
+          "want_launches": {"flash_attention": fwd_want,
+                            "flash_attention_bwd": bwd_want},
+          "checks": checks, "seconds": time.perf_counter() - t_phase})
+    for k_, ok in checks.items():
+        if not ok:
+            fail(f"distributed: check {k_}")
+    return {"flash_attention": launched["flash_attention"],
+            "flash_attention_bwd": launched["flash_attention_bwd"]}
+
+
+# ---------------------------------------------------------------------------
 # the roofline of every model path: the cost counter's count of the calls
 # that serve, serve_families and train time, beside their measured times
 # ---------------------------------------------------------------------------
@@ -3877,7 +4175,9 @@ def roofline_line(path: str, cfg, shape, counted: tuple, measured_ms: float,
     checks = {"a:useful_ratio_positive": terms.useful_ratio > 0,
               "a:no_product_missed": c.flops >= floor,
               "b:not_faster_than_roofline":
-                  measured_s >= ROOF_MIN * terms.t_bound}
+                  measured_s >= ROOF_MIN * terms.t_bound,
+              "b:not_faster_than_surface_rate":
+                  measured_s >= ROOF_MIN * c.bytes / eff_bw}
     ops_ = sorted(c.ops.items(), key=lambda kv: -kv[1][2])
     line = {"phase": "roofline", "path": path, "config": cfg.name,
             "n_layers": cfg.n_layers, **dataclasses.asdict(terms),
@@ -3979,7 +4279,7 @@ def main() -> int:
     records = phase_main_path(walk_us)
     launched, plain = counts.snapshot()
     counts.reset()
-    matrix = phase_matrix()
+    matrix = phase_matrix(records["r,hbm,1G"]["gbps"])
     m_launched, m_plain = counts.snapshot()
     emit({"phase": "matrix_launches", "launches": m_launched,
           "plain_calls": m_plain})
@@ -4037,6 +4337,14 @@ def main() -> int:
     # the phase runs between a reset and a read of the counts
     bwd_row = phase_train_kernel()
     train_fwd = phase_train(smi, bwd_row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the mesh path over NCCL (world 1): the phase resets and reads the
+    # counts around its mesh run
+    dist_launches = phase_distributed(smi)
+    bwd_row["launches_by_path"]["distributed"] = \
+        dist_launches["flash_attention_bwd"]
+    bwd_row["launches"] += dist_launches["flash_attention_bwd"]
     # the roofline: (c), then every path's line (printed in its phase)
     roofline_same_count()
     emit({"phase": "roofline_done", "card": smi, "paths": ROOF["lines"],
@@ -4045,8 +4353,11 @@ def main() -> int:
     flash_row["launches_by_path"] = {"attention": flash_row["launches"],
                                      "serve": serve["launches"],
                                      "serve_families": families,
-                                     "train": train_fwd}
-    flash_row["launches"] += serve["launches"] + families + train_fwd
+                                     "train": train_fwd,
+                                     "distributed":
+                                         dist_launches["flash_attention"]}
+    flash_row["launches"] += (serve["launches"] + families + train_fwd
+                              + dist_launches["flash_attention"])
     flash_row["serve_call"] = serve["call"]
 
     phase_checks(records, launched, plain)

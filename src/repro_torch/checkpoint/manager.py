@@ -19,6 +19,12 @@ The port of ``repro/checkpoint/manager.py`` for one device:
 * **async**: ``save_async`` copies the tensors to host memory, then writes
   on a background thread; the loop waits only for the copy.
 * **keep-N GC**, the newest checkpoints kept.
+* **on a mesh** (``shardings``, the state's placement: a tree of
+  :class:`repro_torch.parallel.collectives.NamedSharding`): every rank
+  gathers the whole state, rank 0 writes it, in the same files and
+  manifest as on one device, and the ranks meet once it is on disk
+  (:meth:`wait`); every rank reads a checkpoint back whole and keeps its
+  block, so a checkpoint written on one mesh restores on any other.
 """
 from __future__ import annotations
 
@@ -56,9 +62,14 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, *, keep: int = 3):
+    def __init__(self, directory: str, *, keep: int = 3, shardings=None):
         self.dir = directory
         self.keep = keep
+        self.shardings = shardings
+        self.writer = True
+        if shardings is not None:
+            mesh = tree.leaves(shardings)[0].mesh
+            self.writer = mesh.bound and mesh.rank == 0
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -80,18 +91,28 @@ class CheckpointManager:
         return s[-1] if s else None
 
     # -- save ------------------------------------------------------------------
-    @staticmethod
-    def _snapshot(state):
-        """(path, host array, dtype name) of every leaf, copied now."""
+    def _snapshot(self, state):
+        """(path, host array, dtype name) of every leaf, copied now; on a
+        mesh the whole leaves (every rank gathers), None off rank 0."""
+        if self.shardings is not None:
+            from repro_torch.parallel.collectives import gather_tree
+            state = gather_tree(state, self.shardings)
+        if not self.writer:
+            return None
         return [(path, _to_numpy(t), _dtype_name(t))
                 for path, t in tree.flatten_with_path(state)]
 
     def save(self, state, step: int) -> None:
-        self._write(self._snapshot(state), step)
+        host = self._snapshot(state)
+        if host is not None:
+            self._write(host, step)
+        self._meet()
 
     def save_async(self, state, step: int) -> None:
         self.wait()                       # one in flight at a time
         host = self._snapshot(state)
+        if host is None:
+            return
 
         def work():
             try:
@@ -109,6 +130,14 @@ class CheckpointManager:
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        self._meet()
+
+    def _meet(self) -> None:
+        """On a mesh, every rank waits here until rank 0's writes are on
+        disk."""
+        if self.shardings is not None:
+            from repro_torch.parallel.collectives import barrier
+            barrier()
 
     def _write(self, items, step: int) -> None:
         final = self._step_dir(step)
@@ -136,6 +165,8 @@ class CheckpointManager:
         self._gc()
 
     def _gc(self) -> None:
+        if not self.writer:
+            return
         steps = self.steps()
         for s in steps[:-self.keep] if self.keep else []:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
@@ -146,26 +177,38 @@ class CheckpointManager:
         """Restore into the structure of ``target`` (a tree of tensors, or
         of ``meta`` tensors for shapes and dtypes alone): each leaf in the
         target leaf's dtype, on ``device`` (default: the target leaf's
-        device, the CPU for a meta leaf).  A leaf whose shape differs from
-        the target's raises ``ValueError``; a missing leaf ``KeyError``."""
+        device, the CPU for a meta leaf).  On a mesh ``target`` holds this
+        rank's blocks, and each whole leaf read is cut to the block.  A
+        leaf whose shape differs from the target's raises ``ValueError``;
+        a missing leaf ``KeyError``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = self._step_dir(step)
         with open(os.path.join(d, MANIFEST)) as f:
             manifest = json.load(f)
+        shardings = (tree.leaves(self.shardings) if self.shardings is not None
+                     else None)
         leaves = []
-        for path, tgt in tree.flatten_with_path(target):
+        for i, (path, tgt) in enumerate(tree.flatten_with_path(target)):
             meta = manifest["leaves"].get(path)
             if meta is None:
                 raise KeyError(
                     f"checkpoint step {step} missing leaf {path!r}")
             arr = np.load(os.path.join(d, meta["file"]))
-            if list(arr.shape) != list(tgt.shape):
+            t = _from_numpy(arr, meta["dtype"])
+            if shardings is not None:
+                from repro_torch.parallel.collectives import shard
+                sh = shardings[i]
+                if tuple(arr.shape) != tuple(sh.shape):
+                    raise ValueError(
+                        f"leaf {path}: checkpoint shape {arr.shape} != "
+                        f"placement's {sh.shape}")
+                t = shard(t, sh.spec, sh.mesh)
+            if list(t.shape) != list(tgt.shape):
                 raise ValueError(
-                    f"leaf {path}: checkpoint shape {arr.shape} != "
+                    f"leaf {path}: checkpoint shape {tuple(t.shape)} != "
                     f"target {tuple(tgt.shape)}")
             dev = device or ("cpu" if tgt.is_meta else tgt.device)
-            t = _from_numpy(arr, meta["dtype"]).to(tgt.dtype)
-            leaves.append(t.to(dev))
+            leaves.append(t.to(tgt.dtype).to(dev))
         return tree.unflatten_like(target, leaves)

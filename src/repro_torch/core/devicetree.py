@@ -118,8 +118,18 @@ class Platform:
 # ``vmem`` (14.4 ns over 128 KiB staged in shared memory) and ``host``
 # (1228 ns over 64 MiB of pinned host memory).
 #
+# FITTED to a measurement: the ``hbm`` node's ``max_mlp`` (2099 lines in
+# flight).  The model's one-engine ``r`` stream on ``hbm`` then runs at
+# 3127.4 GB/s over the measured 341 ns hop, the 3127 GB/s a 1 GiB read
+# measures (``chip_smoke.py``'s ``main_path``, NVIDIA H100 80GB HBM3 at
+# 700.00 W; by Little's law about 3127e9 x 341e-9 / 512 = 2083 lines,
+# plus the queueing at the 3350 GB/s station).  The old 1024 gave 1535 GB/s,
+# half the card's.  The ``noc`` port (5500 GB/s, 4096 entries) caps
+# neither one engine (2099 lines in flight) nor eight (3349.6 GB/s, the
+# ``hbm`` station's rate).
+#
 # MODELING ESTIMATES (not measured, not published): the ``peer`` latency,
-# every ``max_mlp``, every port's ``queue_entries``, the bandwidth of the
+# every other ``max_mlp``, every port's ``queue_entries``, the bandwidth of the
 # shared-memory and L2 nodes and of the "noc", "core" and "l2bank" ports,
 # and the host pool's size.  They are chosen so that one engine reaches a
 # plausible share of a module's peak and an 8-engine ladder saturates it.
@@ -138,6 +148,8 @@ class Platform:
 # ---------------------------------------------------------------------------
 
 SMEM_PER_SM_BYTES = SMEM_PER_BLOCK_BYTES     # 227 KB a block can use
+HBM_MAX_MLP = 2099          # fitted: one r engine = the measured 1 GiB read
+HBM_READ_GBPS = 3127.0      # that read (main_path, H100 80GB HBM3, 700 W)
 L2_BYTES = 50 << 20
 
 H100_SXM = Platform(
@@ -148,7 +160,8 @@ H100_SXM = Platform(
     memories={
         # base latencies measured (see above); the rest modeled
         "hbm": MemoryNode("hbm", "hbm", 80 * 10**9, 3350.0, 341.0,
-                          port="noc", max_mlp=1024, memory_kind="device"),
+                          port="noc", max_mlp=HBM_MAX_MLP,
+                          memory_kind="device"),
         "vmem": MemoryNode("vmem", "vmem", SMEM_PER_SM_BYTES, 33_000.0,
                            14.4, port="core", max_mlp=64,
                            memory_kind=None),

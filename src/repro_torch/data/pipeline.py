@@ -1,7 +1,7 @@
 """Token data pipeline: synthetic + memmap sources, prefetch.
 
-The port of ``repro/data/pipeline.py`` for one device.  The sources are
-pure numpy and give the reference's tokens bit for bit:
+The port of ``repro/data/pipeline.py``.  The sources are pure numpy and
+give the reference's tokens bit for bit:
 
 ``SyntheticSource``  tokens of a step are a pure function of
                      ``(seed, step)`` — restart-safe.
@@ -12,7 +12,11 @@ pure numpy and give the reference's tokens bit for bit:
 frontend stubs (audio frames / VLM prefix embeddings) where the
 architecture needs them, and puts a batch on the device through pinned
 host memory with ``non_blocking`` copies, so the host does not wait for
-the card; its iterator prefetches batches on a background thread.
+the card; its iterator prefetches batches on a background thread.  With
+``mesh=`` it yields this rank's rows of the global batch: the block that
+``P(batch axes, None)`` places on the rank, the batch axes those
+:func:`repro_torch.parallel.sharding.make_rules` picks for the global
+batch, as the reference's batch sharding places rows on its devices.
 """
 from __future__ import annotations
 
@@ -66,11 +70,18 @@ class Batch:
 
 class DataLoader:
     def __init__(self, cfg: ModelConfig, shape: ShapeSpec, *,
-                 source=None, device="cuda", seed: int = 0,
+                 source=None, mesh=None, device="cuda", seed: int = 0,
                  prefetch: int = 2):
         self.cfg = cfg
         self.shape = shape
         self.source = source or SyntheticSource(cfg.vocab_size, seed)
+        self.rows = slice(None)         # this rank's rows of a batch
+        if mesh is not None:
+            from repro_torch.parallel.collectives import block_slices
+            from repro_torch.parallel.sharding import P, make_rules
+            b = shape.global_batch
+            axes = make_rules(cfg, mesh, global_batch=b).batch
+            self.rows = block_slices((b,), P(axes or None), mesh)[0]
         self.device = resolve_device(device)
         self.seed = seed
         self.prefetch = prefetch
@@ -104,11 +115,13 @@ class DataLoader:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def device_batch(self, step: int) -> Batch:
+        """This rank's rows of the step's batch, on the device."""
         hb = self.host_batch(step)
         fe = None
         if hb.frontend is not None:
-            fe = {k: self._put(v) for k, v in hb.frontend.items()}
-        return Batch(self._put(hb.tokens), self._put(hb.labels), fe)
+            fe = {k: self._put(v[self.rows]) for k, v in hb.frontend.items()}
+        return Batch(self._put(hb.tokens[self.rows]),
+                     self._put(hb.labels[self.rows]), fe)
 
     # -- prefetching iterator ---------------------------------------------
     def __iter__(self) -> Iterator[Batch]:

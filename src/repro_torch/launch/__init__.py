@@ -1,1 +1,1 @@
-"""Launchers: the host mesh and the serving entry point."""
+"""Launchers: meshes, and the serving and training entry points."""

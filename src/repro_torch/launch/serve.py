@@ -27,7 +27,7 @@ from repro_torch.configs.base import ModelConfig, ServeConfig, get_config
 from repro_torch.core.characterize import characterize
 from repro_torch.core.coordinator import CoreCoordinator
 from repro_torch.core.placement import PlacementAdvisor
-from repro_torch.launch.mesh import HostMesh, describe, make_host_mesh
+from repro_torch.launch.mesh import Mesh, describe, make_host_mesh
 from repro_torch.models import lm
 from repro_torch.parallel.sharding import make_rules
 from repro_torch.serve.engine import GenerateResult, ServeEngine, cache_bytes
@@ -37,7 +37,7 @@ from repro_torch.serve.engine import GenerateResult, ServeEngine, cache_bytes
 class ServeRun:
     """What one :func:`run` made and measured."""
     cfg: ModelConfig
-    mesh: HostMesh
+    mesh: Mesh
     engine: ServeEngine
     prompts: torch.Tensor
     frontend: Optional[Dict[str, torch.Tensor]]
@@ -97,6 +97,10 @@ def serve(cfg: ModelConfig, args: argparse.Namespace) -> ServeRun:
     chose ``cfg`` in :func:`run` and are not read here."""
     device = resolve_device(args.device)
     mesh = make_host_mesh(args.data, args.model)
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"serve: a mesh of {describe(mesh)}; decode on a mesh is not "
+            "ported yet, serve on one device")
     rules = make_rules(cfg, mesh, global_batch=args.batch,
                        shape_kind="decode")
 

@@ -1,19 +1,27 @@
 """End-to-end training entry point.
 
-The port of ``repro/launch/train.py`` for one device: config -> data
-pipeline -> microbatched train step (remat, chunked CE, AdamW, optional
-int8-EF compression; attention through the flash kernel and its backward
-kernel) -> resilient loop (checkpoint/restart, straggler monitor), with
-the MEMSCOPE placement advisory for the optimizer state.  Runs on the
-card unless ``--device cpu``::
+The port of ``repro/launch/train.py``: config -> mesh -> sharding rules
+-> data pipeline -> microbatched train step (remat, chunked CE, AdamW,
+ZeRO-1, optional int8-EF compression; attention through the flash kernel
+and its backward kernel) -> resilient loop (checkpoint/restart, straggler
+monitor), with the MEMSCOPE placement advisory for the optimizer state.
+Runs on the card unless ``--device cpu``::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --reduced --steps 50 --batch 8 --seq 128 --device cpu
 
+On several processes the mesh comes from the process group, ``nccl`` for
+``--device cuda`` (one card a rank) and ``gloo`` for ``--device cpu``;
+the state is sharded by ``state_specs`` and the batch by
+``batch_specs``::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen2-1.5b --reduced --data 2 --model 2 --device cpu
+
+A group made by the caller (``parallel.collectives.setup``) is used as it
+is; one made from ``torchrun``'s environment here is destroyed at the end.
 :func:`run` does the work and returns what it made (:class:`TrainRun`);
-:func:`main` runs it and prints the reference's lines.  ``--data`` and
-``--model`` above 1 wait for the multi-device slice; ``--no-zero1`` is
-accepted and, on one device, changes nothing.
+:func:`main` runs it and prints the reference's lines, on rank 0.
 """
 from __future__ import annotations
 
@@ -38,7 +46,8 @@ from repro_torch.core.placement import (ContentionSpec, PlacementAdvisor,
                                         optimizer_state_object,
                                         params_object)
 from repro_torch.data.pipeline import DataLoader
-from repro_torch.launch.mesh import HostMesh, describe, make_host_mesh
+from repro_torch.launch.mesh import Mesh, describe, make_host_mesh
+from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import ShardingRules, make_rules
 from repro_torch.runtime.fault_tolerance import (LoopResult, ResilientLoop,
                                                  StragglerMonitor, drill_at)
@@ -82,7 +91,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--remat", default="layer", choices=["none", "layer"])
-    ap.add_argument("--no-zero1", action="store_true")
+    ap.add_argument("--no-zero1", action="store_true",
+                    help="keep whole moments on every rank of the data "
+                         "axis")
     ap.add_argument("--compression", default="none",
                     choices=["none", "int8_ef"])
     ap.add_argument("--seed", type=int, default=0)
@@ -124,7 +135,7 @@ def build(args):
 class TrainRun:
     """What one :func:`run` made and measured."""
     cfg: ModelConfig
-    mesh: HostMesh
+    mesh: Mesh
     rules: ShardingRules
     shape: ShapeSpec
     tcfg: TrainConfig
@@ -133,24 +144,62 @@ class TrainRun:
     state: Dict[str, Any]           # the final state
     seconds: float                  # the loop, from its start to its end
     step_seconds: List[float] = dataclasses.field(default_factory=list)
+    # the state's placement on a bound mesh (``state`` holds this rank's
+    # blocks), None on one device
+    shardings: Any = None
+
+    @property
+    def rank0(self) -> bool:
+        return not self.mesh.bound or self.mesh.rank == 0
 
 
 def run(argv=None, verbose: bool = True) -> TrainRun:
     """Train as ``main`` would and return what was made; ``verbose`` prints
-    the reference's opening lines and the placement plan."""
+    the reference's opening lines and the placement plan (on rank 0)."""
     args = parser().parse_args(argv)
+    created = False
+    if (not collectives.initialized()
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        created = collectives.setup("nccl" if args.device == "cuda"
+                                    else "gloo")
+    try:
+        return _run(args, verbose)
+    finally:
+        if created:
+            collectives.teardown()
+
+
+def _run(args, verbose: bool) -> TrainRun:
+    if collectives.initialized():
+        want = "nccl" if args.device == "cuda" else "gloo"
+        have = torch.distributed.get_backend()
+        if have != want:
+            raise ValueError(f"--device {args.device} takes a {want} "
+                             f"process group; this one is {have}")
     device = resolve_device(args.device)
     cfg, mesh, shape, rules, tcfg = build(args)
-    if verbose:
+    world = (torch.distributed.get_world_size()
+             if collectives.initialized() else 1)
+    if mesh.size != world:
+        raise ValueError(f"a mesh of {describe(mesh)} over a world of "
+                         f"{world} ranks: --data x --model must use them all")
+    rank0 = not mesh.bound or mesh.rank == 0
+    if verbose and rank0:
         print(f"[train] arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M "
               f"mesh={describe(mesh)} steps={args.steps} "
               f"batch={args.batch}x{args.seq} device={device}")
     if not args.no_advice:
-        advise_placement(cfg, tcfg, verbose=verbose, device=device)
+        advise_placement(cfg, tcfg, verbose=verbose and rank0, device=device)
 
     gen = torch.Generator(device=device).manual_seed(tcfg.seed)
     state = step_mod.init_state(cfg, tcfg, gen)
-    loader = DataLoader(cfg, shape, device=device, seed=tcfg.seed)
+    shardings = None
+    if mesh.bound:
+        struct = step_mod.state_struct(cfg, tcfg)
+        specs = step_mod.state_specs(cfg, rules, tcfg, struct["params"])
+        shardings = collectives.shardings_of(mesh, specs, struct)
+        state = collectives.shard_tree(state, shardings)
+    loader = DataLoader(cfg, shape, mesh=mesh, device=device, seed=tcfg.seed)
     step_fn = step_mod.make_train_step(cfg, rules, tcfg,
                                        microbatches=tcfg.microbatches)
 
@@ -158,7 +207,8 @@ def run(argv=None, verbose: bool = True) -> TrainRun:
         return step_fn(state, batch.tokens, batch.labels, batch.frontend)
 
     ckpt = (None if args.no_checkpoint else
-            CheckpointManager(args.ckpt_dir, keep=tcfg.keep_checkpoints))
+            CheckpointManager(args.ckpt_dir, keep=tcfg.keep_checkpoints,
+                              shardings=shardings))
     monitor = StragglerMonitor()
     loop = ResilientLoop(
         wrapped_step, loader.device_batch, ckpt,
@@ -171,12 +221,14 @@ def run(argv=None, verbose: bool = True) -> TrainRun:
     result = loop.run(state, args.steps)
     seconds = time.perf_counter() - t0
     return TrainRun(cfg, mesh, rules, shape, tcfg, device, result,
-                    result.state, seconds, list(monitor.times))
+                    result.state, seconds, list(monitor.times), shardings)
 
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     r = run(argv)
+    if not r.rank0:
+        return 0
     toks = args.steps * r.shape.tokens
     hist = r.result.metrics_history
     for i, m in enumerate(hist):

@@ -10,6 +10,8 @@ Entry points
                                      mode in {"train", "prefill", "decode"}.
 ``unembed_logits(params, h, cfg)``   LM-head projection, float32 logits.
 ``init_cache / cache_struct``        decode caches matching the layout.
+``param_struct(cfg)``                the parameters as ``meta`` tensors.
+``param_specs / cache_specs``        partition-spec trees from ShardingRules.
 
 Parameter layout (see blocks.py for the period decomposition)::
 
@@ -25,7 +27,6 @@ attention layer's new token's slot, a Mamba layer's whole new state
 device or pinned host memory.  ``aux`` carries the MoE losses summed over
 layers and the drop fraction averaged over the MoE layers, as the
 reference's; it is empty for a configuration without experts.
-``param_specs`` and ``cache_specs`` wait for the multi-device slice.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as tree_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.blocks import make_plan
@@ -334,3 +336,68 @@ def forward(
     if tail_caches:
         new_caches["tail"] = tail_caches
     return x, new_caches, aux
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose tensors are made on the ``meta`` device."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def param_struct(cfg: ModelConfig) -> Params:
+    """The parameters' shapes and dtypes as ``meta`` tensors, at any size
+    (the reference's ``jax.eval_shape`` of ``init_params``)."""
+    return init_params(cfg, _MetaGenerator())
+
+
+# ---------------------------------------------------------------------------
+# Partition specs for params and caches
+# ---------------------------------------------------------------------------
+
+
+def _spec_tree(tree, spec_for):
+    return tree_mod.unflatten_like(
+        tree, [spec_for(path, leaf)
+               for path, leaf in tree_mod.flatten_with_path(tree)])
+
+
+def param_specs(rules, params: Params):
+    """Spec tree; scan-stacked leaves get a leading None axis."""
+    from repro_torch.parallel.sharding import P
+
+    def spec_for(path, leaf):
+        if path.startswith("scan/"):
+            base = rules.param_spec(path, tuple(leaf.shape[1:]))
+            return P(None, *tuple(base))
+        return rules.param_spec(path, tuple(leaf.shape))
+
+    return _spec_tree(params, spec_for)
+
+
+def cache_specs(rules, struct: Params):
+    """Spec tree for a cache tree (tensors or ``meta`` tensors)."""
+    from repro_torch.parallel.sharding import P
+
+    def spec_for(path, leaf):
+        stacked = path.startswith("scan/")
+        shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
+        leaf_name = path.split("/")[-1]
+        if leaf_name in ("k", "v"):
+            base = rules.kv_cache_spec()           # (B, S, KV, hd)
+        elif leaf_name == "ssm":
+            base = rules.ssm_state_spec()          # (B, H, P, N)
+        elif leaf_name == "conv":
+            base = P(rules.batch if rules.batch else None, None,
+                     _maybe_axis(rules, shape[-1]))
+        else:
+            base = P(*([None] * len(shape)))
+        return P(None, *tuple(base)) if stacked else base
+
+    return _spec_tree(struct, spec_for)
+
+
+def _maybe_axis(rules, dim: int):
+    from repro_torch.parallel.sharding import _maybe
+    return _maybe(rules.tp, dim, rules.mesh)

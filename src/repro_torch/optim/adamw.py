@@ -7,13 +7,16 @@ decay applies to every leaf, as the reference's does.  The reference
 returns new trees (its step donates the old state); here the parameters
 and moments are updated in place, which keeps one copy of the 12 bytes a
 parameter of moments on the card, and the same tensors come back.
-``zero1_specs`` and ``opt_specs`` shard the moments over a mesh and wait
-for the multi-device slice.
+With ``zero1`` the moments' specs (:func:`opt_specs`) additionally shard
+the largest still-whole dimension over the ``data`` mesh axis: ZeRO
+stage 1, which :mod:`repro_torch.parallel.collectives` carries out (each
+rank updates its block of the moments and refreshes its parameter block
+with an all-gather).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,6 +41,16 @@ def init_opt_state(params: Params) -> OptState:
     return OptState(m=m, v=tree.tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32,
                                      device=first.device))
+
+
+def opt_state_struct(param_structs: Params) -> OptState:
+    """The moments' and the step's shapes and dtypes as ``meta`` tensors."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return OptState(m=tree.tree_map(f32, param_structs),
+                    v=tree.tree_map(f32, param_structs),
+                    step=torch.empty((), dtype=torch.int32, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -82,17 +95,21 @@ def adamw_update(
     opt: OptState,
     tcfg: TrainConfig,
     lr_fn=None,
+    gnorm: Optional[torch.Tensor] = None,
 ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step with global-norm clipping, in place: ``params``' and
     ``opt``'s tensors hold the new values and are returned, with the new
     step count and ``{"grad_norm", "lr", "update_scale"}``.  The
-    arithmetic is the reference's, in its order."""
+    arithmetic is the reference's, in its order.  ``gnorm`` is the
+    global norm where ``grads`` hold only this rank's blocks of the
+    gradients (the sharded step); by default it is ``grads``' own."""
     lr_fn = lr_fn or warmup_cosine(tcfg)
     step = opt.step + 1
     lr = lr_fn(opt.step)
     b1, b2, eps, wd = tcfg.beta1, tcfg.beta2, tcfg.eps, tcfg.weight_decay
 
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = (torch.clamp(tcfg.grad_clip / (gnorm + 1e-9), max=1.0)
             if tcfg.grad_clip > 0 else torch.ones_like(gnorm))
 
@@ -110,3 +127,37 @@ def adamw_update(
         p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
     stats = {"grad_norm": gnorm, "lr": lr, "update_scale": clip}
     return params, OptState(opt.m, opt.v, step), stats
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 specs: shard moments over "data" on the largest replicated axis
+# ---------------------------------------------------------------------------
+
+
+def zero1_specs(param_specs, param_structs, mesh) -> Any:
+    from repro_torch.parallel.sharding import P, mesh_axis_size
+    data = mesh_axis_size(mesh, "data")
+
+    def shard_one(spec, struct):
+        if data <= 1:
+            return spec
+        shape = tuple(struct.shape)
+        spec_t = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+        best, best_dim = None, 0
+        for i, (ax, dim) in enumerate(zip(spec_t, shape)):
+            if ax is None and dim % data == 0 and dim > best_dim:
+                best, best_dim = i, dim
+        if best is None:
+            return P(*spec_t)
+        new = list(spec_t)
+        new[best] = "data"
+        return P(*new)
+
+    return tree.tree_map(shard_one, param_specs, param_structs)
+
+
+def opt_specs(param_specs, param_structs, mesh, *, zero1: bool) -> OptState:
+    from repro_torch.parallel.sharding import P
+    mom = zero1_specs(param_specs, param_structs, mesh) if zero1 \
+        else param_specs
+    return OptState(m=mom, v=tree.tree_map(lambda s: s, mom), step=P())

@@ -1,1 +1,2 @@
-"""Sharding rules and gradient compression (the one-device subsets)."""
+"""Sharding rules and specs, the collectives over torch.distributed,
+and gradient compression."""

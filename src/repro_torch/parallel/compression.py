@@ -5,8 +5,13 @@ quantized to int8 with a per-leaf float32 scale, and the quantization
 error is carried to the next step (error feedback), so the scheme stays
 unbiased over time.  ``torch.round`` rounds half to even, as
 ``jnp.round`` does, so the int8 values and the new error equal the
-reference's bit for bit on the same inputs.  ``compressed_psum`` (the
-int8 all-reduce over a mesh axis) waits for the multi-device slice.
+reference's bit for bit on the same inputs.
+
+:func:`compressed_psum` is the compressed all-reduce over a process group
+(the reference's runs over a named mesh axis under ``shard_map``): the
+``MAX`` all-reduce of each leaf's scale, every rank quantized against
+it, the int8 values summed exactly as int32.  On one rank it computes
+what :func:`compress_decompress` does, bit for bit.
 """
 from __future__ import annotations
 
@@ -54,3 +59,37 @@ def compress_decompress(grads: Params, err: Params
     like after a compressed exchange, and the new error state."""
     q, s, new_err = ef_quantize(grads, err)
     return ef_dequantize(q, s), new_err
+
+
+# ---------------------------------------------------------------------------
+# Compressed all-reduce over a process group
+# ---------------------------------------------------------------------------
+
+
+def compressed_psum(grads: Params, err: Params, group
+                    ) -> Tuple[Params, Params]:
+    """All-reduce int8 payloads over ``group`` (a process group).
+
+    Summing int8 and rescaling is consistent only when every rank uses
+    one scale, so each leaf's scale is the ``MAX`` all-reduce of the
+    ranks' own first (a scalar), and every rank quantizes against it; the
+    int8 values are summed exactly as int32 (no overflow for groups under
+    2^24 / 127 ranks).  Returns (mean gradient, new error state)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+
+    def reduce_exact(g, e):
+        gf = g.to(torch.float32) + e
+        amax = torch.max(torch.abs(gf)).reshape(1)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        smax = amax[0] / INT8_MAX + 1e-12
+        qq = torch.clamp(torch.round(gf / smax), -INT8_MAX, INT8_MAX)
+        new_e = gf - qq * smax
+        total = qq.to(torch.int32)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        return total.to(torch.float32) * smax / n, new_e
+
+    out = [reduce_exact(g, e) for g, e in zip(tree.leaves(grads),
+                                              tree.leaves(err))]
+    return (tree.unflatten_like(grads, [o[0] for o in out]),
+            tree.unflatten_like(grads, [o[1] for o in out]))

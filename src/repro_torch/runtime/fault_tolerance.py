@@ -16,8 +16,12 @@ The port of ``repro/runtime/fault_tolerance.py`` for one device:
 * :func:`drill_at` — a one-shot fault at a given step, in the shared
   fault spelling (:class:`repro_torch.core.exec.resilience.InjectedFault`).
 
-``elastic_remesh`` moves a state onto another mesh and waits for the
-multi-device slice.
+* :func:`elastic_remesh` — a state moved onto another mesh (another
+  shape, or fewer of the job's ranks) through the host.
+
+On a mesh the loop's checkpoints go through a :class:`CheckpointManager`
+given the state's placement (``shardings``): rank 0 writes the whole
+state, and a restore re-cuts it to each rank's block.
 """
 from __future__ import annotations
 
@@ -28,12 +32,14 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.exec.resilience import (FaultInjector, FaultSpec,
                                               InjectedFault, resolve_faults)
 
 __all__ = ["InjectedFault", "FaultSpec", "LoopResult", "ResilientLoop",
-           "StragglerEvent", "StragglerMonitor", "drill_at"]
+           "StragglerEvent", "StragglerMonitor", "drill_at",
+           "elastic_remesh"]
 
 
 @dataclass
@@ -137,6 +143,10 @@ class ResilientLoop:
     update the state in place (the port's train step does): a fault is
     injected before a step starts, so the state it interrupts is whole.
 
+    On a mesh ``ckpt`` carries the state's placement: every rank steps
+    and saves together, and a restore gives each rank its block of the
+    restored state.
+
     ``faults`` resolves exactly like the sweep coordinator's
     (:func:`repro_torch.core.exec.resilience.resolve_faults`): ``None``
     reads ``REPRO_FAULT_SPEC``, ``False``/``"off"`` pins injection off, a
@@ -222,3 +232,31 @@ class ResilientLoop:
         result.restarts = restarts
         result.state = state
         return result
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-mesh
+# ---------------------------------------------------------------------------
+
+
+def elastic_remesh(state, new_shardings, *, shardings=None):
+    """Move a state onto new placements (a tree of
+    :class:`repro_torch.parallel.collectives.NamedSharding`, possibly on
+    another mesh shape or on fewer of the job's ranks).  The state is
+    gathered whole (from its blocks under ``shardings``; ``None``: it is
+    whole already), copied to the host, and re-cut on the new mesh, each
+    block on the device its leaf was on.  A rank outside the new mesh gets
+    ``None``.  On a real fleet the same contract is met by a resharded
+    checkpoint restore, so the whole state never sits on one host."""
+    from repro_torch.parallel.collectives import gather_tree, shard
+    whole = state if shardings is None else gather_tree(state, shardings)
+    devices = [t.device for t in tree.leaves(state)]
+    host = tree.tree_map(lambda t: t.detach().to("cpu", copy=True), whole)
+    del whole
+    mesh = tree.leaves(new_shardings)[0].mesh
+    if mesh.rank is not None and not mesh.bound:
+        return None
+    flat = [shard(h, sh.spec, sh.mesh).to(d)
+            for h, sh, d in zip(tree.leaves(host), tree.leaves(new_shardings),
+                                devices)]
+    return tree.unflatten_like(new_shardings, flat)

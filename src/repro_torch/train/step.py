@@ -1,6 +1,6 @@
-"""Microbatched train step: chunked CE, remat, AdamW, grad compression.
+"""Microbatched train step: chunked CE, remat, AdamW, ZeRO-1, compression.
 
-The port of ``repro/train/step.py`` for one device.  A step is
+The port of ``repro/train/step.py``.  A step is
 
   a loop over microbatches                (bounded activation residency)
     -> lm.forward(mode="train")           (per-period remat; attention
@@ -15,37 +15,91 @@ Where the reference's step is one jit'd program that donates its state
 (``repro/launch/train.py:135``), this step updates the state in place:
 the parameters, the moments and the error state are the same tensors
 after the step, holding the new values, and the same dict comes back.
-The model's sharding hook is the one-device :func:`make_constrain`;
-``state_specs``, ``batch_specs`` and ``state_struct`` wait for the
-multi-device slice.
+
+Sharding is declarative, as in the reference: :func:`state_specs` and
+:func:`batch_specs` give the specs of the state and the batch from
+``ShardingRules``.  One step serves every mesh: on a mesh bound to a
+process group the state is this rank's blocks (ZeRO-1 moments) and the
+gradients are averaged over the batch group
+(:mod:`repro_torch.parallel.collectives`); on a one-device mesh with no
+process group every block is the whole leaf and no collective runs.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import lm
 from repro_torch.optim import adamw
+from repro_torch.parallel import collectives as col
 from repro_torch.parallel import compression
-from repro_torch.parallel.sharding import ShardingRules, constrain
+from repro_torch.parallel.sharding import P, ShardingRules, constrain
 
 TrainState = Dict[str, Any]     # {"params", "opt", ["err"]}
 
 
+# ---------------------------------------------------------------------------
+# Sharding helpers
+# ---------------------------------------------------------------------------
+
+
 def make_constrain(rules: ShardingRules) -> Callable:
-    """``cst(v, name)`` for the model's named sites ("hidden", "ffn",
-    ...): each placement through :func:`constrain`, which on one device
-    leaves ``v`` as it is."""
+    """``cst(v, name)`` for the model's named sites, each through
+    :func:`constrain` with the reference's spec for it (an unknown name
+    leaves ``v`` as it is).  Activations are not split, so every
+    placement is the identity (see :mod:`repro_torch.parallel.sharding`)."""
     mesh = rules.mesh
+    specs = {
+        "hidden": rules.hidden_spec,
+        "ffn": rules.ffn_spec,
+        "kv": rules.kv_spec,
+        "dispatch": rules.dispatch_spec,
+        "logits": rules.logits_spec,
+        "blocked_q": lambda v: rules.blocked_q_spec(v.shape[1]),
+        "blocked_kv": lambda v: rules.blocked_kv_spec(v.shape[1]),
+        "q_seq": rules.q_seq_spec,
+        "kv_rep": rules.kv_rep_spec,
+    }
+    by_shape = ("blocked_q", "blocked_kv")
 
     def cst(v, name: str):
-        return constrain(v, mesh)
+        if name not in specs:
+            return v
+        spec = specs[name](v) if name in by_shape else specs[name]()
+        return constrain(v, mesh, spec)
 
     return cst
+
+
+def state_specs(cfg: ModelConfig, rules: ShardingRules,
+                tcfg: TrainConfig, params_struct) -> TrainState:
+    """The specs of the train state: parameters by ``lm.param_specs``,
+    moments by ``adamw.opt_specs`` (ZeRO-1 with ``tcfg.zero1``), the error
+    state like the parameters."""
+    pspecs = lm.param_specs(rules, params_struct)
+    ospecs = adamw.opt_specs(pspecs, params_struct, rules.mesh,
+                             zero1=tcfg.zero1)
+    specs: TrainState = {"params": pspecs, "opt": ospecs}
+    if tcfg.grad_compression == "int8_ef":
+        specs["err"] = tree.tree_map(lambda s: s, pspecs)
+    return specs
+
+
+def batch_specs(rules: ShardingRules, cfg: ModelConfig):
+    """(tokens, labels, frontend) specs: rows over the batch axes."""
+    b = rules.batch if rules.batch else None
+    toks = P(b, None)
+    fe = None
+    if cfg.frontend == "audio":
+        fe = {"frame_embeds": P(b, None, None)}
+    elif cfg.frontend == "vlm":
+        fe = {"prefix_embeds": P(b, None, None)}
+    return toks, toks, fe
 
 
 # ---------------------------------------------------------------------------
@@ -123,18 +177,15 @@ def make_loss_fn(cfg: ModelConfig, rules: ShardingRules, tcfg: TrainConfig):
     return loss_fn
 
 
-def make_train_step(cfg: ModelConfig, rules: ShardingRules,
-                    tcfg: TrainConfig, *, microbatches: int = 1):
-    """``step(state, tokens, labels, frontend=None) -> (state, metrics)``.
-
-    With ``microbatches`` > 1 the batch is cut into interleaved
-    microbatches (row r in microbatch r % mb, the reference's layout:
-    ``x.reshape(b // mb, mb, ...)[:, i]``), each microbatch's gradients
-    summed in float32 and divided by ``mb``; the metrics are the last
-    microbatch's and ``loss`` their mean.  The state is updated in place
-    and returned."""
+def make_grads_fn(cfg: ModelConfig, rules: ShardingRules,
+                  tcfg: TrainConfig, *, microbatches: int = 1):
+    """``fn(params, tokens, labels, frontend) -> (metrics, gradients)``:
+    the gradients a list of float32 tensors in leaf order, the metrics the
+    last microbatch's with ``loss`` their mean.  With ``microbatches`` > 1
+    the batch is cut into interleaved microbatches (row r in microbatch
+    r % mb, the reference's layout: ``x.reshape(b // mb, mb, ...)[:, i]``),
+    each microbatch's gradients summed in float32 and divided by ``mb``."""
     loss_fn = make_loss_fn(cfg, rules, tcfg)
-    lr_fn = adamw.warmup_cosine(tcfg)
 
     def grads_of(params, tokens, labels, frontend):
         """(loss, metrics, gradients in the parameters' dtypes): autograd
@@ -150,9 +201,7 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules,
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 gs)
 
-    def step(state: TrainState, tokens, labels, frontend=None
-             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        params = state["params"]
+    def fn(params, tokens, labels, frontend=None):
         b = tokens.shape[0]
         mb = microbatches
         if b % mb:
@@ -160,46 +209,155 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules,
                              f"{mb} microbatches")
         if mb == 1:
             _, metrics, gs = grads_of(params, tokens, labels, frontend)
-            grads = [g.to(torch.float32) for g in gs]
-        else:
-            def slice_mb(x, i):
-                return x.reshape(b // mb, mb, *x.shape[1:])[:, i]
+            return metrics, [g.to(torch.float32) for g in gs]
 
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
-                     for p in tree.leaves(params)]
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=tokens.device)
-            for i in range(mb):
-                fe = None if frontend is None else {
-                    k: slice_mb(x, i) for k, x in frontend.items()}
-                loss, metrics, gs = grads_of(params, slice_mb(tokens, i),
-                                             slice_mb(labels, i), fe)
-                for acc, g in zip(grads, gs):
-                    acc.add_(g.to(torch.float32))
-                del gs
-                loss_sum = loss_sum + loss
-            for g in grads:
-                g.div_(mb)
-            metrics["loss"] = loss_sum / mb
-        grads = tree.unflatten_like(params, grads)
+        def slice_mb(x, i):
+            return x.reshape(b // mb, mb, *x.shape[1:])[:, i]
 
-        if tcfg.grad_compression == "int8_ef":
-            grads, new_err = compression.compress_decompress(grads,
-                                                             state["err"])
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in tree.leaves(params)]
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=tokens.device)
+        for i in range(mb):
+            fe = None if frontend is None else {
+                k: slice_mb(x, i) for k, x in frontend.items()}
+            loss, metrics, gs = grads_of(params, slice_mb(tokens, i),
+                                         slice_mb(labels, i), fe)
+            for acc, g in zip(grads, gs):
+                acc.add_(g.to(torch.float32))
+            del gs
+            loss_sum = loss_sum + loss
+        for g in grads:
+            g.div_(mb)
+        metrics["loss"] = loss_sum / mb
+        return metrics, grads
+
+    return fn
+
+
+def make_train_step(cfg: ModelConfig, rules: ShardingRules,
+                    tcfg: TrainConfig, *, microbatches: int = 1):
+    """``step(state, tokens, labels, frontend=None) -> (state, metrics)``
+    on ``rules.mesh``: ``state`` holds this rank's blocks (by
+    :func:`state_specs`; the whole state on a one-device mesh), ``tokens``
+    and ``labels`` this rank's rows of the global batch
+    (:class:`repro_torch.data.pipeline.DataLoader` with ``mesh=``).
+
+    The step gathers each parameter whole over the axes its spec names,
+    runs :func:`make_grads_fn` on the rank's rows, averages the float32
+    gradients' parameter blocks over the batch group (``all_reduce``; with
+    ``int8_ef`` :func:`repro_torch.parallel.compression.compressed_psum`,
+    or ``compress_decompress`` where there is no group), takes the global
+    norm from the moment blocks, each element counted once, updates its
+    moment blocks (AdamW), and refreshes its parameter blocks with an
+    all-gather over the ZeRO axes.  On a one-device mesh with no process
+    group every block is the whole leaf and no collective runs.  The
+    blocks are updated in place and the same dict comes back; the metrics
+    are the global batch's (averaged over the batch group, ``tokens``
+    summed)."""
+    mesh = rules.mesh
+    if not mesh.bound and mesh.size != 1:
+        raise ValueError("make_train_step: a mesh of more than one device "
+                         "must be bound to a process group "
+                         "(launch.mesh.make_host_mesh after "
+                         "collectives.setup)")
+    struct = lm.param_struct(cfg)
+    specs = state_specs(cfg, rules, tcfg, struct)
+    shapes = [tuple(s.shape) for s in tree.leaves(struct)]
+    pspecs = tree.leaves(specs["params"])
+    mspecs = tree.leaves(specs["opt"].m)
+    rel = [col.relative_spec(ps, ms, len(s))
+           for ps, ms, s in zip(pspecs, mspecs, shapes)]
+    pslices = [col.block_slices(s, ps, mesh) for s, ps in zip(shapes, pspecs)]
+    bshapes = [col.block_shape(s, ps, mesh) for s, ps in zip(shapes, pspecs)]
+    mslices = [col.block_slices(bs, r, mesh) for bs, r in zip(bshapes, rel)]
+    batch = col.axis_group(mesh, rules.batch)
+    # the groups the norm's sums of squares meet over, and their leaves
+    norm_keys = [tuple(a for a in mesh.axis_names if a in col.spec_axes(ms))
+                 for ms in mspecs]
+    norm_groups = []
+    for key in dict.fromkeys(k for k in norm_keys if k):
+        g = col.axis_group(mesh, key)
+        if g is not None:
+            norm_groups.append((g, [i for i, k in enumerate(norm_keys)
+                                    if k == key]))
+    grads_fn = make_grads_fn(cfg, rules, tcfg, microbatches=microbatches)
+    lr_fn = adamw.warmup_cosine(tcfg)
+    compress = tcfg.grad_compression == "int8_ef"
+
+    def step(state: TrainState, tokens, labels, frontend=None
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        blocks = tree.leaves(state["params"])
+        whole = [col.gather(b, ps, mesh, s)
+                 for b, ps, s in zip(blocks, pspecs, shapes)]
+        metrics, grads = grads_fn(tree.unflatten_like(state["params"],
+                                                      whole),
+                                  tokens, labels, frontend)
+        del whole
+        # this rank's parameter block of each float32 gradient
+        gblocks = [g[sl] for g, sl in zip(grads, pslices)]
+        del grads
+        if compress:
+            err = state["err"]
+            gtree = tree.unflatten_like(err, gblocks)
+            if batch is None:
+                gtree, new_err = compression.compress_decompress(gtree, err)
+            else:
+                gtree, new_err = compression.compressed_psum(gtree, err,
+                                                             batch.group)
             with torch.no_grad():
-                for e, ne in zip(tree.leaves(state["err"]),
-                                 tree.leaves(new_err)):
+                for e, ne in zip(tree.leaves(err), tree.leaves(new_err)):
                     e.copy_(ne)
-            del new_err
+            gblocks = tree.leaves(gtree)
+            del new_err, gtree
+        elif batch is not None:
+            gblocks = [g.contiguous() for g in gblocks]
+            for g in gblocks:
+                dist.all_reduce(g, group=batch.group)
+                if batch.size > 1:
+                    g.div_(batch.size)
+        metrics = _global_metrics(metrics, batch)
 
-        _, new_opt, stats = adamw.adamw_update(params, grads, state["opt"],
-                                               tcfg, lr_fn)
+        # the moment blocks' gradients and the global norm
+        gm = [g[sl] for g, sl in zip(gblocks, mslices)]
+        sums = [torch.sum(torch.square(g.to(torch.float32))) for g in gm]
+        for g, idx in norm_groups:
+            vec = torch.stack([sums[i] for i in idx])
+            dist.all_reduce(vec, group=g.group)
+            for j, i in enumerate(idx):
+                sums[i] = vec[j]
+        gnorm = torch.sqrt(torch.sum(torch.stack(sums)))
+
+        pm = [b[sl] for b, sl in zip(blocks, mslices)]
+        _, new_opt, stats = adamw.adamw_update(
+            tree.unflatten_like(state["params"], pm),
+            tree.unflatten_like(state["params"], gm), state["opt"], tcfg,
+            lr_fn, gnorm=gnorm)
+        del gm, gblocks
+        # ZeRO-1: refresh each parameter block from the ranks' updates
+        with torch.no_grad():
+            for b, p, r in zip(blocks, pm, rel):
+                if col.spec_axes(r):
+                    b.copy_(col.gather(p, r, mesh, tuple(b.shape)))
         state["opt"] = new_opt
         metrics.update(stats)
         return state, metrics
 
     return step
+
+
+def _global_metrics(metrics: Dict[str, torch.Tensor], batch
+                    ) -> Dict[str, torch.Tensor]:
+    """The rank's metrics made the global batch's: one all-reduce over
+    the batch group, every metric averaged but ``tokens`` (summed)."""
+    if batch is None:
+        return metrics
+    keys = sorted(metrics)
+    vec = torch.stack([metrics[k].to(torch.float32).reshape(())
+                       for k in keys])
+    dist.all_reduce(vec, group=batch.group)
+    return {k: (vec[i] if k == "tokens" else vec[i] / batch.size)
+            for i, k in enumerate(keys)}
 
 
 def init_state(cfg: ModelConfig, tcfg: TrainConfig,
@@ -212,3 +370,17 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig,
     if tcfg.grad_compression == "int8_ef":
         state["err"] = compression.init_error_state(params)
     return state
+
+
+def state_struct(cfg: ModelConfig, tcfg: TrainConfig) -> TrainState:
+    """The train state's shapes and dtypes as ``meta`` tensors (nothing is
+    allocated), the reference's abstract state for lowering."""
+    params_struct = lm.param_struct(cfg)
+    struct: TrainState = {
+        "params": params_struct,
+        "opt": adamw.opt_state_struct(params_struct)}
+    if tcfg.grad_compression == "int8_ef":
+        struct["err"] = tree.tree_map(
+            lambda s: torch.empty(s.shape, dtype=torch.float32,
+                                  device="meta"), params_struct)
+    return struct

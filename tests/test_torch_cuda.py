@@ -866,3 +866,62 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer over NCCL, one rank (the distributed phase's (b)
+# and (d) at a reduced width)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_world_1(card, tmp_path):
+    from repro_torch.parallel import collectives
+    if collectives.initialized():
+        pytest.skip("a process group exists in this process")
+    collectives.setup("nccl", store_path=str(tmp_path / "store"), rank=0,
+                      world_size=1)
+    try:
+        yield card
+    finally:
+        collectives.teardown()
+
+
+def test_compressed_psum_over_nccl_is_compress_decompress(nccl_world_1):
+    import torch.distributed as dist
+    from repro_torch.parallel import compression
+    gen = torch.Generator(device=nccl_world_1).manual_seed(0)
+    g = {k: torch.randn(shape, generator=gen, device=nccl_world_1)
+         for k, shape in (("a", (257, 33)), ("b", (4096,)))}
+    e = {k: torch.randn(v.shape, generator=gen, device=nccl_world_1) * 1e-3
+         for k, v in g.items()}
+    m1, e1 = compression.compressed_psum(g, e, dist.group.WORLD)
+    m2, e2 = compression.compress_decompress(g, e)
+    for k in g:
+        assert torch.equal(m1[k], m2[k]) and torch.equal(e1[k], e2[k]), k
+
+
+def test_elastic_remesh_through_the_host_is_bit_equal(nccl_world_1):
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.runtime.fault_tolerance import elastic_remesh
+    from repro_torch.train import step as step_mod
+    cfg = get_config("qwen2-1.5b").reduced()
+    tcfg = TrainConfig()
+    mesh = make_host_mesh(1, 1)
+    assert mesh.bound
+    rules = make_rules(cfg, mesh, global_batch=4)
+    state = step_mod.init_state(
+        cfg, tcfg, torch.Generator(device=nccl_world_1).manual_seed(0))
+    struct = step_mod.state_struct(cfg, tcfg)
+    sh = collectives.shardings_of(
+        mesh, step_mod.state_specs(cfg, rules, tcfg, struct["params"]),
+        struct)
+    again = elastic_remesh(state, sh, shardings=sh)
+    for a, b in zip(tree.leaves(again), tree.leaves(state)):
+        assert torch.equal(a, b) and a.device == b.device
+        assert a.data_ptr() != b.data_ptr()

@@ -86,6 +86,36 @@ def test_the_training_modules_import_without_jax():
     assert not FORBIDDEN["imports the JAX package"].search(text)
 
 
+def test_the_multi_device_modules_import_without_jax():
+    """The multi-device layer (meshes, rules and specs, collectives, ZeRO-1,
+    compressed all-reduce, re-mesh, the mesh-aware launcher, loader and
+    checkpoints) imports in a process that ends without JAX, the JAX
+    package or a process group: importing makes no group."""
+    mods = ["repro_torch.launch.mesh", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.collectives",
+            "repro_torch.parallel.compression", "repro_torch.optim.adamw",
+            "repro_torch.models.lm", "repro_torch.train.step",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.launch.train", "repro_torch.launch.serve"]
+    assert set(mods) <= set(_modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
 FORBIDDEN = {
     "imports jax": re.compile(r"^\s*(import|from)\s+jax\b", re.M),
     "imports the JAX package": re.compile(

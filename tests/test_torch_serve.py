@@ -473,8 +473,10 @@ def test_one_device_mesh_and_rules():
     assert describe(mesh) == jdescribe(jmake_host_mesh(1, 1))
     assert mesh.size == 1
     for data, model in ((2, 1), (1, 4)):
-        with pytest.raises(ValueError, match="one device"):
-            make_host_mesh(data, model)
+        # one process: the mesh shrinks to it, as the reference's shrinks
+        # to the host's one device
+        assert describe(make_host_mesh(data, model)) == \
+            jdescribe(jmake_host_mesh(data, model)) == "data=1xmodel=1"
     cfg = get_config("qwen2-1.5b")
     rules = make_rules(cfg, mesh, global_batch=4)
     assert rules.mesh is mesh and rules.cfg is cfg
@@ -524,10 +526,11 @@ def test_launcher_serves_on_the_cpu(capsys):
     assert tuple(toks.shape) == (2, 5)
     assert ((0 <= toks) & (toks < r.cfg.vocab_size)).all()
     assert r.kv_bytes == eng.cache_bytes(r.cfg, 2, 29)
-    for bad in (["--data", "2"], ["--model", "2"]):
-        with pytest.raises(ValueError, match="one device"):
-            serve_cli.run(["--arch", "qwen2-1.5b", "--reduced",
-                           "--device", "cpu"] + bad)
+    # one process: --data / --model shrink to its one device
+    r = serve_cli.run(["--arch", "qwen2-1.5b", "--reduced", "--batch", "2",
+                       "--prompt-len", "8", "--new-tokens", "2", "--data",
+                       "2", "--model", "2", "--device", "cpu"])
+    assert describe(r.mesh) == "data=1xmodel=1"
 
 
 @pytest.mark.parametrize("arch", sorted(ALL_CONFIGS))
