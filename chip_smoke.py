@@ -30,8 +30,12 @@ host memory, the MoE's and the SSD's shares of the card's time), and the
 training path (``repro_torch.launch.train`` at qwen2-1.5b's full width and
 depth in bf16: microbatches -> lm.forward with per-layer remat -> the
 flash kernel -> chunked cross-entropy -> the hand-written flash backward
-kernel on the tensor cores -> AdamW -> the resilient loop) — checks the
-results, and times every kernel beside its bound.  One JSON object per
+kernel on the tensor cores -> AdamW -> the resilient loop), the same
+training through the mesh path on one NCCL rank, and serving through the
+mesh path (``launch.serve`` on a one-rank NCCL group against the same
+argv with no group; each tensor-parallel rank's head block through the
+flash kernel; GPipe over one decoder layer) — checks the results, and
+times every kernel beside its bound.  One JSON object per
 phase goes to standard output; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase makes the exit code non-zero and withholds that line.
@@ -4111,6 +4115,261 @@ def phase_distributed(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serving on a mesh: launch.serve's mesh path over NCCL (world 1), each
+# tensor-parallel rank's head block on the card, GPipe's stage body
+# ---------------------------------------------------------------------------
+
+# serve's argv on a (1, 1) mesh: bound to the group where one exists
+MESH_SERVE_ARGV = SERVE_ARGV + ["--data", "1", "--model", "1"]
+# the model axes whose ranks' head blocks (b) runs: "head" mode at 2 (6 q
+# heads and 1 KV head a rank), "seq" with q_heads_tp at 4 (3 and 1)
+MESH_TP = (2, 4)
+GPIPE_MICRO = 4
+MESH_TURNS = 3                 # (a): unbound, mesh, unbound, mesh, ...
+# the calls that would move data between ranks
+DIST_CALLS = ("all_reduce", "all_gather_into_tensor", "broadcast", "isend",
+              "irecv", "send", "recv", "batch_isend_irecv")
+
+
+@contextlib.contextmanager
+def dist_calls():
+    """Counts the ``torch.distributed`` calls made while the block runs
+    (name -> calls)."""
+    seen: dict = {}
+    real = {n: getattr(torch.distributed, n) for n in DIST_CALLS}
+
+    def counted(name):
+        def call(*a, **k):
+            seen[name] = seen.get(name, 0) + 1
+            return real[name](*a, **k)
+        return call
+
+    for n in DIST_CALLS:
+        setattr(torch.distributed, n, counted(n))
+    try:
+        yield seen
+    finally:
+        for n, f in real.items():
+            setattr(torch.distributed, n, f)
+
+
+def head_blocks(cfg, tp: int) -> tuple:
+    """(mode, [(first q head, q heads, KV heads) of each rank]) of layer 0
+    on a (1, ``tp``) mesh, as the rules cut it: "head" mode a rank's block
+    of KV heads, "seq" mode the KV heads its q heads read
+    (``attention.kv_heads_of``, the model's own map)."""
+    from repro_torch.launch.mesh import Mesh
+    rules = make_rules(cfg, Mesh(("data", "model"), (1, tp)),
+                       global_batch=SERVE_BATCH, shape_kind="decode")
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    hl, out = h // tp, []
+    for i in range(tp):
+        if rules.attn_mode == "head":
+            heads = list(range(i * kv // tp, (i + 1) * kv // tp))
+        else:
+            heads = attention.kv_heads_of(i * hl, hl, h, kv)
+        out.append((i * hl, hl, heads))
+    mode = rules.attn_mode + ("+q_heads_tp" if rules.q_heads_tp else "")
+    return mode, out
+
+
+def phase_serve_mesh(smi: str) -> int:
+    """(a) ``launch.serve`` at ``serve``'s argv plus ``--data 1 --model
+    1``, first with no process group (an unbound one-device mesh), then on
+    one NCCL group of one rank (a file store in a temporary directory,
+    destroyed in a ``finally``) through the mesh path: the greedy tokens
+    and the last logits bit-equal, one ``wgmma_bf16`` flash launch a layer
+    and no plain version, no ``torch.distributed`` call in a generate or a
+    prefill (every collective of one rank skipped); prefill ms and decode
+    ms a step of both engines, timed in ``MESH_TURNS`` turns (unbound,
+    mesh, unbound, mesh, ...), their ratios, and each run's peak memory
+    above what was allocated before it.  (b) Layer 0's q, k, v of the
+    serve prefill cut as the ranks of a model axis of 2 ("head" mode) and
+    4 ("seq" with ``q_heads_tp``) cut them: kernel #12 on each rank's
+    block bit-equal to its head slice of the whole call.  (c)
+    ``make_gpipe`` on a one-stage ``"stage"`` mesh of the group, its stage
+    one qwen2-1.5b decoder layer in prefill mode at the serve shape in
+    ``GPIPE_MICRO`` microbatches, bit-equal to ``reference_pipeline``, no
+    ``torch.distributed`` call.  Returns (a)'s flash launches."""
+    from repro_torch.launch.mesh import Mesh, describe
+    from repro_torch.parallel import collectives, pipeline
+    t_phase = time.perf_counter()
+    checks = {}
+    max_len = SERVE_PROMPT + SERVE_NEW
+
+    if collectives.initialized():
+        fail("serve_mesh: a process group existed before the phase")
+    # each run's peak is taken above what was allocated before it
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    one = serve_cli.run(MESH_SERVE_ARGV)
+    sync()
+    peak = {"one": torch.cuda.max_memory_allocated() - base}
+    checks["a:one_device_mesh_unbound"] = not one.mesh.bound
+
+    store_dir = tempfile.mkdtemp(prefix="repro_serve_mesh_")
+    created = False
+    try:
+        created = collectives.setup("nccl", rank=0, world_size=1,
+                                    store_path=os.path.join(store_dir,
+                                                            "store"))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        run = serve_cli.run(MESH_SERVE_ARGV)
+        sync()
+        launched, plain = counts.snapshot()
+        by_instance = dict(counts.INSTANCES)
+        peak["mesh"] = torch.cuda.max_memory_allocated() - base
+        cfg, engine, prompts = run.cfg, run.engine, run.prompts
+        checks["a:group_nccl_world_1"] = (
+            torch.distributed.get_backend() == "nccl"
+            and torch.distributed.get_world_size() == 1)
+        checks["a:mesh_bound_1x1"] = (run.mesh.bound and run.mesh.rank == 0
+                                      and describe(run.mesh)
+                                      == "data=1xmodel=1")
+        checks["a:full_width_bf16"] = (
+            (cfg.name, cfg.n_layers, cfg.d_model, cfg.n_heads,
+             cfg.n_kv_heads, engine.params["embed"].dtype)
+            == ("qwen2-1.5b", 28, 1536, 12, 2, torch.bfloat16))
+        checks["a:no_context_at_one_rank"] = \
+            collectives.tensor_parallel(engine.rules) is None
+        checks["a:tokens_bit_equal"] = torch.equal(
+            run.result.tokens.cpu(), one.result.tokens.cpu())
+        checks["a:last_logits_bit_equal"] = torch.equal(
+            run.result.logits.cpu(), one.result.logits.cpu())
+        checks["a:kv_pool_equal"] = run.result.kv_pool == one.result.kv_pool
+        checks["a:flash_once_a_layer"] = \
+            launched["flash_attention"] == cfg.n_layers
+        checks["a:flash_on_wgmma_bf16"] = \
+            by_instance["flash_attention:wgmma_bf16"] == cfg.n_layers
+        checks["a:no_plain_version"] = not any(plain.values())
+
+        # the two engines timed in turns: prefill, then a timed generate;
+        # a decode step is host-bound and spreads, so every turn's steps
+        # are pooled
+        steps = {"one": one.engine, "mesh": engine}
+        prefill_ms = {k: [] for k in steps}
+        decode_ms = {k: [] for k in steps}
+        timed_tokens_equal, calls = True, {}
+        for turn in range(MESH_TURNS):
+            for name, e in steps.items():
+                prefill = make_prefill_step(cfg, e.rules, max_len=max_len)
+                with dist_calls() as seen:
+                    prefill_ms[name].append(time_ms(
+                        lambda: prefill(e.params, prompts), 3))
+                    res, ms = timed_generate(e, prompts)
+                calls[name] = dict(seen)
+                decode_ms[name].append(ms)
+                timed_tokens_equal &= torch.equal(res.tokens,
+                                                  one.result.tokens)
+                del res
+        checks["a:timed_tokens_equal"] = timed_tokens_equal
+        checks["a:no_collective_at_one_rank"] = not calls["mesh"]
+        pre = {k: statistics.median(v) for k, v in prefill_ms.items()}
+        dec = {k: statistics.median([m for t in v for m in t])
+               for k, v in decode_ms.items()}
+
+        # (b) each rank's head block through kernel #12
+        params = engine.params
+        lp, idx = layer_params(cfg, params, 0)
+        h = rmsnorm(lm.embed_tokens(params, prompts, cfg), lp["ln1"],
+                    cfg.norm_eps)
+        q, k, v = attention.project_qkv(
+            lp["attn"], h, cfg=cfg, layer_idx=idx,
+            positions=torch.arange(SERVE_PROMPT, device=DEV))
+        akw = dict(window=attention.layer_window(cfg, idx),
+                   scale=cfg.head_dim ** -0.5)
+        whole = attention.prefill_attention(q, k, v, **akw)
+        blocks = []
+        for tp in MESH_TP:
+            mode, ranks = head_blocks(cfg, tp)
+            for i, (h0, hl, kv_heads) in enumerate(ranks):
+                got = attention.prefill_attention(
+                    q[:, :, h0:h0 + hl], k[:, :, kv_heads],
+                    v[:, :, kv_heads], **akw)
+                want = whole[:, :, h0:h0 + hl]
+                blocks.append({"tp": tp, "mode": mode, "rank": i,
+                               "q_heads": [h0, h0 + hl],
+                               "kv_heads": kv_heads,
+                               "bit_equal": torch.equal(got, want),
+                               "max_abs_err": diff(got, want)})
+        checks["b:every_block_bit_equal"] = (
+            len(blocks) == sum(MESH_TP)
+            and all(b["bit_equal"] for b in blocks))
+        checks["b:modes"] = [head_blocks(cfg, tp)[0] for tp in MESH_TP] == \
+            ["head", "seq+q_heads_tp"]
+        checks["b:block_heads"] = [(b["q_heads"][1] - b["q_heads"][0],
+                                    len(b["kv_heads"])) for b in blocks] == \
+            [(6, 1)] * 2 + [(3, 1)] * 4
+        del q, k, v, whole, got, want
+
+        # (c) GPipe on a one-stage mesh of the group, one decoder layer a
+        # stage, the serve prefill's hidden states in microbatches
+        smesh = collectives.bind(Mesh(("stage",), (1,)))
+        stage_params = tree_mod.tree_map(lambda t: t[0:1],
+                                         params["scan"]["p0"])
+        x = lm.embed_tokens(params, prompts, cfg)
+        x_micro = x.reshape(GPIPE_MICRO, SERVE_BATCH // GPIPE_MICRO,
+                            *x.shape[1:])
+
+        def apply_stage(p, xm):
+            return blocks_mod.layer_apply(p, xm, cfg=cfg, layer_idx=0,
+                                          mode="prefill",
+                                          max_len=max_len)[0]
+
+        counts.reset()
+        with dist_calls() as seen:
+            y = pipeline.make_gpipe(smesh, apply_stage,
+                                    n_micro=GPIPE_MICRO)(stage_params,
+                                                         x_micro)
+        sync()
+        g_launched, g_plain = counts.snapshot()
+        gpipe_calls = dict(seen)
+        y_ref = pipeline.reference_pipeline(apply_stage, stage_params,
+                                            x_micro)
+        checks["c:gpipe_bit_equal"] = torch.equal(y, y_ref)
+        checks["c:gpipe_finite"] = bool(torch.isfinite(y).all())
+        checks["c:gpipe_no_collective"] = not gpipe_calls
+        checks["c:flash_once_a_microbatch"] = (
+            g_launched["flash_attention"] == GPIPE_MICRO
+            and not any(g_plain.values()))
+        gpipe_err = diff(y, y_ref)
+        tokens_sample = run.result.tokens[0, :16].tolist()
+        del y, y_ref, x, x_micro, stage_params, run, engine, params
+    finally:
+        if created:
+            collectives.teardown()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    checks["group_destroyed"] = not collectives.initialized()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_mesh", "card": smi, "argv": MESH_SERVE_ARGV,
+          "backend": "nccl", "world_size": 1, "mesh": "data=1xmodel=1",
+          "prefill_ms": pre, "prefill_ms_turns": prefill_ms,
+          "prefill_mesh_over_one": pre["mesh"] / pre["one"],
+          "decode_ms_per_step": dec,
+          "decode_ms_turn_medians": {k: [statistics.median(t) for t in v]
+                                     for k, v in decode_ms.items()},
+          "decode_mesh_over_one": dec["mesh"] / dec["one"],
+          "peak_bytes_above_base": peak,
+          "peak_mesh_over_one": peak["mesh"] / peak["one"],
+          "dist_calls": calls, "launches": launched,
+          "launches_by_instance": by_instance, "plain_calls": plain,
+          "head_blocks": blocks,
+          "gpipe": {"n_micro": GPIPE_MICRO, "max_abs_err": gpipe_err,
+                    "launches": g_launched["flash_attention"],
+                    "dist_calls": gpipe_calls},
+          "tokens_sample": tokens_sample, "checks": checks,
+          "seconds": time.perf_counter() - t_phase})
+    for k_, ok in checks.items():
+        if not ok:
+            fail(f"serve_mesh: check {k_}")
+    return launched["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
 # the roofline of every model path: the cost counter's count of the calls
 # that serve, serve_families and train time, beside their measured times
 # ---------------------------------------------------------------------------
@@ -4345,6 +4604,11 @@ def main() -> int:
     bwd_row["launches_by_path"]["distributed"] = \
         dist_launches["flash_attention_bwd"]
     bwd_row["launches"] += dist_launches["flash_attention_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # serving on a mesh over NCCL (world 1): the phase resets and reads the
+    # counts around its mesh run
+    mesh_launches = phase_serve_mesh(smi)
     # the roofline: (c), then every path's line (printed in its phase)
     roofline_same_count()
     emit({"phase": "roofline_done", "card": smi, "paths": ROOF["lines"],
@@ -4355,9 +4619,11 @@ def main() -> int:
                                      "serve_families": families,
                                      "train": train_fwd,
                                      "distributed":
-                                         dist_launches["flash_attention"]}
+                                         dist_launches["flash_attention"],
+                                     "serve_mesh": mesh_launches}
     flash_row["launches"] += (serve["launches"] + families + train_fwd
-                              + dist_launches["flash_attention"])
+                              + dist_launches["flash_attention"]
+                              + mesh_launches)
     flash_row["serve_call"] = serve["call"]
 
     phase_checks(records, launched, plain)

@@ -8,12 +8,26 @@ made from ``--seed``.  Runs on the card unless ``--device cpu``::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --reduced --batch 4 --prompt-len 32 --new-tokens 32 --device cpu
 
+On a mesh, one process a rank: ``torchrun`` (or a caller's own
+:func:`repro_torch.parallel.collectives.setup`) gives the process group,
+``gloo`` with ``--device cpu`` and ``nccl`` on the cards, and ``--data`` x
+``--model`` must use the whole world::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch qwen2-1.5b --reduced --data 2 --model 2 --device cpu
+
+Every rank serves its rows with its blocks of the weights and the cache
+(:class:`repro_torch.serve.engine.ServeEngine`), and rank 0 prints.  A
+model axis of more than one rank takes the dense families only: a MoE or
+Mamba layer there is refused.
+
 :func:`run` does the work and returns what it made (:class:`ServeRun`);
 :func:`main` runs it and prints the reference's lines.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from dataclasses import dataclass
@@ -29,6 +43,7 @@ from repro_torch.core.coordinator import CoreCoordinator
 from repro_torch.core.placement import PlacementAdvisor
 from repro_torch.launch.mesh import Mesh, describe, make_host_mesh
 from repro_torch.models import lm
+from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import make_rules
 from repro_torch.serve.engine import GenerateResult, ServeEngine, cache_bytes
 
@@ -44,6 +59,10 @@ class ServeRun:
     result: GenerateResult
     kv_bytes: int
     seconds: float              # generate, from the call to a synchronise
+
+    @property
+    def rank0(self) -> bool:
+        return not self.mesh.bound or self.mesh.rank == 0
 
 
 def parser() -> argparse.ArgumentParser:
@@ -83,24 +102,47 @@ def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
 
 
 def run(argv=None) -> ServeRun:
-    """Serve as ``main`` would."""
+    """Serve as ``main`` would; under ``torchrun`` (``WORLD_SIZE`` > 1)
+    it makes the process group and destroys it after."""
     args = parser().parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    return serve(cfg, args)
+    created = False
+    if (not collectives.initialized()
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        created = collectives.setup("nccl" if args.device == "cuda"
+                                    else "gloo")
+    try:
+        return serve(cfg, args)
+    finally:
+        if created:
+            collectives.teardown()
 
 
 def serve(cfg: ModelConfig, args: argparse.Namespace) -> ServeRun:
     """Serve ``cfg`` with the batch, lengths, placement, mesh, seed and
     device of ``args`` (:func:`parser`'s); ``--arch`` and ``--reduced``
     chose ``cfg`` in :func:`run` and are not read here."""
+    if collectives.initialized():
+        want = "nccl" if args.device == "cuda" else "gloo"
+        have = torch.distributed.get_backend()
+        if have != want:
+            raise ValueError(f"--device {args.device} takes a {want} "
+                             f"process group; this one is {have}")
     device = resolve_device(args.device)
     mesh = make_host_mesh(args.data, args.model)
-    if mesh.size > 1:
+    world = (torch.distributed.get_world_size()
+             if collectives.initialized() else 1)
+    if mesh.size != world:
+        raise ValueError(f"a mesh of {describe(mesh)} over a world of "
+                         f"{world} ranks: --data x --model must use them all")
+    if mesh.axis_sizes["model"] > 1 and (cfg.moe is not None
+                                         or cfg.ssm is not None):
         raise NotImplementedError(
-            f"serve: a mesh of {describe(mesh)}; decode on a mesh is not "
-            "ported yet, serve on one device")
+            f"serve: {cfg.name} on a model axis of "
+            f"{mesh.axis_sizes['model']}; expert and SSM-head parallelism "
+            "are not ported (ROADMAP queue 1, item 5b): use --model 1")
     rules = make_rules(cfg, mesh, global_batch=args.batch,
                        shape_kind="decode")
 
@@ -134,6 +176,8 @@ def serve(cfg: ModelConfig, args: argparse.Namespace) -> ServeRun:
 
 def main(argv=None) -> int:
     r = run(argv)
+    if not r.rank0:
+        return 0
     total_new = r.result.tokens.numel()
     print(f"[serve] arch={r.cfg.name} mesh={describe(r.mesh)} "
           f"kv_cache={r.kv_bytes / 2**20:.2f} MiB "

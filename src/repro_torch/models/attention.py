@@ -26,6 +26,30 @@ KV caches for sliding-window layers are ring buffers of size ``window``.
 A decode step over a cache in pinned host memory reads each layer's cache
 into device memory over PCIe and attends there; ``lm`` writes the new
 token's slot back into host memory.
+
+On a mesh (``tp``, a :class:`repro_torch.parallel.collectives.
+TensorParallel`) a rank holds its blocks of the weights and the cache,
+cut as the rules cut them (``repro/parallel/sharding.py``), and computes
+its share, Megatron's way:
+
+* **"head" mode** (the KV heads divide the model axis): ``wq``/``wk``/
+  ``wv`` are column blocks of ``H/tp`` q heads and ``KV/tp`` KV heads,
+  the rank attends its heads alone (the flash kernel in prefill), its
+  cache holds its KV heads, and ``wo`` is a row block whose partial
+  output is summed over the model group.
+* **"seq" mode with ``q_heads_tp``** (the q heads divide, the KV heads do
+  not): ``wq``/``wo`` as above, ``wk``/``wv`` whole.  Prefill runs the
+  rank's q heads against the KV heads they read (:func:`kv_heads_of`);
+  the cache keeps the rank's block of positions.
+* **"seq" mode without it**: the projections and ``wo`` whole; only the
+  cache's positions are cut.
+
+A decode step in "seq" mode (:func:`seq_decode_attention`) gathers q's
+heads over the model group where they are cut, attends every head over
+the rank's block of positions, and combines the blocks' partial softmax
+over the sequence group (:func:`repro_torch.parallel.collectives.
+lse_combine`); the new token's (k, v) counts once, on the rank whose
+block holds its slot (:func:`cache_slot`), which alone writes it.
 """
 from __future__ import annotations
 
@@ -38,6 +62,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import (apply_rope, dense_init, rmsnorm,
                                        rmsnorm_init, rope_sincos, softcap)
+from repro_torch.parallel import collectives
 
 NEG_INF = -1e30
 
@@ -283,6 +308,55 @@ def decode_attention_delta(q1, cache_k, cache_v, k_new, v_new, *,
     return _merge_heads(o.to(dt))
 
 
+def cache_slot(window: int, sbuf: int, write_pos: int) -> Tuple[int, bool]:
+    """(the slot a decode step at ``write_pos`` writes, whether the
+    cache of ``sbuf`` positions is a ring): a local layer's ring of
+    ``window`` slots takes ``write_pos % window``, any other cache
+    ``write_pos`` (its last slot once full)."""
+    ring = bool(window) and sbuf == window
+    return (write_pos % sbuf if ring else min(write_pos, sbuf - 1)), ring
+
+
+def seq_decode_attention(q1, cache_k, cache_v, k_new, v_new, *,
+                         write_pos: int, sbuf: int, scale, cap=0.0,
+                         window: int = 0, tp):
+    """:func:`decode_attention_delta` over a cache cut by positions: this
+    rank holds positions ``[i·L, (i+1)·L)`` of ``sbuf`` (``L`` =
+    ``cache_k.shape[1]``, ``i`` = ``tp.seq_index``), attends every q head
+    of ``q1`` over them with its own maximum and sum, and the blocks are
+    combined over ``tp.seq_group`` (:func:`collectives.lse_combine`).
+    The new token's (k, v) counts on the rank whose block holds its slot
+    and nowhere else.  Returns (B, 1, H, hd)."""
+    b, blk, kvh, hd = cache_k.shape
+    slot, ring = cache_slot(window, sbuf, write_pos)
+    idx = tp.seq_index * blk + torch.arange(blk, device=cache_k.device)
+    if ring:
+        valid = ((idx < write_pos) | (write_pos >= sbuf)) & (idx != slot)
+    else:
+        valid = idx < write_pos
+        if window:
+            valid = valid & (idx > write_pos - window)
+    qg = _split_heads(q1, kvh).float()               # (B,1,KV,G,hd)
+    s_old = softcap(torch.einsum("bqkgh,bskh->bkgqs", qg, cache_k.float())
+                    * scale, cap)
+    s_old = torch.where(valid, s_old, NEG_INF)
+    m = s_old.amax(dim=-1, keepdim=True)             # (B,KV,G,1,1)
+    holds_new = slot // blk == tp.seq_index
+    if holds_new:
+        s_new = softcap(torch.einsum("bqkgh,bskh->bkgqs", qg, k_new.float())
+                        * scale, cap)
+        m = torch.maximum(m, s_new)
+    p_old = torch.where(valid, torch.exp(s_old - m), 0.0)
+    l = p_old.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskh->bkgqh", p_old, cache_v.float())
+    if holds_new:
+        p_new = torch.exp(s_new - m)
+        l = l + p_new
+        o = o + torch.einsum("bkgqs,bskh->bkgqh", p_new, v_new.float())
+    out = collectives.lse_combine(m, l, o, tp.seq_group)   # (B,KV,G,1,hd)
+    return _merge_heads(out.permute(0, 3, 1, 2, 4).to(cache_v.dtype))
+
+
 # ---------------------------------------------------------------------------
 # Layer entry point
 # ---------------------------------------------------------------------------
@@ -298,16 +372,43 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
     return 0 if cfg.layer_is_global_attn(layer_idx) else cfg.sliding_window
 
 
-def project_qkv(params, x, *, cfg: ModelConfig, layer_idx: int, positions):
+def q_head_start(params, cfg: ModelConfig, tp) -> int:
+    """The first q head of this rank's ``wq`` block (0 where it is
+    whole)."""
+    hl = params["wq"].shape[1]
+    return 0 if hl == cfg.n_heads else tp.index * hl
+
+
+def kv_heads_of(h0: int, n: int, n_heads: int, n_kv: int):
+    """The KV heads the kernel must see for q heads ``h0 .. h0+n-1``: the
+    kernel maps local head ``j`` to KV head ``j·KVl // n`` of the
+    ``KVl`` it is given, global head ``h`` reads ``h·KV // H``.  Where
+    the block's heads fall on its KV heads evenly those KV heads, in
+    order; else one KV head a q head, repeated as the map asks."""
+    want = [(h0 + j) * n_kv // n_heads for j in range(n)]
+    distinct = sorted(set(want))
+    g, r = divmod(n, len(distinct))
+    if not r and all(want[j] == distinct[j // g] for j in range(n)):
+        return distinct
+    return want
+
+
+def project_qkv(params, x, *, cfg: ModelConfig, layer_idx: int, positions,
+                tp=None):
     """x: (B, S, D) -> q (B,S,H,hd), k, v (B,S,KV,hd) at ``positions``:
-    projections, biases, qk-norm and rope."""
+    projections, biases, qk-norm and rope.  On a mesh ``wq``/``wk``/``wv``
+    may be this rank's column blocks (H/tp, KV/tp heads); the biases,
+    whole on every rank, are cut to the same heads."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if cfg.qkv_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        h0, hl = q_head_start(params, cfg, tp), q.shape[2]
+        kl = k.shape[2]
+        k0 = 0 if kl == cfg.n_kv_heads else tp.index * kl
+        q = q + params["bq"][h0:h0 + hl]
+        k = k + params["bk"][k0:k0 + kl]
+        v = v + params["bv"][k0:k0 + kl]
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
@@ -325,27 +426,47 @@ def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t if t.device == device else t.to(device, non_blocking=True)
 
 
+def _seq_block(t: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's block of positions (dim 1) of a whole cache tensor."""
+    n = t.shape[1]
+    if n % tp.seq_size:
+        raise ValueError(f"a cache of {n} positions does not divide over "
+                         f"{tp.kv_seq_axes} ({tp.seq_size} ranks)")
+    blk = n // tp.seq_size
+    return t[:, tp.seq_index * blk:(tp.seq_index + 1) * blk].clone()
+
+
 def attention_layer(params, x, *, cfg: ModelConfig, layer_idx: int,
                     mode: str, cache: Optional[Dict[str, Any]] = None,
                     write_pos: Optional[int] = None, q_chunk: int = 256,
-                    max_len: int = 0, delta_cache: bool = False):
+                    max_len: int = 0, delta_cache: bool = False, tp=None):
     """x: (B, S, D) -> (out (B,S,D), new_cache or None).
 
     mode: "train" | "prefill" | "decode".
     cache: {"k": (B,Sbuf,KV,hd), "v": ...} for decode, in device memory or
     pinned host memory.  A decode step without ``delta_cache`` writes the
-    new token's slot into the given cache (the reference donates it)."""
+    new token's slot into the given cache (the reference donates it).
+    ``tp``: this rank's share on a mesh (see the module's notes); None
+    computes everything here."""
     b, s, d = x.shape
     window = layer_window(cfg, layer_idx)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     cap = cfg.attn_logit_softcap
+    seq_cut = tp is not None and tp.seq_cut
+    h0 = q_head_start(params, cfg, tp)
 
     if mode in ("train", "prefill"):
         positions = torch.arange(s, device=x.device)
         q, k, v = project_qkv(params, x, cfg=cfg, layer_idx=layer_idx,
-                              positions=positions)
-        out = prefill_attention(q, k, v, window=window, scale=scale, cap=cap,
-                                q_chunk=q_chunk)
+                              positions=positions, tp=tp)
+        kq, vq = k, v
+        if q.shape[2] < cfg.n_heads and k.shape[2] == cfg.n_kv_heads:
+            # this rank's q heads against the KV heads they read
+            idx = kv_heads_of(h0, q.shape[2], cfg.n_heads, cfg.n_kv_heads)
+            if idx != list(range(cfg.n_kv_heads)):
+                kq, vq = k[:, :, idx], v[:, :, idx]
+        out = prefill_attention(q, kq, vq, window=window, scale=scale,
+                                cap=cap, q_chunk=q_chunk)
         new_cache = None
         if mode == "prefill":
             sbuf = max(max_len, s)
@@ -367,6 +488,9 @@ def attention_layer(params, x, *, cfg: ModelConfig, layer_idx: int,
                     buf = t.new_zeros((b, sbuf) + t.shape[2:])
                     buf[:, :s] = t
                     new_cache[name] = buf
+            if seq_cut:
+                new_cache = {n: _seq_block(t, tp)
+                             for n, t in new_cache.items()}
     else:  # decode
         if cache is None or write_pos is None:
             raise ValueError("decode needs a cache and write_pos")
@@ -375,17 +499,32 @@ def attention_layer(params, x, *, cfg: ModelConfig, layer_idx: int,
         # the stream in every layer
         positions = torch.arange(write_pos, write_pos + 1, device=x.device)
         q, k, v = project_qkv(params, x, cfg=cfg, layer_idx=layer_idx,
-                              positions=positions)
-        sbuf = cache["k"].shape[1]
-        ring = bool(window) and sbuf == window
+                              positions=positions, tp=tp)
+        blk = cache["k"].shape[1]
+        sbuf = blk * tp.seq_size if seq_cut else blk
+        slot, ring = cache_slot(window, sbuf, write_pos)
         ck, cv = _on(cache["k"], x.device), _on(cache["v"], x.device)
-        if delta_cache:
+        if seq_cut:
+            hl = q.shape[2]
+            if hl < cfg.n_heads:
+                q = collectives.tp_all_gather(q, 2, tp.group)
+            out = seq_decode_attention(
+                q, ck, cv, k, v, write_pos=write_pos, sbuf=sbuf, scale=scale,
+                cap=cap, window=window, tp=tp)
+            out = out[:, :, h0:h0 + hl]
+            if delta_cache:
+                new_cache = {"k_new": k, "v_new": v}
+            else:
+                if slot // blk == tp.seq_index:
+                    for c, t in ((cache["k"], k), (cache["v"], v)):
+                        c[:, slot % blk].copy_(t[:, 0].to(c.dtype))
+                new_cache = {"k": cache["k"], "v": cache["v"]}
+        elif delta_cache:
             out = decode_attention_delta(
                 q, ck, cv, k, v, write_pos=write_pos, scale=scale, cap=cap,
                 ring=ring, window=0 if ring else window)
             new_cache = {"k_new": k, "v_new": v}
         else:
-            slot = write_pos % sbuf if ring else min(write_pos, sbuf - 1)
             for c_dev, c, t in ((ck, cache["k"], k), (cv, cache["v"], v)):
                 c_dev[:, slot] = t[:, 0].to(c.dtype)
                 if c_dev is not c:
@@ -396,6 +535,9 @@ def attention_layer(params, x, *, cfg: ModelConfig, layer_idx: int,
             new_cache = {"k": cache["k"], "v": cache["v"]}
 
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    if params["wo"].shape[0] < cfg.n_heads:
+        # row-parallel: this rank's heads' share, summed over the group
+        y = collectives.tp_sum(y, tp.group)
     return y, new_cache
 
 

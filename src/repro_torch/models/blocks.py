@@ -108,9 +108,18 @@ def layer_apply(
     constrain: Optional[Callable[[torch.Tensor, str], torch.Tensor]] = None,
     max_len: int = 0,
     delta_cache: bool = False,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
-    """One decoder block.  Returns (x, new_cache, aux_losses)."""
+    """One decoder block.  Returns (x, new_cache, aux_losses).  ``tp``
+    (this rank's share on a mesh) reaches the attention layer and the
+    MLP; a Mamba or MoE layer refuses a model group of more than one
+    rank (expert and SSM-head parallelism are not ported)."""
     kind, is_moe, _ = layer_signature(cfg, layer_idx)
+    if tp is not None and tp.size > 1 and (kind != "attn" or is_moe):
+        raise NotImplementedError(
+            f"{cfg.name} layer {layer_idx}: a {'MoE' if is_moe else 'Mamba'}"
+            f" layer on a model axis of {tp.size}; expert and SSM-head "
+            "parallelism are not ported (ROADMAP queue 1, item 5b)")
     cst = constrain or (lambda v, _name: v)
     aux: Dict[str, torch.Tensor] = {}
 
@@ -119,7 +128,7 @@ def layer_apply(
         y, new_cache = attention_layer(
             params["attn"], h, cfg=cfg, layer_idx=layer_idx, mode=mode,
             cache=cache, write_pos=write_pos, q_chunk=q_chunk,
-            max_len=max_len, delta_cache=delta_cache)
+            max_len=max_len, delta_cache=delta_cache, tp=tp)
     else:
         y, new_cache = mamba_layer(params["ssm"], h, cfg=cfg, mode=mode,
                                    cache=cache)
@@ -134,7 +143,7 @@ def layer_apply(
                 dropless=mode != "train")
         else:
             y = mlp_apply(params["mlp"], h, cfg,
-                          constrain_ffn=lambda v: cst(v, "ffn"))
+                          constrain_ffn=lambda v: cst(v, "ffn"), tp=tp)
         x = cst(x + y, "hidden")
     return x, new_cache, aux
 

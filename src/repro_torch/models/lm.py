@@ -13,6 +13,15 @@ Entry points
 ``param_struct(cfg)``                the parameters as ``meta`` tensors.
 ``param_specs / cache_specs``        partition-spec trees from ShardingRules.
 
+On a mesh (``tp``, :class:`repro_torch.parallel.collectives.
+TensorParallel`, None off a mesh) the parameters are this rank's blocks
+by :func:`param_specs`: a cut ``embed`` is looked up vocabulary-parallel
+(the rank's rows, zeros for the others', summed over the model group), a
+cut unembedding gives the rank's vocabulary block of the logits, gathered
+whole on every rank, and the layers split their arithmetic
+(:mod:`repro_torch.models.attention`, ``mlp``).  The caches are this
+rank's blocks by :func:`cache_specs`.
+
 Parameter layout (see blocks.py for the period decomposition)::
 
     {"embed": (Vp, D), "unembed": (Vp, D)?, "final_norm": (D,),
@@ -39,9 +48,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as tree_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
+from repro_torch.models.attention import cache_slot
 from repro_torch.models.blocks import make_plan
 from repro_torch.models.common import (Params, dtype_of, embed_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.parallel import collectives
 
 _MOE_AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_drop_frac")
 # cache leaves a decode step rewrites whole (a Mamba layer's state)
@@ -120,9 +131,21 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
-                 kv_dtype=torch.bfloat16) -> Params:
+                 kv_dtype=torch.bfloat16, rules=None) -> Params:
     """The decode caches as ``meta`` tensors: shapes and dtypes, no
-    memory."""
+    memory.  With ``rules`` whose mesh is bound, this rank's blocks of
+    them by :func:`cache_specs`."""
+    whole = _cache_struct(cfg, batch, max_len, kv_dtype)
+    if rules is None or not rules.mesh.bound:
+        return whole
+    return tree_mod.tree_map(
+        lambda t, sp: t.new_empty(collectives.block_shape(tuple(t.shape), sp,
+                                              rules.mesh)),
+        whole, cache_specs(rules, whole))
+
+
+def _cache_struct(cfg: ModelConfig, batch: int, max_len: int,
+                  kv_dtype) -> Params:
     plan = make_plan(cfg)
     out: Params = {}
     if plan.n_full:
@@ -147,8 +170,9 @@ def _materialise(tree, device) -> Params:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               kv_dtype=torch.bfloat16, device="cuda") -> Params:
-    return _materialise(cache_struct(cfg, batch, max_len, kv_dtype), device)
+               kv_dtype=torch.bfloat16, device="cuda", rules=None) -> Params:
+    return _materialise(cache_struct(cfg, batch, max_len, kv_dtype, rules),
+                        device)
 
 
 def host_traffic_bytes(caches: Params, device: torch.device
@@ -195,22 +219,28 @@ def _write_state(old: Params, new: Params) -> Params:
 
 
 def _apply_kv_deltas(cfg: ModelConfig, old_scan: Params, emitted: Params,
-                     write_pos: int) -> Params:
+                     write_pos: int, tp=None) -> Params:
     """Decode's cache writes for the stacked layers, each into old_scan[p]
     (device or pinned host memory) in place: emitted[p] holds either
     {"k_new","v_new"} stacks (n_full, B, 1, KV, hd), each landing in its
     slot, or a Mamba position's full new state stacks {"ssm","conv"},
-    written whole."""
+    written whole.  A cache cut by positions (``tp.seq_cut``) takes the
+    write on the rank whose block holds the slot alone."""
+    seq = tp is not None and tp.seq_cut
     for p_key, grp in emitted.items():
         old = old_scan[p_key]
         if "k_new" not in grp:
             _write_state(old, grp)
             continue
-        sbuf = old["k"].shape[2]
+        blk = old["k"].shape[2]
         p = int(p_key[1:])
         window = 0 if cfg.layer_is_global_attn(p) else cfg.sliding_window
-        ring = bool(window) and sbuf == window
-        slot = write_pos % sbuf if ring else min(write_pos, sbuf - 1)
+        slot, _ = cache_slot(window, blk * tp.seq_size if seq else blk,
+                             write_pos)
+        if seq:
+            owner, slot = divmod(slot, blk)
+            if owner != tp.seq_index:
+                continue
         for name in ("k", "v"):
             new = grp[f"{name}_new"][:, :, 0]
             old[name][:, :, slot].copy_(new.to(old[name].dtype))
@@ -218,8 +248,19 @@ def _apply_kv_deltas(cfg: ModelConfig, old_scan: Params, emitted: Params,
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                 frontend: Optional[Dict[str, torch.Tensor]] = None):
-    x = params["embed"][tokens]
+                 frontend: Optional[Dict[str, torch.Tensor]] = None,
+                 tp=None):
+    w = params["embed"]
+    if w.shape[0] < cfg.padded_vocab:
+        # vocabulary-parallel: this rank's rows, zeros for the others'
+        lo = tp.index * w.shape[0]
+        local = tokens - lo
+        inside = (local >= 0) & (local < w.shape[0])
+        x = torch.where(inside[..., None],
+                        w[local.clamp(0, w.shape[0] - 1)], 0)
+        x = collectives.tp_sum(x, tp.group)
+    else:
+        x = w[tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if frontend:
@@ -232,10 +273,17 @@ def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def unembed_logits(params: Params, h: torch.Tensor, cfg: ModelConfig):
-    """float32 logits, as the reference's ``preferred_element_type``."""
+def unembed_logits(params: Params, h: torch.Tensor, cfg: ModelConfig,
+                   tp=None):
+    """float32 logits, as the reference's ``preferred_element_type``; a
+    rank holding a vocabulary block computes its block and gathers the
+    whole over the model group."""
     w = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return torch.einsum("bsd,vd->bsv", h.float(), w.float())
+    logits = torch.einsum("bsd,vd->bsv", h.float(), w.float())
+    if w.shape[0] < cfg.padded_vocab:
+        logits = collectives.tp_all_gather(logits, -1, tp.group)
+    return logits
+
 
 
 def forward(
@@ -251,8 +299,13 @@ def forward(
     remat: str = "none",                  # none | layer
     q_chunk: int = 256,
     max_len: int = 0,                     # cache capacity (prefill)
+    tp=None,                              # this rank's share on a mesh
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, Any]]:
     """tokens: (B, S) int -> (hidden (B,S,D), caches', aux).
+
+    ``tp`` (a :class:`repro_torch.parallel.collectives.TensorParallel`)
+    splits the arithmetic over a mesh (see the module's notes); None
+    computes everything here, from whole parameters.
 
     ``remat="layer"`` in train mode runs each period of the stacked layers
     through ``torch.utils.checkpoint`` (non-reentrant), as the reference
@@ -265,13 +318,13 @@ def forward(
         raise ValueError(f"remat must be none or layer: {remat!r}")
     plan = make_plan(cfg)
     cst = constrain or (lambda v, _n: v)
-    x = cst(embed_tokens(params, tokens, cfg, frontend), "hidden")
+    x = cst(embed_tokens(params, tokens, cfg, frontend, tp), "hidden")
     # decode: stacked attention layers emit one-token (k, v) deltas, written
     # into the stacked caches at once after the loop
     delta = mode == "decode"
     old = (caches or {}).get("scan") if delta else None
     layer_kw = dict(cfg=cfg, mode=mode, write_pos=write_pos, q_chunk=q_chunk,
-                    constrain=cst, max_len=max_len)
+                    constrain=cst, max_len=max_len, tp=tp)
 
     aux = _zero_aux(cfg, x.device)
 
@@ -331,8 +384,8 @@ def forward(
     new_caches: Params = {}
     if emitted:
         scan = {k: _stack(v) for k, v in emitted.items()}
-        new_caches["scan"] = (_apply_kv_deltas(cfg, old, scan, write_pos)
-                              if delta else scan)
+        new_caches["scan"] = (_apply_kv_deltas(cfg, old, scan, write_pos,
+                                               tp) if delta else scan)
     if tail_caches:
         new_caches["tail"] = tail_caches
     return x, new_caches, aux

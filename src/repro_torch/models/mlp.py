@@ -1,4 +1,9 @@
-"""Gated feed-forward (SwiGLU / GeGLU); the port of ``repro/models/mlp.py``."""
+"""Gated feed-forward (SwiGLU / GeGLU); the port of ``repro/models/mlp.py``.
+
+On a mesh whose rules cut d_ff over the model axis (``tp.cuts(d_ff)``)
+``w_in``/``w_gate`` are this rank's column blocks and ``w_out`` its row
+block: the rank's share of the output is summed over the model group.
+Where d_ff does not divide, the leaves are whole and nothing is summed."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -7,6 +12,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import activation, dense_init
+from repro_torch.parallel import collectives
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype
@@ -18,11 +24,14 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype
     }
 
 
-def mlp_apply(params, x, cfg: ModelConfig, constrain_ffn=None):
+def mlp_apply(params, x, cfg: ModelConfig, constrain_ffn=None, tp=None):
     act = activation(cfg.act_fn)
     h = x @ params["w_in"]
     g = x @ params["w_gate"]
     h = h * act(g)
     if constrain_ffn is not None:
         h = constrain_ffn(h)
-    return h @ params["w_out"]
+    y = h @ params["w_out"]
+    if tp is not None and tp.cuts(cfg.d_ff):
+        y = collectives.tp_sum(y, tp.group)
+    return y

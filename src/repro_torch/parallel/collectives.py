@@ -17,15 +17,23 @@ the collectives; the port derives them itself, from the same specs
   moment's spec adds to its parameter's (ZeRO-1), the block of a
   parameter block that this rank updates.  The train step that runs on
   these blocks is :func:`repro_torch.train.step.make_train_step`.
+* **tensor parallelism** (serving): :class:`TensorParallel` is the
+  context a layer's arithmetic reads, the "model" group and the group of
+  the KV cache's sequence, and :func:`tp_sum`, :func:`tp_all_gather` and
+  :func:`lse_combine` are the collectives the layers run on it (forward
+  only).  Each of these skips itself on a group of one rank.
 
-The "model" axis therefore splits where parameters and moments live, not
-a layer's arithmetic: the hand-written kernels take whole local tensors.
-On a bound mesh every collective runs over its group even where the
-group has one rank, so a bound 1x1 mesh takes the path a larger one
-takes; a one-device mesh with no process group (``rank`` None) has no
-groups, and :func:`axis_group` and :func:`gather` run nothing there.
-Only calls that PyTorch 2.11 and later both have are used:
-``all_reduce`` (SUM, MAX), ``all_gather_into_tensor`` and ``new_group``.
+In training the "model" axis splits where parameters and moments live,
+not a layer's arithmetic: the step gathers whole leaves and the kernels
+take whole local tensors.  On a bound mesh the step's collectives run
+over their groups even where a group has one rank, so a bound 1x1 mesh
+takes the path a larger one takes; a one-device mesh with no process
+group (``rank`` None) has no groups, and :func:`axis_group` and
+:func:`gather` run nothing there.  Serving splits the dense arithmetic
+(:mod:`repro_torch.models.attention`, ``mlp``, ``lm``).  Only calls that
+PyTorch 2.11 and later both have are used: ``all_reduce`` (SUM, MAX),
+``all_gather_into_tensor``, ``broadcast``, ``isend``/``irecv`` and
+``new_group``.
 """
 from __future__ import annotations
 
@@ -311,3 +319,124 @@ def relative_spec(pspec, mspec, ndim: int) -> P:
             raise ValueError(f"a moment's spec {mspec} cuts a dimension its "
                              f"parameter's spec {pspec} already cuts")
     return P(*out)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the groups a layer's arithmetic runs over (serving)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """What a layer reads to split its arithmetic, from the rules.
+
+    ``group`` is the "model" group (None where the model axis is 1),
+    ``size`` its ranks and ``index`` this rank's place in it (its "model"
+    coordinate).  ``seq_group`` is the group of ``kv_seq_axes``, over
+    which a cache cut by sequence ("seq" mode) is cut, ``seq_size`` and
+    ``seq_index`` likewise (the block's index along the sequence, as
+    :func:`block_slices` numbers it)."""
+    group: Optional[AxisGroup]
+    size: int
+    index: int
+    attn_mode: str
+    q_heads_tp: bool
+    kv_seq_axes: Tuple[str, ...]
+    seq_group: Optional[AxisGroup]
+    seq_size: int
+    seq_index: int
+
+    def cuts(self, dim: int) -> bool:
+        """Do the rules cut a dimension of ``dim`` over the model axis
+        (``sharding._maybe``)?"""
+        return self.size > 1 and dim % self.size == 0
+
+    @property
+    def seq_cut(self) -> bool:
+        """Does each rank hold a block of the KV cache's positions?"""
+        return self.attn_mode == "seq" and self.seq_size > 1
+
+
+def _place(g: Optional[AxisGroup], mesh: Mesh) -> Tuple[int, int]:
+    return (1, 0) if g is None else (g.size, g.members.index(mesh.rank))
+
+
+def tensor_parallel(rules) -> Optional[TensorParallel]:
+    """The context of ``rules`` on its mesh; None where nothing is split:
+    no process group, or a model axis of 1 with no axis cutting the
+    cache's sequence (a (d, 1) mesh splits the batch only)."""
+    mesh = rules.mesh
+    if not mesh.bound:
+        return None
+    g = axis_group(mesh, rules.tp)
+    sg = axis_group(mesh, rules.kv_seq_axes)
+    (size, index), (seq_size, seq_index) = _place(g, mesh), _place(sg, mesh)
+    if size == 1 and seq_size == 1:
+        return None
+    return TensorParallel(group=g if size > 1 else None, size=size,
+                          index=index, attn_mode=rules.attn_mode,
+                          q_heads_tp=rules.q_heads_tp,
+                          kv_seq_axes=tuple(rules.kv_seq_axes),
+                          seq_group=sg if seq_size > 1 else None,
+                          seq_size=seq_size, seq_index=seq_index)
+
+
+def tp_sum(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group`` (in place), or ``x``
+    itself on a group of one rank or none."""
+    if group is None or group.size == 1:
+        return x
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group.group)
+    return x
+
+
+def tp_all_gather(x: torch.Tensor, dim: int,
+                  group: Optional[AxisGroup]) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in the group's order
+    (its members ascending, the order :func:`block_slices` cuts in), or
+    ``x`` itself on a group of one rank or none."""
+    if group is None or group.size == 1:
+        return x
+    flat = x.contiguous().reshape(-1)
+    out = torch.empty(group.size * flat.numel(), dtype=x.dtype,
+                      device=x.device)
+    with warnings.catch_warnings():      # renamed after PyTorch 2.11
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, flat, group=group.group)
+    dim = dim % x.dim()
+    out = out.view(group.size, *x.shape).movedim(0, dim)
+    return out.reshape(*x.shape[:dim], group.size * x.shape[dim],
+                       *x.shape[dim + 1:])
+
+
+def lse_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                group: Optional[AxisGroup]) -> torch.Tensor:
+    """Attention over keys cut across ``group``, combined: each rank's
+    running maximum ``m`` (..., 1), its sum ``l`` (..., 1) of
+    ``exp(s - m)`` over its keys and its output ``o`` (..., D), the same
+    weights' sum of values.  One all-reduce (MAX) of the maxima, then one
+    (SUM) of the sums and outputs rescaled to it; returns ``o / l``.  A
+    rank with no key holds ``l = 0`` and ``o = 0``."""
+    if group is not None and group.size > 1:
+        mx = m.clone()
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group.group)
+        c = torch.exp(m - mx)
+        lo = torch.cat([o * c, l * c], dim=-1)
+        dist.all_reduce(lo, op=dist.ReduceOp.SUM, group=group.group)
+        o, l = lo[..., :-1], lo[..., -1:]
+    return o / l
+
+
+def broadcast_text(text: str, group: Optional[AxisGroup],
+                   nbytes: int = 32) -> str:
+    """The first member's ``text`` on every rank of ``group`` (at most
+    ``nbytes`` UTF-8 bytes); ``text`` itself on a group of one rank."""
+    if group is None or group.size == 1:
+        return text
+    raw = text.encode()
+    if len(raw) > nbytes:
+        raise ValueError(f"broadcast_text: {text!r} is over {nbytes} bytes")
+    t = torch.zeros(nbytes, dtype=torch.uint8, device=_device())
+    t[:len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
+    dist.broadcast(t, src=group.members[0], group=group.group)
+    return bytes(t.cpu().tolist()).rstrip(b"\0").decode()

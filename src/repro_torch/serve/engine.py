@@ -26,6 +26,20 @@ refreshed surface flips the advisor's decision.  Timed or not, the loop
 draws the same tokens: greedy by argmax, sampled from one explicit
 :class:`torch.Generator` seeded by ``seed``, one draw a token, the
 prefill's first.
+
+On a bound mesh (``rules.mesh``) the engine holds this rank's blocks of
+the parameters (:func:`repro_torch.parallel.collectives.shard_tree` by
+``lm.param_specs``, cut from the same whole init on every rank) and of
+the caches, serves the rows ``rules.batch`` gives it, and its steps split
+the dense arithmetic over the model group
+(:func:`repro_torch.parallel.collectives.tensor_parallel`).  Every rank of
+a model group holds the whole logits of its rows and the same generator,
+so it draws the same tokens; a draw at temperature > 0 on a batch cut
+over ranks samples the whole batch's gathered logits, as one device
+would.  The pool is chosen from the whole cache's bytes, and the pool
+the first rank chooses (or a monitor's migration it decides) is the one
+every rank takes.  :class:`GenerateResult` holds the whole batch's
+tokens and last logits on every rank.
 """
 from __future__ import annotations
 
@@ -37,7 +51,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.models import lm
-from repro_torch.parallel.sharding import ShardingRules
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import P, ShardingRules
 from repro_torch.train.step import make_constrain
 
 Params = Dict[str, Any]
@@ -120,31 +135,48 @@ def choose_kv_pool(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def make_prefill_step(cfg: ModelConfig, rules: ShardingRules, *,
                       max_len: int, q_chunk: int = 256):
+    """``prefill(params, tokens)`` -> (caches, last logits (B, V)).  On a
+    bound mesh ``params`` are this rank's blocks and ``tokens`` its rows;
+    the caches come back as its blocks, the logits whole over V."""
     cst = make_constrain(rules)
+    tp = collectives.tensor_parallel(rules)
 
     def prefill(params: Params, tokens, frontend=None):
         hidden, caches, _ = lm.forward(
             params, tokens, cfg=cfg, mode="prefill", frontend=frontend,
-            constrain=cst, max_len=max_len, q_chunk=q_chunk)
-        logits = lm.unembed_logits(params, hidden[:, -1:], cfg)
+            constrain=cst, max_len=max_len, q_chunk=q_chunk, tp=tp)
+        logits = lm.unembed_logits(params, hidden[:, -1:], cfg, tp)
         return caches, logits[:, 0]
 
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig, rules: ShardingRules):
+    """``decode(params, caches, token, write_pos)`` -> (caches, logits);
+    on a mesh as :func:`make_prefill_step`."""
     cst = make_constrain(rules)
+    tp = collectives.tensor_parallel(rules)
 
     def decode(params: Params, caches: Params, token, write_pos: int,
                frontend=None):
         """token: (B, 1) int; write_pos: the absolute position."""
         hidden, caches, _ = lm.forward(
             params, token, cfg=cfg, mode="decode", caches=caches,
-            write_pos=write_pos, frontend=frontend, constrain=cst)
-        logits = lm.unembed_logits(params, hidden, cfg)
+            write_pos=write_pos, frontend=frontend, constrain=cst, tp=tp)
+        logits = lm.unembed_logits(params, hidden, cfg, tp)
         return caches, logits[:, 0]
 
     return decode
+
+
+def param_shardings(cfg: ModelConfig, rules: ShardingRules):
+    """Each parameter leaf's placement on ``rules.mesh`` by
+    ``lm.param_specs`` (None off a bound mesh)."""
+    if not rules.mesh.bound:
+        return None
+    struct = lm.param_struct(cfg)
+    return collectives.shardings_of(rules.mesh,
+                                    lm.param_specs(rules, struct), struct)
 
 
 def sample_token(logits: torch.Tensor, gen: Optional[torch.Generator] = None,
@@ -169,6 +201,8 @@ class GenerateResult:
     tokens: Any                 # (B, T)
     steps: int
     kv_pool: str                # the pool the caches ENDED in
+    # (B, V) float32: the logits the last token was drawn from
+    logits: Any = None
     # online-loop provenance (monitored decode only; empty otherwise)
     drift_events: List[Any] = field(default_factory=list)
     migrations: List[Any] = field(default_factory=list)
@@ -183,7 +217,8 @@ class GenerateResult:
 
 class ServeEngine:
     """Batched prefill+decode over a placed KV cache, on the device that
-    holds ``params``.
+    holds ``params`` (whole; on a bound mesh the engine keeps this rank's
+    blocks of them).
 
     ``monitor`` (a :class:`repro_torch.serve.monitor.ServeMonitor`) or an
     ``on_step`` hook times every decode step: per-step wall timing feeds
@@ -194,8 +229,17 @@ class ServeEngine:
                  rules: ShardingRules, scfg: Optional[ServeConfig] = None,
                  advisor=None, pool_mgr=None, monitor=None):
         self.cfg = cfg
+        self.shardings = param_shardings(cfg, rules)
+        if self.shardings is not None:
+            params = collectives.shard_tree(params, self.shardings)
         self.params = params
         self.rules = rules
+        mesh = rules.mesh
+        # the whole mesh (the pool's agreement) and the batch's group
+        self._mesh_group = (collectives.axis_group(mesh, mesh.axis_names)
+                            if mesh.bound else None)
+        self._batch_group = (collectives.axis_group(mesh, rules.batch)
+                             if mesh.bound else None)
         self.scfg = scfg or ServeConfig()
         self.advisor = advisor
         self.pool_mgr = pool_mgr
@@ -230,6 +274,36 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- the mesh ------------------------------------------------------------
+    def _agree(self, pool: str) -> str:
+        """The first rank's pool on every rank of the mesh."""
+        return collectives.broadcast_text(pool, self._mesh_group)
+
+    def _rows(self, b: int) -> slice:
+        """This rank's rows of a whole batch of ``b``."""
+        if not self.rules.mesh.bound:
+            return slice(None)
+        return collectives.block_slices((b,), P(self.rules.batch or None),
+                                        self.rules.mesh)[0]
+
+    def _whole_rows(self, x: torch.Tensor, b: int) -> torch.Tensor:
+        """The whole batch of a per-rank tensor of rows (gathered over the
+        batch's group; ``x`` itself where the batch is not cut)."""
+        g = self._batch_group
+        if g is None or g.size == 1:
+            return x
+        return collectives.gather(x, P(self.rules.batch, None),
+                                  self.rules.mesh, (b,) + tuple(x.shape[1:]))
+
+    def _sample(self, logits, gen, temperature: float, b: int):
+        """This rank's rows' tokens: argmax at temperature 0; else drawn
+        from the whole batch's logits, so that the draws are one device's."""
+        g = self._batch_group
+        if temperature <= 0.0 or g is None or g.size == 1:
+            return sample_token(logits, gen, temperature)
+        whole = self._whole_rows(logits, b)
+        return sample_token(whole, gen, temperature)[self._rows(b)]
+
     # -- generation ----------------------------------------------------------
     def generate(self, tokens, *, max_new_tokens: int = 32,
                  temperature: float = 0.0, seed: int = 0,
@@ -240,10 +314,15 @@ class ServeEngine:
         b, s = tokens.shape
         max_len = s + max_new_tokens
         rw_mix = decode_rw_mix(b, max_len)
-        kv_pool = choose_kv_pool(cfg, b, max_len, advisor=self.advisor,
-                                 scfg=self.scfg, pool_mgr=self.pool_mgr,
-                                 rw_mix=rw_mix, inject_rate=self._duty)
+        kv_pool = self._agree(choose_kv_pool(
+            cfg, b, max_len, advisor=self.advisor, scfg=self.scfg,
+            pool_mgr=self.pool_mgr, rw_mix=rw_mix, inject_rate=self._duty))
 
+        rows = self._rows(b)
+        if rows != slice(None):
+            tokens = tokens[rows]
+            frontend = ({k: v[rows] for k, v in frontend.items()}
+                        if frontend else frontend)
         prefill = make_prefill_step(cfg, self.rules, max_len=max_len)
         caches, logits = prefill(self.params, tokens, frontend)
         caches = self._place_caches(caches, kv_pool)
@@ -251,12 +330,13 @@ class ServeEngine:
         gen = None
         if temperature > 0.0:
             gen = torch.Generator(device=logits.device).manual_seed(seed)
-        tok = sample_token(logits, gen, temperature)[:, None]
-        return self._decode_loop(caches, tok, gen, s, b, max_len,
+        tok = self._sample(logits, gen, temperature, b)[:, None]
+        return self._decode_loop(caches, tok, logits, gen, s, b, max_len,
                                  max_new_tokens, temperature, kv_pool,
                                  rw_mix, on_step)
 
-    def _decode_loop(self, caches, tok, gen, s: int, b: int, max_len: int,
+    def _decode_loop(self, caches, tok, logits, gen, s: int, b: int,
+                     max_len: int,
                      max_new_tokens: int, temperature: float, kv_pool: str,
                      rw_mix: float, on_step) -> GenerateResult:
         """The decode loop.  Untimed without a monitor and ``on_step``
@@ -296,20 +376,22 @@ class ServeEngine:
                 self._sync()
                 wall_s = time.perf_counter() - t0
                 busy_s += wall_s
-            nxt = sample_token(logits, gen, temperature)[:, None]
+            nxt = self._sample(logits, gen, temperature, b)[:, None]
             emitted.append(tok[:, 0])
             tok = nxt
             if mon is not None:
                 action = mon.on_step(wall_s * 1e9)
-                if action is not None:
-                    caches = self._place_caches(caches, action.to_pool)
-                    kv_pool = action.to_pool
+                to_pool = self._agree(action.to_pool if action else "")
+                if to_pool:
+                    caches = self._place_caches(caches, to_pool)
+                    kv_pool = to_pool
         if timed:
             self._observe_duty(busy_s, time.perf_counter() - t_loop)
 
         out = torch.cat([torch.stack(emitted, dim=1), tok], dim=1) \
             if max_new_tokens > 1 else tok
-        result = GenerateResult(out, max_new_tokens, kv_pool,
+        out, logits = self._whole_rows(out, b), self._whole_rows(logits, b)
+        result = GenerateResult(out, max_new_tokens, kv_pool, logits,
                                 host_read_bytes=host_read,
                                 host_written_bytes=host_written)
         if mon is not None:
