@@ -31,7 +31,10 @@ training path (``repro_torch.launch.train`` at qwen2-1.5b's full width and
 depth in bf16: microbatches -> lm.forward with per-layer remat -> the
 flash kernel -> chunked cross-entropy -> the hand-written flash backward
 kernel on the tensor cores -> AdamW -> the resilient loop), the same
-training through the mesh path on one NCCL rank, and serving through the
+training through the mesh path on one NCCL rank, tensor-parallel
+training's pieces at the same width (each rank's head block through the
+flash forward and backward, the vocabulary-parallel cross-entropy's
+rank-local terms combined as a model group would), and serving through the
 mesh path (``launch.serve`` on a one-rank NCCL group against the same
 argv with no group; each tensor-parallel rank's head block through the
 flash kernel; GPipe over one decoder layer) — checks the results, and
@@ -3889,7 +3892,9 @@ def planned_collectives(rules, tcfg, params_struct) -> list:
     gradient block all-reduced (after its int8 scale's MAX with
     ``int8_ef``), then the metrics; the sums of squares all-reduced once
     a set of moment axes; each updated block gathered over the axes
-    ZeRO-1 adds."""
+    ZeRO-1 adds.  One card holds a (1,1) mesh only; the split step's
+    plan on a model axis of more than one rank is held on the CPU
+    (``tests/test_torch_distribution.py``)."""
     from repro_torch.parallel import collectives
     mesh = rules.mesh
     specs = step_mod.state_specs(rules.cfg, rules, tcfg, params_struct)
@@ -3933,6 +3938,25 @@ def planned_collectives(rules, tcfg, params_struct) -> list:
     return calls
 
 
+@contextlib.contextmanager
+def counted_gathers():
+    """Counts the calls of ``collectives.gather`` (a leaf rebuilt whole
+    from its blocks) while the block runs: ``{"calls": n}``."""
+    from repro_torch.parallel import collectives
+    seen = {"calls": 0}
+    real = collectives.gather
+
+    def gather(*a, **k):
+        seen["calls"] += 1
+        return real(*a, **k)
+
+    collectives.gather = gather
+    try:
+        yield seen
+    finally:
+        collectives.gather = real
+
+
 def phase_distributed(smi: str) -> dict:
     """qwen2-1.5b at full width and depth through ``launch.train``'s mesh
     path: one process group (``nccl``, rank 0, world 1, a file store in a
@@ -3942,6 +3966,9 @@ def phase_distributed(smi: str) -> dict:
     one-device run of the same launcher before the group exists.  (a) the
     losses within ``DIST_LOSS_REL`` and every parameter leaf within one
     bf16 rounding of the one-device run's, and how many are bit-equal;
+    the step body of every mesh, which at a model axis of 1 splits
+    nothing and rebuilds no leaf whole (``collectives.gather`` not
+    called);
     (b) ``compressed_psum`` over the NCCL group on one step's float32
     gradients, leaf by leaf, bit-equal to ``compress_decompress``; (c)
     the collectives ``analysis.cost`` counts in one sharded step equal,
@@ -3979,8 +4006,9 @@ def phase_distributed(smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         counts.reset()
         t0 = time.perf_counter()
-        run = train_cli.run(DIST_ARGV, verbose=False)
-        sync()
+        with counted_gathers() as gathers:
+            run = train_cli.run(DIST_ARGV, verbose=False)
+            sync()
         entry_s = time.perf_counter() - t0
         launched, plain = counts.snapshot()
         by_instance = dict(counts.INSTANCES)
@@ -3995,6 +4023,11 @@ def phase_distributed(smi: str) -> dict:
         checks["mesh_bound_1x1"] = (mesh.bound and mesh.rank == 0 and
                                     describe(mesh) == "data=1xmodel=1")
         checks["zero1_on"] = run.tcfg.zero1 and run.shardings is not None
+        # the step body of every mesh: at a model axis of 1 it splits
+        # nothing and gathers no leaf whole (collectives.gather not called)
+        checks["a:model_axis_none"] = \
+            step_mod.model_split(run.cfg, run.rules) == "none"
+        checks["a:no_whole_leaf_gather"] = gathers["calls"] == 0
         checks["full_width_bf16"] = (
             (cfg.n_layers, cfg.d_model, cfg.vocab_size,
              state["params"]["embed"].dtype)
@@ -4094,6 +4127,7 @@ def phase_distributed(smi: str) -> dict:
           "backend": "nccl", "world_size": 1, "mesh": "data=1xmodel=1",
           "entry_seconds": entry_s,
           "losses": losses, "one_device_losses": one_losses,
+          "gather_calls": gathers["calls"],
           "loss_rel_max": loss_rel, "leaf_rel_max": max(leaf_rel),
           "leaves": len(leaf_rel), "leaves_bit_equal": bit_equal,
           "psum_leaves_bit_equal": psum_equal,
@@ -4110,6 +4144,234 @@ def phase_distributed(smi: str) -> dict:
     for k_, ok in checks.items():
         if not ok:
             fail(f"distributed: check {k_}")
+    return {"flash_attention": launched["flash_attention"],
+            "flash_attention_bwd": launched["flash_attention_bwd"]}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training: each rank's head block through #12 and #12b,
+# and the vocabulary-parallel cross-entropy, at qwen2-1.5b's full width
+# ---------------------------------------------------------------------------
+
+# (b): the model axes whose ranks' head blocks run, as serve_mesh's (b):
+# "head" at 2 (6 q heads, 1 KV head a rank), "seq" + q_heads_tp at 4 (3, 1)
+TP_ATTN_SEED = 60
+# (c): the loss within this share of chunked_ce's; the gradients within
+# this share of their largest element (float32 either way)
+TP_CE_LOSS_REL = 1e-5
+TP_CE_GRAD_REL = 1e-4
+TP_CE_BLOCKS = (2, 4)
+
+
+def head_block_check(cfg) -> tuple:
+    """(b): q (B, 12, S, 128) and k, v (B, 2, S, 128) at the train
+    microbatch (B = ``TRAIN_BATCH // TRAIN_MB``, S = ``TRAIN_SEQ``), bf16,
+    causal, from a seed; #12 with the log-sum-exp and #12b on one seeded
+    ``do``, whole, then on each rank's head block of a model axis of 2
+    and 4 (``head_blocks``, the rules' cut and ``attention.kv_heads_of``).
+    Each block's output, log-sum-exp and dq bit-equal to the whole call's
+    slices; dk and dv summed over the ranks that read each KV head against
+    the whole call's: |sum - want| <= BF16_RTOL sum|term| +
+    BWD_BF16_FLOOR max|want|, the 12b cases' limit with each rank's
+    rounded term counted (where one rank reads a KV head, exactly the 12b
+    limit), and whether they are bit-equal.  Returns (records, the
+    blocks' launches of #12 and #12b, timings)."""
+    b, s_ = TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf = torch.bfloat16
+    q, k, v = qkv(b, h, kvh, s_, s_, d, bf, seed=TP_ATTN_SEED,
+                  scale=PEAKED_QK, v_scale=V_SCALE)
+    g = torch.Generator(device=DEV).manual_seed(TP_ATTN_SEED + 5)
+    do = torch.randn(q.shape, generator=g, device=DEV).to(bf)
+    inst = flash_attention.INSTANCE[bf]
+
+    def fwd_bwd(q_, k_, v_, do_):
+        lse_ = torch.empty(q_.shape[:3], dtype=torch.float32, device=DEV)
+        o_ = flash_attention._launch_forward(inst, q_, k_, v_, causal=True,
+                                             window=0, sm_scale=None,
+                                             lse=lse_)
+        return (o_, lse_) + tuple(flash_attention.flash_attention_bwd(
+            q_, k_, v_, o_, lse_, do_, causal=True))
+
+    o, lse, dq, dk, dv = fwd_bwd(q, k, v, do)
+    counts.reset()
+    recs, sums = [], []
+    for tp in MESH_TP:
+        mode, ranks = head_blocks(cfg, tp)
+        acc = {n: torch.zeros(t.shape, dtype=torch.float32, device=DEV)
+               for n, t in (("dk", dk), ("dv", dv), ("mag_k", dk),
+                            ("mag_v", dv))}
+        for i, (h0, hl, kv_heads) in enumerate(ranks):
+            idx = torch.tensor(kv_heads, device=DEV)
+            ob, lseb, dqb, dkb, dvb = fwd_bwd(
+                q[:, h0:h0 + hl].contiguous(), k[:, kv_heads].contiguous(),
+                v[:, kv_heads].contiguous(),
+                do[:, h0:h0 + hl].contiguous())
+            for n, t in (("dk", dkb), ("dv", dvb)):
+                acc[n].index_add_(1, idx, t.float())
+                acc["mag_" + n[1]].index_add_(1, idx, t.float().abs())
+            recs.append({
+                "tp": tp, "mode": mode, "rank": i, "q_heads": [h0, h0 + hl],
+                "kv_heads": kv_heads,
+                "o_bit_equal": torch.equal(ob, o[:, h0:h0 + hl]),
+                "lse_bit_equal": torch.equal(lseb, lse[:, h0:h0 + hl]),
+                "dq_bit_equal": torch.equal(dqb, dq[:, h0:h0 + hl])})
+            del ob, lseb, dqb, dkb, dvb
+        rec = {"tp": tp, "mode": mode}
+        for n, want in (("dk", dk), ("dv", dv)):
+            wf = want.float()
+            err = (acc[n] - wf).abs() / (
+                BF16_RTOL * acc["mag_" + n[1]]
+                + BWD_BF16_FLOOR * float(wf.abs().max()))
+            rec[n + "_scaled_err"] = float(err.max())
+            rec[n + "_bit_equal"] = torch.equal(acc[n], wf)
+            rec[n + "_max_abs_err"] = float((acc[n] - wf).abs().max())
+        sums.append(rec)
+        del acc
+    sync()
+    launched, plain = counts.snapshot()
+    # the whole call and rank 0's block of each model axis, timed
+    times = {"whole_fwd_bwd_ms": time_ms(lambda: fwd_bwd(q, k, v, do), 3)}
+    for tp in MESH_TP:
+        h0, hl, kv_heads = head_blocks(cfg, tp)[1][0]
+        qb, kb, vb, dob = (q[:, h0:h0 + hl].contiguous(),
+                           k[:, kv_heads].contiguous(),
+                           v[:, kv_heads].contiguous(),
+                           do[:, h0:h0 + hl].contiguous())
+        times[f"block_fwd_bwd_ms_tp{tp}"] = time_ms(
+            lambda: fwd_bwd(qb, kb, vb, dob), 3)
+    del q, k, v, do, o, lse, dq, dk, dv
+    return recs, sums, launched, plain, times
+
+
+def vocab_ce_check(cfg) -> dict:
+    """(c): the tied embedding at full width (``padded_vocab`` x
+    ``d_model``, the model's init from a seed) cut into 2 and 4 row blocks,
+    a seeded bf16 hidden of the train microbatch taken to float32, labels
+    from a seed with each row's last masked (-1).  Each chunk (the
+    launcher's ``loss_chunk``): ``step.vocab_ce_terms`` once a block, the
+    terms combined as the group would (a MAX of the maxima, a SUM of the
+    rescaled sums and of the label logits), ``step.vocab_ce_grads`` once a
+    block; against ``step.chunked_ce`` on the whole vocabulary and its
+    autograd gradients: the loss within ``TP_CE_LOSS_REL``, the hidden's
+    gradient (the blocks' shares summed) and each block's gradient within
+    ``TP_CE_GRAD_REL`` of the largest element."""
+    from repro_torch.models.common import embed_init
+    b, s_, dm = TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, cfg.d_model
+    chunk = min(1024, s_)
+    gen = torch.Generator(device=DEV).manual_seed(TP_ATTN_SEED + 10)
+    w = embed_init(gen, (cfg.padded_vocab, dm), torch.bfloat16,
+                   n_rows=cfg.vocab_size).float()
+    h = (torch.randn((b, s_, dm), generator=gen, device=DEV)
+         .to(torch.bfloat16).float())
+    y = torch.randint(0, cfg.vocab_size, (b, s_), generator=gen, device=DEV)
+    y[:, -1] = -1
+    wr, hr = w.clone().requires_grad_(), h.clone().requires_grad_()
+    sync()
+    t0 = time.perf_counter()
+    loss, _ = step_mod.chunked_ce({"embed": wr}, hr, y, cfg=cfg, chunk=chunk)
+    loss.backward()
+    sync()
+    whole_s = time.perf_counter() - t0
+    want_loss = float(loss.detach())
+    want_dh, want_dw = hr.grad, wr.grad
+    del wr, hr, loss
+    out = {"chunked_ce_loss": want_loss, "chunked_ce_seconds": whole_s,
+           "chunk": chunk, "blocks": {}}
+    one = torch.ones((), device=DEV)
+    for n in TP_CE_BLOCKS:
+        rows = cfg.padded_vocab // n
+        blocks = [w[i * rows:(i + 1) * rows] for i in range(n)]
+        loss = torch.zeros((), device=DEV)
+        dh = torch.zeros_like(h)
+        dws = [torch.zeros_like(blk) for blk in blocks]
+        sync()
+        t0 = time.perf_counter()
+        for a in range(0, s_, chunk):
+            hc, yc = h[:, a:a + chunk], y[:, a:a + chunk]
+            terms = [step_mod.vocab_ce_terms(hc, yc, blk, i * rows)
+                     for i, blk in enumerate(blocks)]
+            m = torch.stack([t_[0] for t_ in terms]).amax(0)
+            ssum = sum(t_[1] * torch.exp(t_[0] - m) for t_ in terms)
+            ll = sum(t_[2] for t_ in terms)
+            lse = m + torch.log(ssum)
+            loss += torch.where(yc >= 0, lse - ll, 0.0).sum()
+            del terms
+            for i, blk in enumerate(blocks):
+                dhi, dwi = step_mod.vocab_ce_grads(hc, yc, blk, i * rows,
+                                                   lse, one)
+                dh[:, a:a + chunk] += dhi
+                dws[i] += dwi
+                del dhi, dwi
+        sync()
+        sec = time.perf_counter() - t0
+        top_w = [float(want_dw[i * rows:(i + 1) * rows].abs().max())
+                 for i in range(n)]
+        out["blocks"][n] = {
+            "loss": float(loss),
+            "loss_rel": abs(float(loss) - want_loss) / abs(want_loss),
+            "dh_rel_to_max": float((dh - want_dh).abs().max())
+            / float(want_dh.abs().max()),
+            "dw_rel_to_block_max": [
+                float((dws[i] - want_dw[i * rows:(i + 1) * rows]).abs().max())
+                / max(top_w[i], 1e-30) for i in range(n)],
+            "seconds": sec}
+        del dh, dws
+    del w, h, want_dh, want_dw
+    return out
+
+
+def phase_train_tp(smi: str) -> dict:
+    """Tensor-parallel training's pieces on the card, at qwen2-1.5b's full
+    width (one card cannot hold a model group of two NCCL ranks; the gloo
+    tests of ``tests/test_torch_train_tp.py`` hold the multi-rank step's
+    arithmetic): (b) each rank's head block through #12 and #12b
+    (:func:`head_block_check`), no plain version; (c) the
+    vocabulary-parallel cross-entropy's rank-local terms and gradients
+    (:func:`vocab_ce_check`).  Returns the blocks' launches."""
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    checks = {}
+    recs, sums, launched, plain, times = head_block_check(cfg)
+    n_blocks = sum(MESH_TP)
+    checks["b:modes"] = [r["mode"] for r in sums] == ["head",
+                                                      "seq+q_heads_tp"]
+    checks["b:block_heads"] = [(r["q_heads"][1] - r["q_heads"][0],
+                                len(r["kv_heads"])) for r in recs] == \
+        [(6, 1)] * 2 + [(3, 1)] * 4
+    checks["b:o_lse_dq_bit_equal"] = len(recs) == n_blocks and all(
+        r["o_bit_equal"] and r["lse_bit_equal"] and r["dq_bit_equal"]
+        for r in recs)
+    checks["b:dk_dv_within_tol"] = all(
+        r["dk_scaled_err"] <= 1.0 and r["dv_scaled_err"] <= 1.0
+        for r in sums)
+    checks["b:forward_once_a_block"] = \
+        launched["flash_attention"] == n_blocks
+    checks["b:backward_once_a_block"] = \
+        launched["flash_attention_bwd"] == n_blocks
+    checks["b:no_plain_version"] = not any(plain.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    ce = vocab_ce_check(cfg)
+    for n, r in ce["blocks"].items():
+        checks[f"c:loss_within_1e-5_rel_{n}_blocks"] = \
+            r["loss_rel"] <= TP_CE_LOSS_REL
+        checks[f"c:hidden_grad_within_1e-4_{n}_blocks"] = \
+            r["dh_rel_to_max"] <= TP_CE_GRAD_REL
+        checks[f"c:block_grads_within_1e-4_{n}_blocks"] = \
+            len(r["dw_rel_to_block_max"]) == n and \
+            max(r["dw_rel_to_block_max"]) <= TP_CE_GRAD_REL
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_tp", "card": smi,
+          "shape_q": [TRAIN_BATCH // TRAIN_MB, cfg.n_heads, TRAIN_SEQ,
+                      cfg.head_dim],
+          "head_blocks": recs, "kv_sums": sums, "times": times,
+          "launches": launched, "plain_calls": plain, "vocab_ce": ce,
+          "checks": checks, "seconds": time.perf_counter() - t_phase})
+    for k_, ok in checks.items():
+        if not ok:
+            fail(f"train_tp: check {k_}")
     return {"flash_attention": launched["flash_attention"],
             "flash_attention_bwd": launched["flash_attention_bwd"]}
 
@@ -4606,6 +4868,14 @@ def main() -> int:
     bwd_row["launches"] += dist_launches["flash_attention_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
+    # tensor-parallel training's pieces: each rank's head block through
+    # #12 and #12b, the vocabulary-parallel cross-entropy
+    tp_launches = phase_train_tp(smi)
+    bwd_row["launches_by_path"]["train_tp"] = \
+        tp_launches["flash_attention_bwd"]
+    bwd_row["launches"] += tp_launches["flash_attention_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
     # serving on a mesh over NCCL (world 1): the phase resets and reads the
     # counts around its mesh run
     mesh_launches = phase_serve_mesh(smi)
@@ -4620,9 +4890,12 @@ def main() -> int:
                                      "train": train_fwd,
                                      "distributed":
                                          dist_launches["flash_attention"],
+                                     "train_tp":
+                                         tp_launches["flash_attention"],
                                      "serve_mesh": mesh_launches}
     flash_row["launches"] += (serve["launches"] + families + train_fwd
                               + dist_launches["flash_attention"]
+                              + tp_launches["flash_attention"]
                               + mesh_launches)
     flash_row["serve_call"] = serve["call"]
 

@@ -13,7 +13,10 @@ Runs on the card unless ``--device cpu``::
 On several processes the mesh comes from the process group, ``nccl`` for
 ``--device cuda`` (one card a rank) and ``gloo`` for ``--device cpu``;
 the state is sharded by ``state_specs`` and the batch by
-``batch_specs``::
+``batch_specs``.  The opening line's ``model_axis`` says how the step
+uses the model axis (``step.model_split``): ``arithmetic`` (a dense
+decoder, each rank its share on its blocks), ``storage`` (a MoE or Mamba
+configuration, blocks gathered whole) or ``none``::
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch qwen2-1.5b --reduced --data 2 --model 2 --device cpu
@@ -186,8 +189,10 @@ def _run(args, verbose: bool) -> TrainRun:
     rank0 = not mesh.bound or mesh.rank == 0
     if verbose and rank0:
         print(f"[train] arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M "
-              f"mesh={describe(mesh)} steps={args.steps} "
-              f"batch={args.batch}x{args.seq} device={device}")
+              f"mesh={describe(mesh)} "
+              f"model_axis={step_mod.model_split(cfg, rules)} "
+              f"steps={args.steps} batch={args.batch}x{args.seq} "
+              f"device={device}")
     if not args.no_advice:
         advise_placement(cfg, tcfg, verbose=verbose and rank0, device=device)
 

@@ -44,6 +44,21 @@ its share, Megatron's way:
 * **"seq" mode without it**: the projections and ``wo`` whole; only the
   cache's positions are cut.
 
+Where a rank computes a share of the heads (:func:`heads_split`), the
+block from :func:`project_qkv` to ``wo`` is one region, Megatron's: the
+hidden enters it through ``collectives.tp_copy`` (identity forward, its
+gradient summed over the model group backward) and the sum after ``wo``
+is ``collectives.tp_sum`` (the gradient passes to each rank's share), so
+the layer trains on its blocks.  The leaves that are whole on every rank
+but read for the rank's share only (:func:`partial_leaves`: the bias and
+qk-norm leaves, and in "seq" mode ``wk``/``wv``, whose KV heads
+:func:`kv_heads_of` selects) get this rank's share of their gradient;
+the train step sums them over the model group once after the backward
+(``repro_torch.train.step``).  Where no heads are cut the layer computes
+everything whole and takes no *f*.  Train mode runs each rank's head
+block through ``flash_attention.FlashAttentionFn``: kernel #12 forward
+with the log-sum-exp, #12b backward.
+
 A decode step in "seq" mode (:func:`seq_decode_attention`) gathers q's
 heads over the model group where they are cut, attends every head over
 the rank's block of positions, and combines the blocks' partial softmax
@@ -393,6 +408,29 @@ def kv_heads_of(h0: int, n: int, n_heads: int, n_kv: int):
     return want
 
 
+def heads_split(cfg: ModelConfig, tp) -> bool:
+    """Does this rank compute a share of the heads: "head" mode, or "seq"
+    with ``q_heads_tp``, on a model group of more than one rank (the
+    rules then cut ``wq`` and ``wo`` by heads)?"""
+    return (tp is not None and tp.cuts(cfg.n_heads)
+            and (tp.attn_mode == "head" or tp.q_heads_tp))
+
+
+def partial_leaves(cfg: ModelConfig, tp) -> Tuple[str, ...]:
+    """The attention leaves, whole on every rank, of which a rank reads
+    its share of heads only where :func:`heads_split`: its gradient of
+    them is its share, summed over the model group by the train step.
+    Empty where no heads are cut."""
+    if not heads_split(cfg, tp):
+        return ()
+    names = ("bq", "bk", "bv") if cfg.qkv_bias else ()
+    if cfg.qk_norm:
+        names += ("q_norm", "k_norm")
+    if tp.attn_mode == "seq":
+        names += ("wk", "wv")
+    return names
+
+
 def project_qkv(params, x, *, cfg: ModelConfig, layer_idx: int, positions,
                 tp=None):
     """x: (B, S, D) -> q (B,S,H,hd), k, v (B,S,KV,hd) at ``positions``:
@@ -454,6 +492,11 @@ def attention_layer(params, x, *, cfg: ModelConfig, layer_idx: int,
     cap = cfg.attn_logit_softcap
     seq_cut = tp is not None and tp.seq_cut
     h0 = q_head_start(params, cfg, tp)
+    split = heads_split(cfg, tp)
+    if split:
+        # the region's entry (Megatron's f): every rank's share of the
+        # gradient of x summed backward
+        x = collectives.tp_copy(x, tp.group)
 
     if mode in ("train", "prefill"):
         positions = torch.arange(s, device=x.device)
@@ -535,7 +578,7 @@ def attention_layer(params, x, *, cfg: ModelConfig, layer_idx: int,
             new_cache = {"k": cache["k"], "v": cache["v"]}
 
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    if params["wo"].shape[0] < cfg.n_heads:
+    if split:
         # row-parallel: this rank's heads' share, summed over the group
         y = collectives.tp_sum(y, tp.group)
     return y, new_cache

@@ -77,6 +77,13 @@ def layer_has_ffn(cfg: ModelConfig, i: int) -> bool:
     return cfg.family != "ssm"
 
 
+def splits_over_model(cfg: ModelConfig) -> bool:
+    """Can every layer split its arithmetic over the model axis: an
+    attention mixer and a dense MLP (no MoE and no Mamba layer)?"""
+    return all(cfg.layer_kind(i) == "attn" and not cfg.layer_is_moe(i)
+               for i in range(cfg.n_layers))
+
+
 def layer_init(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
                dtype) -> Params:
     kind, is_moe, _ = layer_signature(cfg, layer_idx)
@@ -112,8 +119,9 @@ def layer_apply(
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
     """One decoder block.  Returns (x, new_cache, aux_losses).  ``tp``
     (this rank's share on a mesh) reaches the attention layer and the
-    MLP; a Mamba or MoE layer refuses a model group of more than one
-    rank (expert and SSM-head parallelism are not ported)."""
+    MLP in every mode, train too; a Mamba or MoE layer refuses a model
+    group of more than one rank (expert and SSM-head parallelism are not
+    ported; :func:`splits_over_model` tells the configurations apart)."""
     kind, is_moe, _ = layer_signature(cfg, layer_idx)
     if tp is not None and tp.size > 1 and (kind != "attn" or is_moe):
         raise NotImplementedError(

@@ -16,11 +16,14 @@ Entry points
 On a mesh (``tp``, :class:`repro_torch.parallel.collectives.
 TensorParallel`, None off a mesh) the parameters are this rank's blocks
 by :func:`param_specs`: a cut ``embed`` is looked up vocabulary-parallel
-(the rank's rows, zeros for the others', summed over the model group), a
-cut unembedding gives the rank's vocabulary block of the logits, gathered
-whole on every rank, and the layers split their arithmetic
-(:mod:`repro_torch.models.attention`, ``mlp``).  The caches are this
-rank's blocks by :func:`cache_specs`.
+(the rank's rows, zeros for the others', summed over the model group by
+the differentiable ``collectives.tp_sum``, so that in training each
+rank's block gets the gradient of its rows), a cut unembedding gives the
+rank's vocabulary block of the logits, gathered whole on every rank
+(serving; training keeps them cut, ``train.step.vocab_parallel_ce``),
+and the layers split their arithmetic (:mod:`repro_torch.models.
+attention`, ``mlp``), in train mode too.  The caches are this rank's
+blocks by :func:`cache_specs`.
 
 Parameter layout (see blocks.py for the period decomposition)::
 
@@ -311,7 +314,10 @@ def forward(
     through ``torch.utils.checkpoint`` (non-reentrant), as the reference
     wraps its scan body in ``jax.checkpoint``: the period's activations are
     recomputed in the backward pass instead of kept.  The tail layers are
-    not wrapped, as in the reference."""
+    not wrapped, as in the reference.  With ``tp`` the recompute runs the
+    period's forward collectives again (up to its last saved tensor,
+    where ``checkpoint`` stops), in the same order on every rank of the
+    model group, since every rank runs the same backward."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode: {mode!r}")
     if remat not in ("none", "layer"):

@@ -17,20 +17,26 @@ the collectives; the port derives them itself, from the same specs
   moment's spec adds to its parameter's (ZeRO-1), the block of a
   parameter block that this rank updates.  The train step that runs on
   these blocks is :func:`repro_torch.train.step.make_train_step`.
-* **tensor parallelism** (serving): :class:`TensorParallel` is the
-  context a layer's arithmetic reads, the "model" group and the group of
-  the KV cache's sequence, and :func:`tp_sum`, :func:`tp_all_gather` and
-  :func:`lse_combine` are the collectives the layers run on it (forward
-  only).  Each of these skips itself on a group of one rank.
+* **tensor parallelism**: :class:`TensorParallel` is the context a
+  layer's arithmetic reads, the "model" group and the group of the KV
+  cache's sequence, and :func:`tp_copy`, :func:`tp_sum`,
+  :func:`tp_all_gather` and :func:`lse_combine` are the collectives the
+  layers run on it.  The first three are differentiable, Megatron's way:
+  :func:`tp_copy` (*f*) is the identity forward and sums the gradient over
+  the group backward, at the entry of a column split; :func:`tp_sum` (*g*)
+  sums forward and passes the gradient through, after a row split;
+  :func:`tp_all_gather` hands each rank its slice of the gradient.  Each
+  of these skips itself on a group of one rank.
 
-In training the "model" axis splits where parameters and moments live,
-not a layer's arithmetic: the step gathers whole leaves and the kernels
-take whole local tensors.  On a bound mesh the step's collectives run
-over their groups even where a group has one rank, so a bound 1x1 mesh
-takes the path a larger one takes; a one-device mesh with no process
-group (``rank`` None) has no groups, and :func:`axis_group` and
-:func:`gather` run nothing there.  Serving splits the dense arithmetic
-(:mod:`repro_torch.models.attention`, ``mlp``, ``lm``).  Only calls that
+Serving and the train step of a dense decoder split the arithmetic over
+"model" (:mod:`repro_torch.models.attention`, ``mlp``, ``lm``;
+:func:`repro_torch.train.step.make_train_step`); the train step of a
+configuration with a MoE or Mamba layer still gathers whole leaves over
+"model" and splits only where parameters and moments live.  On a bound
+mesh the step's collectives run over their groups even where a group has
+one rank, so a bound 1x1 mesh takes the path a larger one takes; a
+one-device mesh with no process group (``rank`` None) has no groups, and
+:func:`axis_group` and :func:`gather` run nothing there.  Only calls that
 PyTorch 2.11 and later both have are used: ``all_reduce`` (SUM, MAX),
 ``all_gather_into_tensor``, ``broadcast``, ``isend``/``irecv`` and
 ``new_group``.
@@ -322,7 +328,7 @@ def relative_spec(pspec, mspec, ndim: int) -> P:
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism: the groups a layer's arithmetic runs over (serving)
+# Tensor parallelism: the groups a layer's arithmetic runs over
 # ---------------------------------------------------------------------------
 
 
@@ -381,32 +387,100 @@ def tensor_parallel(rules) -> Optional[TensorParallel]:
                           seq_size=seq_size, seq_index=seq_index)
 
 
+def _alone(group: Optional[AxisGroup]) -> bool:
+    return group is None or group.size == 1
+
+
+def _all_reduce_copy(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """The SUM of every rank's ``x`` over ``group`` in a new tensor."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group.group)
+    return out
+
+
+class _Copy(torch.autograd.Function):
+    """Megatron's *f*: identity forward, the gradient summed backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_copy(g, ctx.group), None
+
+
+class _Sum(torch.autograd.Function):
+    """Megatron's *g*: the sum forward (out of place), identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_copy(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_copy(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
+    """``x`` entering a region whose ranks each compute a share from it
+    (a column split): the identity, whose gradient is summed over
+    ``group`` in the backward pass, so that every rank gets the whole
+    gradient of ``x``.  ``x`` itself on a group of one rank or none."""
+    if _alone(group):
+        return x
+    return _Copy.apply(x, group)
+
+
 def tp_sum(x: torch.Tensor, group: Optional[AxisGroup]) -> torch.Tensor:
-    """The sum of every rank's ``x`` over ``group`` (in place), or ``x``
-    itself on a group of one rank or none."""
-    if group is None or group.size == 1:
+    """The sum of every rank's ``x`` over ``group`` in a new tensor, or
+    ``x`` itself on a group of one rank or none.  Its gradient passes to
+    ``x`` unchanged (each rank's share gets the whole gradient of the
+    sum)."""
+    if _alone(group):
         return x
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group.group)
-    return x
+    return _Sum.apply(x, group)
 
 
-def tp_all_gather(x: torch.Tensor, dim: int,
-                  group: Optional[AxisGroup]) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in the group's order
-    (its members ascending, the order :func:`block_slices` cuts in), or
-    ``x`` itself on a group of one rank or none."""
-    if group is None or group.size == 1:
-        return x
+class _AllGather(torch.autograd.Function):
+    """The gather along ``dim``; backward, this rank's slice of the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.index = group.members.index(dist.get_rank())
+        return _gather_along(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
+
+
+def _gather_along(x: torch.Tensor, dim: int,
+                  group: AxisGroup) -> torch.Tensor:
     flat = x.contiguous().reshape(-1)
     out = torch.empty(group.size * flat.numel(), dtype=x.dtype,
                       device=x.device)
     with warnings.catch_warnings():      # renamed after PyTorch 2.11
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(out, flat, group=group.group)
-    dim = dim % x.dim()
     out = out.view(group.size, *x.shape).movedim(0, dim)
     return out.reshape(*x.shape[:dim], group.size * x.shape[dim],
                        *x.shape[dim + 1:])
+
+
+def tp_all_gather(x: torch.Tensor, dim: int,
+                  group: Optional[AxisGroup]) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in the group's order
+    (its members ascending, the order :func:`block_slices` cuts in), or
+    ``x`` itself on a group of one rank or none.  The gradient of ``x`` is
+    this rank's slice of the gradient of the result."""
+    if _alone(group):
+        return x
+    return _AllGather.apply(x, dim % x.dim(), group)
 
 
 def lse_combine(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,

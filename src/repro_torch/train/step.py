@@ -22,7 +22,13 @@ Sharding is declarative, as in the reference: :func:`state_specs` and
 process group the state is this rank's blocks (ZeRO-1 moments) and the
 gradients are averaged over the batch group
 (:mod:`repro_torch.parallel.collectives`); on a one-device mesh with no
-process group every block is the whole leaf and no collective runs.
+process group every block is the whole leaf and no collective runs.  On
+a model axis of more than one rank a dense decoder's step is
+tensor-parallel, Megatron's way: each rank runs its share of the layers
+on its parameter blocks (:mod:`repro_torch.models.attention`, ``mlp``,
+``lm``), the cross-entropy keeps the logits cut by vocabulary
+(:func:`vocab_parallel_ce`), and the float32 gradients come out as the
+blocks; nothing is gathered whole over "model".
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.models import lm
+from repro_torch.models import attention, blocks as blocks_mod, lm
 from repro_torch.optim import adamw
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel import compression
@@ -152,19 +158,141 @@ def chunked_ce(params, hidden, labels, *, cfg: ModelConfig, chunk: int,
 
 
 # ---------------------------------------------------------------------------
+# Vocabulary-parallel chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+
+def _label_index(y: torch.Tensor, lo: int, n: int):
+    """(the labels' rows in a block of ``n`` rows from ``lo``, clamped
+    into it; whether the label falls in the block)."""
+    local = y - lo
+    return local.clamp(0, n - 1), (local >= 0) & (local < n)
+
+
+def vocab_ce_terms(h: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                   lo: int):
+    """One rank's terms of one chunk's cross-entropy over its vocabulary
+    block: ``h`` (B, C, D), the labels ``y`` (B, C) (global ids), ``w``
+    the float32 rows ``lo .. lo + Vb`` of the unembedding.  Returns
+    float32 (B, C) tensors: the rows' largest logit over the block ``m``,
+    ``sum exp(logit - m)`` over the block, and the label's logit where the
+    label falls in the block (0 elsewhere).  No collective: the group's
+    terms combine by :func:`vocab_ce_combine`."""
+    logits = torch.einsum("bcd,vd->bcv", h.to(torch.float32), w)
+    m = torch.amax(logits, dim=-1)
+    s = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    idx, inside = _label_index(y, lo, w.shape[0])
+    ll = torch.gather(logits, -1, idx[..., None])[..., 0]
+    return m, s, torch.where(inside, ll, 0.0)
+
+
+def vocab_ce_combine(m: torch.Tensor, s: torch.Tensor, ll: torch.Tensor,
+                     group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows' log-sum-exp over the whole vocabulary and the label's
+    logit, from every rank's :func:`vocab_ce_terms` over the model
+    ``group``: one all-reduce (MAX) of the maxima, then one (SUM) of the
+    sums rescaled to it and of the label logits (one rank holds each
+    label's, the others 0)."""
+    mx = m.clone()
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group.group)
+    sl = torch.stack([s * torch.exp(m - mx), ll])
+    dist.all_reduce(sl, op=dist.ReduceOp.SUM, group=group.group)
+    return mx + torch.log(sl[0]), sl[1]
+
+
+def vocab_ce_grads(h: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                   lo: int, lse: torch.Tensor, scale: torch.Tensor):
+    """One rank's share of the gradient of one chunk's summed loss, given
+    the rows' log-sum-exp over the whole vocabulary ``lse`` (B, C): the
+    logits' gradient on the block is ``scale · (softmax - onehot)``, 0 on
+    rows whose label is < 0.  Returns (this rank's share of the gradient
+    of ``h``, in ``h``'s dtype; the block's float32 gradient (Vb, D)).
+    No collective: the shares of ``h``'s gradient sum over the group."""
+    hf = h.to(torch.float32)
+    logits = torch.einsum("bcd,vd->bcv", hf, w)
+    p = torch.exp(logits - lse[..., None])
+    idx, inside = _label_index(y, lo, w.shape[0])
+    p.scatter_add_(-1, idx[..., None], -inside.to(p.dtype)[..., None])
+    p = p * torch.where(y >= 0, scale, 0.0)[..., None]
+    return (torch.einsum("bcv,vd->bcd", p, w).to(h.dtype),
+            torch.einsum("bcv,bcd->vd", p, hf))
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """One chunk's summed loss over a vocabulary cut across the model
+    group.  The forward keeps ``h``, the block and the rows' log-sum-exp;
+    the backward remakes the chunk's logits from them
+    (:func:`vocab_ce_grads`): a checkpoint a chunk whose recompute runs no
+    collective, and no chunk's logits outlive it."""
+
+    @staticmethod
+    def forward(ctx, h, y, w, lo, group):
+        lse, label = vocab_ce_combine(*vocab_ce_terms(h, y, w, lo), group)
+        ctx.save_for_backward(h, y, w, lse)
+        ctx.lo = lo
+        return torch.sum(torch.where(y >= 0, lse - label, 0.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        h, y, w, lse = ctx.saved_tensors
+        dh, dw = vocab_ce_grads(h, y, w, ctx.lo, lse, g)
+        return dh, None, dw, None, None
+
+
+def vocab_parallel_ce(params, hidden, labels, *, cfg: ModelConfig,
+                      chunk: int, tp) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`chunked_ce` where this rank holds a block of the
+    unembedding's rows (``tp``, the model group): -> (sum of token losses,
+    token count), float32, the same on every rank of the group.  The
+    hidden enters through ``collectives.tp_copy`` (each rank's share of
+    its gradient summed backward); each chunk's float32 logits are made
+    for the rank's rows only and never gathered; labels < 0 are masked."""
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    n = s // chunk
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    w32 = w.to(torch.float32)
+    lo = tp.index * w.shape[0]
+    hidden = col.tp_copy(hidden, tp.group)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)]
+    if s > n * chunk:
+        bounds.append((n * chunk, s))
+    for a, e in bounds:
+        y = labels[:, a:e]
+        ls = _VocabParallelCE.apply(hidden[:, a:e], y, w32, lo, tp.group)
+        loss_sum = loss_sum + ls
+        count = count + torch.sum((y >= 0).to(torch.float32))
+    return loss_sum, count
+
+
+# ---------------------------------------------------------------------------
 # The train step
 # ---------------------------------------------------------------------------
 
 
-def make_loss_fn(cfg: ModelConfig, rules: ShardingRules, tcfg: TrainConfig):
+def make_loss_fn(cfg: ModelConfig, rules: ShardingRules, tcfg: TrainConfig,
+                 tp=None):
+    """``loss_fn(params, tokens, labels, frontend) -> (loss, metrics)``.
+    With ``tp`` (the model group, :func:`repro_torch.parallel.collectives.
+    tensor_parallel`) ``params`` are this rank's blocks and the forward
+    and the cross-entropy split their arithmetic over the group
+    (:func:`vocab_parallel_ce` where the unembedding is cut)."""
     cst = make_constrain(rules)
 
     def loss_fn(params, tokens, labels, frontend):
         hidden, _, aux = lm.forward(
             params, tokens, cfg=cfg, mode="train", frontend=frontend,
-            constrain=cst, remat=tcfg.remat)
-        loss_sum, count = chunked_ce(params, hidden, labels, cfg=cfg,
-                                     chunk=tcfg.loss_chunk, cst=cst)
+            constrain=cst, remat=tcfg.remat, tp=tp)
+        w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        if tp is not None and w.shape[0] < cfg.padded_vocab:
+            loss_sum, count = vocab_parallel_ce(
+                params, hidden, labels, cfg=cfg, chunk=tcfg.loss_chunk,
+                tp=tp)
+        else:
+            loss_sum, count = chunked_ce(params, hidden, labels, cfg=cfg,
+                                         chunk=tcfg.loss_chunk, cst=cst)
         loss = loss_sum / torch.clamp(count, min=1.0)
         metrics = {"ce_loss": loss, "tokens": count}
         if "moe_aux_loss" in aux:
@@ -178,14 +306,16 @@ def make_loss_fn(cfg: ModelConfig, rules: ShardingRules, tcfg: TrainConfig):
 
 
 def make_grads_fn(cfg: ModelConfig, rules: ShardingRules,
-                  tcfg: TrainConfig, *, microbatches: int = 1):
+                  tcfg: TrainConfig, *, microbatches: int = 1, tp=None):
     """``fn(params, tokens, labels, frontend) -> (metrics, gradients)``:
     the gradients a list of float32 tensors in leaf order, the metrics the
     last microbatch's with ``loss`` their mean.  With ``microbatches`` > 1
     the batch is cut into interleaved microbatches (row r in microbatch
     r % mb, the reference's layout: ``x.reshape(b // mb, mb, ...)[:, i]``),
-    each microbatch's gradients summed in float32 and divided by ``mb``."""
-    loss_fn = make_loss_fn(cfg, rules, tcfg)
+    each microbatch's gradients summed in float32 and divided by ``mb``.
+    With ``tp`` the parameters are this rank's blocks and so are the
+    gradients (:func:`make_loss_fn`)."""
+    loss_fn = make_loss_fn(cfg, rules, tcfg, tp)
 
     def grads_of(params, tokens, labels, frontend):
         """(loss, metrics, gradients in the parameters' dtypes): autograd
@@ -235,6 +365,17 @@ def make_grads_fn(cfg: ModelConfig, rules: ShardingRules,
     return fn
 
 
+def model_split(cfg: ModelConfig, rules: ShardingRules) -> str:
+    """How a train step on ``rules.mesh`` uses the model axis:
+    ``"arithmetic"`` (a dense decoder on more than one rank: each rank
+    runs its share on its blocks), ``"storage"`` (a configuration with a
+    MoE or Mamba layer on more than one rank: the blocks are gathered
+    whole and every rank runs the whole model), or ``"none"``."""
+    if rules.mesh.axis_sizes.get(rules.tp, 1) == 1:
+        return "none"
+    return "arithmetic" if blocks_mod.splits_over_model(cfg) else "storage"
+
+
 def make_train_step(cfg: ModelConfig, rules: ShardingRules,
                     tcfg: TrainConfig, *, microbatches: int = 1):
     """``step(state, tokens, labels, frontend=None) -> (state, metrics)``
@@ -243,9 +384,23 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules,
     and ``labels`` this rank's rows of the global batch
     (:class:`repro_torch.data.pipeline.DataLoader` with ``mesh=``).
 
-    The step gathers each parameter whole over the axes its spec names,
-    runs :func:`make_grads_fn` on the rank's rows, averages the float32
-    gradients' parameter blocks over the batch group (``all_reduce``; with
+    On a model axis of more than one rank a dense decoder (no MoE and no
+    Mamba layer, :func:`model_split` ``"arithmetic"``) runs
+    :func:`make_grads_fn` on the rank's parameter blocks with the model
+    group's context (:func:`repro_torch.parallel.collectives.
+    tensor_parallel`): the layers and the cross-entropy split their
+    arithmetic, the float32 gradients come out as the blocks, and the
+    leaves whole on every rank that a rank reads for its share of heads
+    only (``attention.partial_leaves``) have their gradients summed over
+    the model group once, in one flat all-reduce.  Nothing is gathered
+    whole over "model".  A configuration with a MoE or Mamba layer on such
+    an axis (``"storage"``) still gathers each parameter whole over the
+    axes its spec names, runs the whole model on every rank of the group
+    and keeps its block of each gradient, until expert and SSM-head
+    parallelism are ported (the next slice, ROADMAP queue 1, item 5b).
+
+    Then, on every mesh, the step averages the float32 gradients'
+    parameter blocks over the batch group (``all_reduce``; with
     ``int8_ef`` :func:`repro_torch.parallel.compression.compressed_psum`,
     or ``compress_decompress`` where there is no group), takes the global
     norm from the moment blocks, each element counted once, updates its
@@ -263,6 +418,7 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules,
                          "collectives.setup)")
     struct = lm.param_struct(cfg)
     specs = state_specs(cfg, rules, tcfg, struct)
+    paths = [p for p, _ in tree.flatten_with_path(struct)]
     shapes = [tuple(s.shape) for s in tree.leaves(struct)]
     pspecs = tree.leaves(specs["params"])
     mspecs = tree.leaves(specs["opt"].m)
@@ -281,22 +437,33 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules,
         if g is not None:
             norm_groups.append((g, [i for i, k in enumerate(norm_keys)
                                     if k == key]))
-    grads_fn = make_grads_fn(cfg, rules, tcfg, microbatches=microbatches)
+    kind = model_split(cfg, rules)
+    tp = col.tensor_parallel(rules) if kind == "arithmetic" else None
+    whole_leaf = kind == "storage"
+    # the leaves each rank holds a share of the gradient of
+    names = attention.partial_leaves(cfg, tp)
+    partial = [i for i, p in enumerate(paths)
+               if p.split("/")[-2:] in (["attn", n] for n in names)]
+    grads_fn = make_grads_fn(cfg, rules, tcfg, microbatches=microbatches,
+                             tp=tp)
     lr_fn = adamw.warmup_cosine(tcfg)
     compress = tcfg.grad_compression == "int8_ef"
 
     def step(state: TrainState, tokens, labels, frontend=None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         blocks = tree.leaves(state["params"])
-        whole = [col.gather(b, ps, mesh, s)
-                 for b, ps, s in zip(blocks, pspecs, shapes)]
-        metrics, grads = grads_fn(tree.unflatten_like(state["params"],
-                                                      whole),
-                                  tokens, labels, frontend)
-        del whole
-        # this rank's parameter block of each float32 gradient
-        gblocks = [g[sl] for g, sl in zip(grads, pslices)]
-        del grads
+        params = state["params"]
+        if whole_leaf:
+            params = tree.unflatten_like(params, [
+                col.gather(b, ps, mesh, s)
+                for b, ps, s in zip(blocks, pspecs, shapes)])
+        metrics, gblocks = grads_fn(params, tokens, labels, frontend)
+        del params
+        if whole_leaf:
+            # this rank's parameter block of each float32 gradient
+            gblocks = [g[sl] for g, sl in zip(gblocks, pslices)]
+        if partial:
+            _sum_partial(gblocks, partial, tp.group)
         if compress:
             err = state["err"]
             gtree = tree.unflatten_like(err, gblocks)
@@ -344,6 +511,18 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules,
         return state, metrics
 
     return step
+
+
+def _sum_partial(grads, idx, group) -> None:
+    """The gradients ``grads[i]`` for ``i`` in ``idx`` summed over
+    ``group`` in one flat all-reduce; each becomes a view of the sum."""
+    flat = torch.cat([grads[i].reshape(-1) for i in idx])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group.group)
+    at = 0
+    for i in idx:
+        n = grads[i].numel()
+        grads[i] = flat[at:at + n].view(grads[i].shape)
+        at += n
 
 
 def _global_metrics(metrics: Dict[str, torch.Tensor], batch

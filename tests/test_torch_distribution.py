@@ -45,7 +45,7 @@ from repro_torch import tree
 from repro_torch.configs import get_config
 from repro_torch.configs.base import SHAPES, MeshConfig, TrainConfig
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 from repro_torch.optim import adamw
 from repro_torch.parallel import collectives, sharding
 from repro_torch.train import step as step_mod
@@ -804,7 +804,7 @@ def test_the_launcher_trains_on_four_ranks(tmp_path):
     d = spawn(tmp_path / "four", 4, LAUNCH)
     with open(os.path.join(d, "log0.txt")) as f:
         log = f.read()
-    assert "mesh=data=2xmodel=2" in log
+    assert "mesh=data=2xmodel=2 model_axis=arithmetic" in log
     for r in range(1, 4):
         with open(os.path.join(d, f"log{r}.txt")) as f:
             assert f.read() == ""                   # rank 0 speaks
@@ -846,17 +846,23 @@ def test_the_launcher_trains_on_four_ranks(tmp_path):
 STEP_METRICS = 3
 
 
-def planned_collectives(rules, tcfg, params_struct):
+def planned_collectives(rules, tcfg, params_struct, *, seq=S,
+                        microbatches=1):
     """The oracle: the collectives one train step on ``rules.mesh`` must
     run, as its specs imply them, in launch order, ``[kind, operand
     bytes, group size]`` a call (an all-gather's input, an all-reduce's
-    tensor, as ``analysis.cost`` counts them).  Each parameter gathered
-    over its spec's axes; over the batch axes each float32 gradient block
-    all-reduced (after its int8 scale's MAX with ``int8_ef``), then the
-    metrics; the sums of squares all-reduced once a set of moment axes;
-    each updated block gathered over the axes ZeRO-1 adds."""
+    tensor, as ``analysis.cost`` counts them), for this rank's rows of the
+    global batch ``B`` of ``seq`` tokens.  A dense decoder on a model axis
+    of more than one rank splits the arithmetic (:func:`_split_calls`)
+    and gathers no parameter over "model"; any other step gathers each
+    parameter over its spec's axes.  Then over the batch axes each
+    float32 gradient block all-reduced (after its int8 scale's MAX with
+    ``int8_ef``), then the metrics; the sums of squares all-reduced once
+    a set of moment axes; each updated block gathered over the axes
+    ZeRO-1 adds."""
     mesh = rules.mesh
-    specs = step_mod.state_specs(rules.cfg, rules, tcfg, params_struct)
+    cfg = rules.cfg
+    specs = step_mod.state_specs(cfg, rules, tcfg, params_struct)
     flat = tree.leaves(params_struct)
     pspecs = tree.leaves(specs["params"])
     mspecs = tree.leaves(specs["opt"].m)
@@ -871,13 +877,19 @@ def planned_collectives(rules, tcfg, params_struct):
         return int(np.prod(collectives.block_shape(tuple(p.shape), spec,
                                                    mesh))) * itemsize
 
-    calls = []
-    for p, ps in zip(flat, pspecs):
-        ax = axes(collectives.spec_axes(ps))
-        if ax:
-            calls.append(["all-gather", nbytes(p, ps, p.element_size()),
-                          size(ax)])
     batch = axes(rules.batch)
+    dense = all(cfg.layer_kind(i) == "attn" and not cfg.layer_is_moe(i)
+                for i in range(cfg.n_layers))
+    calls = []
+    if mesh.axis_sizes.get("model", 1) > 1 and dense:
+        calls += _split_calls(rules, tcfg, params_struct,
+                              B // size(batch), seq, microbatches)
+    else:
+        for p, ps in zip(flat, pspecs):
+            ax = axes(collectives.spec_axes(ps))
+            if ax:
+                calls.append(["all-gather", nbytes(p, ps, p.element_size()),
+                              size(ax)])
     if batch:
         for p, ps in zip(flat, pspecs):
             if tcfg.grad_compression == "int8_ef":
@@ -896,12 +908,67 @@ def planned_collectives(rules, tcfg, params_struct):
     return calls
 
 
+def _split_calls(rules, tcfg, params_struct, rows, seq, mb):
+    """The model group's all-reduces of a tensor-parallel step (Megatron)
+    over ``rows`` rows in ``mb`` microbatches.  Per microbatch, forward:
+    the vocabulary-parallel embedding's sum, each layer's sums after its
+    row-parallel ``wo`` and ``w_out``, each cross-entropy chunk's MAX of
+    the rows' maxima and SUM of their rescaled sums and label logits.
+    Backward: the sum of the hidden's gradient entering the CE (*f*); the
+    *f* sums of each tail layer's MLP and attention inputs, last layer
+    first; then, last period first, the period's recompute and its *f*
+    sums.  ``lm.forward`` checkpoints a whole period, so its recompute
+    repeats the period's forward sums in forward order up to its last
+    saved tensor, the last layer's ``w_out`` product (its MLP sum is not
+    repeated), before the period's layers' *f* sums, last layer first.
+    After the last microbatch, one flat SUM of the leaves whole on every
+    rank that a rank reads for its heads only (biases, qk-norms;
+    ``wk``/``wv`` in "seq" mode)."""
+    cfg, m = rules.cfg, rules.mesh.axis_sizes["model"]
+    item = params_struct["embed"].element_size()   # the activations'
+    act = rows // mb * seq * cfg.d_model * item
+    heads = ((rules.attn_mode == "head" or rules.q_heads_tp)
+             and cfg.n_heads % m == 0)
+    ffn = cfg.d_ff % m == 0
+    vocab = cfg.padded_vocab % m == 0
+    plan = blocks.make_plan(cfg)
+    sums = [act for cut in (heads, ffn) if cut]     # a layer's, forward
+    fs = [act for cut in (ffn, heads) if cut]       # a layer's, backward
+    chunk = min(tcfg.loss_chunk, seq)
+    chunks = [chunk] * (seq // chunk) + ([seq % chunk] if seq % chunk else [])
+    one = [act] if vocab else []
+    one += sums * cfg.n_layers
+    if vocab:
+        for c in chunks:
+            one += [rows // mb * c * 4, 2 * rows // mb * c * 4]
+        one.append(act)
+    one += fs * plan.n_tail
+    for _ in range(plan.n_full):
+        if tcfg.remat == "layer":
+            redo = sums * plan.period
+            one += redo[:-1] if ffn else redo
+        one += fs * plan.period
+    calls = [["all-reduce", n, m] for n in one] * mb
+    names = ((("bq", "bk", "bv") if cfg.qkv_bias else ())
+             + (("q_norm", "k_norm") if cfg.qk_norm else ())
+             + (("wk", "wv") if rules.attn_mode == "seq" else ()))
+    partial = sum(leaf.numel() for path, leaf in
+                  tree.flatten_with_path(params_struct)
+                  if heads and path.split("/")[-2:] in
+                  (["attn", n] for n in names))
+    if partial:
+        calls.append(["all-reduce", 4 * partial, m])
+    return calls
+
+
 def test_the_cost_counter_sees_the_collectives_the_specs_imply(ref_train,
                                                                tmp_path):
     """One train step on (2,2), with ZeRO-1 and with int8_ef, counted by
     ``analysis.cost``: its collectives, in order, kind and operand bytes,
     are those :func:`planned_collectives` derives from the specs (the
-    card's phase holds the same over NCCL on 1x1)."""
+    card's phase holds the same over NCCL on 1x1).  The step splits
+    qwen2-1.5b's arithmetic over "model": every all-gather is a ZeRO-1
+    refresh over "data", none a parameter over "model"."""
     ref_npz, _ = ref_train
     body = f"REF = {ref_npz!r}\nB, S = {B}, {S}\n" + PORT_TRAIN + \
         textwrap.dedent("""
