@@ -119,9 +119,11 @@ from repro_torch.models import blocks as blocks_mod  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import rmsnorm  # noqa: E402
+from repro_torch.parallel import collectives  # noqa: E402
 from repro_torch.serve.engine import (ServeEngine,  # noqa: E402
                                       choose_kv_pool, make_decode_step,
-                                      make_prefill_step)
+                                      make_prefill_step, rank_block,
+                                      rank_params)
 from repro_torch.serve.monitor import (GuardConfig,  # noqa: E402
                                        OnlineRecharacterizer, ServeMonitor,
                                        WatchdogConfig)
@@ -3230,6 +3232,417 @@ def family_profile(cfg, engine, prompts, toks, max_len: int,
             "roofline": roof}
 
 
+# ---------------------------------------------------------------------------
+# the families' layers split over a model axis: each rank's share on the
+# served weights, its blocks cut by the engine's own function, the ranks'
+# partials summed here as the all-reduces would sum them
+# ---------------------------------------------------------------------------
+
+# the model axes: each divides olmoe's 64 experts and 16 KV heads, mamba2's
+# 32 SSM heads, jamba's 16 experts, 128 SSM heads and 8 KV heads
+SPLIT_TP = (2, 4, 8)
+# (c): the configurations at full depth whose rank bytes are counted, and
+# their model axes
+SPLIT_BYTES = (("jamba-v0.1-52b", (4, 8)), ("phi3.5-moe-42b-a6.6b", (4, 8)))
+# (d): the model axis whose ranks' MoE shares are timed
+SPLIT_TIME_TP = 4
+
+
+def split_rules(cfg, tp: int):
+    from repro_torch.launch.mesh import Mesh
+    return make_rules(cfg, Mesh(("data", "model"), (1, tp)),
+                      global_batch=SERVE_BATCH, shape_kind="decode")
+
+
+def rank_layer(cfg, rules, lp, sub: str, r: int) -> dict:
+    """Rank ``r``'s blocks of one layer's ``sub`` ("moe", "ssm") by the
+    engine's :func:`rank_block` (the layer's leaves are unstacked, so
+    their path is a tail layer's)."""
+    coords = {"data": 0, "model": r}
+    return {k: rank_block(cfg, rules, f"tail/t0/{sub}/{k}", v, coords)
+            for k, v in lp[sub].items()}
+
+
+def split_errors(parts, want, carried=None) -> dict:
+    """The ranks' partials summed in float32 against the whole layer's
+    output: the largest |sum - want| / (BF16_RTOL sum|partial| + carried +
+    BWD_BF16_FLOOR max|want|), at most 1 (each partial and the whole one
+    bf16 rounding; with |want| alone a sum of rounded partials fails by
+    construction, as ``train_tp``'s (b) shows; ``carried``: what the inputs
+    of the last product, where they differ from the whole's, carry into
+    it), the largest |sum - want|, bit-equality, finiteness."""
+    total = torch.zeros(want.shape, dtype=torch.float32, device=want.device)
+    mag = torch.zeros_like(total)
+    for p in parts:
+        total += p.float()
+        mag += p.float().abs()
+    if carried is not None:
+        mag += carried / BF16_RTOL
+    wf = want.float()
+    d = (total - wf).abs()
+    scaled = d / (BF16_RTOL * mag + BWD_BF16_FLOOR * float(wf.abs().max()))
+    return {"scaled_err": float(scaled.max()), "max_abs_err": float(d.max()),
+            "over_limit": int((scaled > 1).sum()),
+            "bit_equal": torch.equal(total.to(want.dtype), want),
+            "finite": bool(torch.isfinite(total).all())}
+
+
+def within_a_rounding(got, want) -> bool:
+    """``got`` (bf16) within one bf16 rounding of ``want`` in norm:
+    ||got - want|| <= 2^-8 ||want||.  Elementwise a GEMM output can move
+    by more than a step where its terms cancel, when cuBLAS sums them in
+    another order; a block cut from the wrong columns or heads moves by
+    about ||want||."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm()) <= 2.0 ** -8 * float(w.norm())
+
+
+@contextlib.contextmanager
+def expert_segments(record: list):
+    """``moe._expert_ffn`` wrapped: each expert GEMM segment's rows go
+    into ``record``."""
+    real = moe_mod._expert_ffn
+
+    def ffn(seg, *a):
+        record.append(int(seg.shape[0]))
+        return real(seg, *a)
+
+    moe_mod._expert_ffn = ffn
+    try:
+        yield
+    finally:
+        moe_mod._expert_ffn = real
+
+
+def moe_split_check(cfg, lp, inputs: dict) -> dict:
+    """(a) one MoE layer, whole and as each rank of every model axis of
+    ``SPLIT_TP`` runs it (``moe_apply`` with ``collectives.rank_view``: its
+    ``E/tp`` experts, every token routed), at each input of ``inputs``
+    (the prefill's and a decode step's): the partials' sum within
+    :func:`split_errors`' limit, and the ranks' expert GEMM segments and
+    rows adding up to the whole layer's."""
+    out = {}
+    e = cfg.moe.n_experts
+    for label, x in inputs.items():
+        segs: list = []
+        with expert_segments(segs):
+            want, _ = moe_mod.moe_apply(lp["moe"], x, cfg, dropless=True)
+        rec = {"whole_segments": len(segs), "whole_rows": sum(segs)}
+        for tp in SPLIT_TP:
+            rules = split_rules(cfg, tp)
+            parts, rsegs, rrows, experts = [], [], [], []
+            for r in range(tp):
+                loc = rank_layer(cfg, rules, lp, "moe", r)
+                experts.append(int(loc["we_in"].shape[0]))
+                seen: list = []
+                with expert_segments(seen):
+                    y, _ = moe_mod.moe_apply(
+                        loc, x, cfg, dropless=True,
+                        tp=collectives.rank_view(rules, r))
+                parts.append(y)
+                rsegs.append(len(seen))
+                rrows.append(sum(seen))
+                del loc
+            rec[f"tp{tp}"] = dict(split_errors(parts, want),
+                                  experts_a_rank=experts, segments=rsegs,
+                                  rows=rrows,
+                                  experts_ok=experts == [e // tp] * tp,
+                                  segments_add_up=(sum(rsegs)
+                                                   == len(segs)),
+                                  rows_add_up=sum(rrows) == sum(segs))
+            del parts
+        out[label] = rec
+        del want
+    return out
+
+
+def mamba_split_check(cfg, lp, h, h1) -> dict:
+    """(a) one Mamba layer: the whole prefill at ``h`` and the whole decode
+    step at ``h1`` from its cache, then each rank of every model axis of
+    ``SPLIT_TP``: ``mamba.mamba_mix`` on its blocks, the float32 sums of
+    squares summed over the ranks (the first all-reduce), ``mamba_out``
+    given the total, the partials summed (the second) within
+    :func:`split_errors`' limit.  The decode step starts from the whole
+    prefill's state and conv cache cut by the channel map
+    (``mamba.head_columns``); its new state and conv tail must be
+    bit-equal to the whole step's rows of the rank's heads and channels.
+    The prefill's are reported, and whether each rank's projection
+    (``x @`` its ``w_zxbcdt`` columns) is bit-equal to the whole
+    projection's columns."""
+    want, cache = mamba_mod.mamba_layer(lp["ssm"], h, cfg=cfg,
+                                        mode="prefill")
+    want1, cache1 = mamba_mod.mamba_layer(lp["ssm"], h1, cfg=cfg,
+                                          mode="decode", cache=cache)
+    nh = cfg.ssm.n_heads(cfg.d_model)
+    out = {}
+    for tp in SPLIT_TP:
+        rules = split_rules(cfg, tp)
+        locs = [rank_layer(cfg, rules, lp, "ssm", r) for r in range(tp)]
+        views = [collectives.rank_view(rules, r) for r in range(tp)]
+        cols = [mamba_mod.head_columns(cfg, tp, r) for r in range(tp)]
+        rec = {"heads_a_rank": [c["heads"] for c in cols],
+               "conv_channels_a_rank": [sum(b - a for a, b in c["conv"])
+                                        for c in cols]}
+        for label, x, cache_in, new_whole, y_whole in (
+                ("prefill", h, None, cache, want),
+                ("decode", h1, cache, cache1, want1)):
+            mixed = []
+            for r in range(tp):
+                c0, n = cols[r]["head0"], cols[r]["heads"]
+                cr = None
+                if cache_in is not None:
+                    cr = {"ssm": cache_in["ssm"][:, c0:c0 + n],
+                          "conv": mamba_mod.take_columns(cache_in["conv"],
+                                                         cols[r]["conv"])}
+                mixed.append(mamba_mod.mamba_mix(locs[r], x, cfg=cfg,
+                                                 mode=label, cache=cr,
+                                                 tp=views[r]))
+            sumsq = mixed[0][1]
+            for m in mixed[1:]:
+                sumsq = sumsq + m[1]
+            parts = [mamba_mod.mamba_out(locs[r], mixed[r][0], sumsq, cfg)
+                     for r in range(tp)]
+            st_eq, conv_eq, st_err, proj_eq = True, True, 0.0, True
+            hist_eq = True
+            proj_diff = gated_diff = norm_diff = 0
+            proj_near = norm_near = True
+            proj = torch.einsum("bsd,de->bse", x, lp["ssm"]["w_zxbcdt"])
+            g_whole, ss_whole, _ = mamba_mod.mamba_mix(
+                lp["ssm"], x, cfg=cfg, mode=label, cache=cache_in)
+            yn_whole = mamba_mod.mamba_norm(lp["ssm"], g_whole, ss_whole, cfg)
+            carried = torch.zeros(y_whole.shape, dtype=torch.float32,
+                                  device=DEV)
+            hp = cfg.ssm.head_dim
+            for r in range(tp):
+                c0, n = cols[r]["head0"], cols[r]["heads"]
+                pr = torch.einsum("bsd,de->bse", x, locs[r]["w_zxbcdt"])
+                pw = mamba_mod.take_columns(proj, cols[r]["proj"])
+                proj_eq &= torch.equal(pr, pw)
+                proj_diff += int((pr != pw).sum())
+                proj_near &= within_a_rounding(pr, pw)
+                cut = slice(c0 * hp, (c0 + n) * hp)
+                gated_diff += int((mixed[r][0] != g_whole[..., cut]).sum())
+                # the normalised block's elements that round to another
+                # bf16 value than the whole's (the sum of squares summed in
+                # another order, or a projection of other bits), carried
+                # into the output product exactly
+                yn = mamba_mod.mamba_norm(locs[r], mixed[r][0], sumsq, cfg)
+                norm_diff += int((yn != yn_whole[..., cut]).sum())
+                norm_near &= within_a_rounding(yn, yn_whole[..., cut])
+                carried += (yn.float() - yn_whole[..., cut].float()).abs() @ \
+                    locs[r]["w_ssm_out"].float().abs()
+                del pr, pw, yn
+                new = mixed[r][2]
+                ws = new_whole["ssm"][:, c0:c0 + n]
+                wc = mamba_mod.take_columns(new_whole["conv"],
+                                            cols[r]["conv"])
+                st_eq &= torch.equal(new["ssm"], ws)
+                conv_eq &= torch.equal(new["conv"], wc)
+                # the tail's rows before the new token's: the cache's cut
+                hist_eq &= torch.equal(new["conv"][:, :-x.shape[1]],
+                                       wc[:, :-x.shape[1]])
+                st_err = max(st_err, diff(new["ssm"], ws))
+            rec[label] = dict(split_errors(parts, y_whole, carried),
+                              plain_limit=split_errors(parts, y_whole),
+                              state_bit_equal=st_eq, conv_bit_equal=conv_eq,
+                              conv_history_bit_equal=hist_eq,
+                              state_max_abs_err=st_err,
+                              projection_bit_equal=proj_eq,
+                              projection_differing=proj_diff,
+                              projection_within_a_rounding=proj_near,
+                              gated_differing=gated_diff,
+                              normalised_differing=norm_diff,
+                              normalised_within_a_rounding=norm_near,
+                              sumsq_max_rel_err=float(
+                                  ((sumsq - ss_whole).abs()
+                                   / ss_whole.abs()).max()))
+            del mixed, parts, proj, g_whole, ss_whole, yn_whole, carried
+        rec["heads_ok"] = rec["heads_a_rank"] == [nh // tp] * tp
+        out[f"tp{tp}"] = rec
+        del locs
+    del want, cache, want1, cache1
+    return out
+
+
+def split_heads_check(cfg, params, prompts) -> dict:
+    """(b) the first attention layer's q, k, v of the serve prefill cut as
+    the ranks of every model axis of ``SPLIT_TP`` cut them
+    (:func:`head_blocks`): kernel #12 on each rank's block bit-equal to its
+    head slice of the whole call."""
+    i0 = next(i for i in range(cfg.n_layers) if cfg.layer_kind(i) == "attn")
+    lp, idx = layer_params(cfg, params, i0)
+    h = rmsnorm(lm.embed_tokens(params, prompts, cfg), lp["ln1"],
+                cfg.norm_eps)
+    q, k, v = attention.project_qkv(
+        lp["attn"], h, cfg=cfg, layer_idx=idx,
+        positions=torch.arange(prompts.shape[1], device=DEV))
+    akw = dict(window=attention.layer_window(cfg, idx),
+               scale=cfg.head_dim ** -0.5)
+    whole = attention.prefill_attention(q, k, v, **akw)
+    recs = []
+    for tp in SPLIT_TP:
+        mode, ranks = head_blocks(cfg, tp)
+        for i, (h0, hl, kv_heads) in enumerate(ranks):
+            got = attention.prefill_attention(
+                q[:, :, h0:h0 + hl], k[:, :, kv_heads], v[:, :, kv_heads],
+                **akw)
+            recs.append({"tp": tp, "mode": mode, "rank": i,
+                         "q_heads": [h0, h0 + hl], "kv_heads": kv_heads,
+                         "bit_equal": torch.equal(
+                             got, whole[:, :, h0:h0 + hl])})
+            del got
+    del q, k, v, whole, h
+    return {"layer": i0, "blocks": recs,
+            "every_block_bit_equal": (len(recs) == sum(SPLIT_TP) and all(
+                b["bit_equal"] for b in recs))}
+
+
+def split_times(cfg, lp, h) -> dict:
+    """(d) printed, not checked: the whole MoE layer at the prefill input
+    and each rank's share of it at a model axis of ``SPLIT_TIME_TP``."""
+    rules = split_rules(cfg, SPLIT_TIME_TP)
+    out = {"whole_ms": time_ms(
+        lambda: moe_mod.moe_apply(lp["moe"], h, cfg, dropless=True), 3)}
+    ranks = []
+    for r in range(SPLIT_TIME_TP):
+        loc = rank_layer(cfg, rules, lp, "moe", r)
+        view = collectives.rank_view(rules, r)
+        ranks.append(time_ms(lambda: moe_mod.moe_apply(
+            loc, h, cfg, dropless=True, tp=view), 3))
+        del loc
+    out["rank_ms"] = ranks
+    out["slowest_rank_over_whole"] = max(ranks) / out["whole_ms"]
+    return out
+
+
+def family_splits(cfg, engine, prompts, toks) -> tuple:
+    """The new part of ``serve_families`` on the served engine: (a) the
+    first MoE and the first Mamba layer split over every model axis of
+    ``SPLIT_TP`` at the serve prefill's input (4 x 2048: the embedded
+    prompts under the layer's norm) and at one decode step's (the first
+    served token's), (b) #12 on each rank's head block, (d) the MoE
+    shares' times.  Returns (record, checks, #12's launches)."""
+    params = engine.params
+    rec, checks, scaled = {}, {}, []
+    x = lm.embed_tokens(params, prompts, cfg)
+    x1 = lm.embed_tokens(params, toks[:, :1], cfg)
+    i_moe = next((i for i in range(cfg.n_layers) if cfg.layer_is_moe(i)),
+                 None)
+    i_ssm = next((i for i in range(cfg.n_layers)
+                  if cfg.layer_kind(i) == "ssm"), None)
+    if i_moe is not None:
+        lp, _ = layer_params(cfg, params, i_moe)
+        h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        h1 = rmsnorm(x1, lp["ln2"], cfg.norm_eps)
+        m = moe_split_check(cfg, lp, {"prefill": h, "decode": h1})
+        rec["moe"] = dict(layer=i_moe, **m)
+        for label, r in m.items():
+            for tp in SPLIT_TP:
+                t = r[f"tp{tp}"]
+                scaled.append(t["scaled_err"])
+                checks[f"a:moe_{label}_tp{tp}_within_limit"] = \
+                    t["finite"] and t["scaled_err"] <= 1.0
+                checks[f"a:moe_{label}_tp{tp}_segments_add_up"] = \
+                    t["segments_add_up"] and t["rows_add_up"]
+                checks[f"a:moe_{label}_tp{tp}_experts_a_rank"] = \
+                    t["experts_ok"]
+        rec["times"] = split_times(cfg, lp, h)
+        del h, h1
+    if i_ssm is not None:
+        lp, _ = layer_params(cfg, params, i_ssm)
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        h1 = rmsnorm(x1, lp["ln1"], cfg.norm_eps)
+        m = mamba_split_check(cfg, lp, h, h1)
+        rec["mamba"] = dict(layer=i_ssm, **m)
+        for tp in SPLIT_TP:
+            t = m[f"tp{tp}"]
+            checks[f"a:mamba_tp{tp}_heads_a_rank"] = t["heads_ok"]
+            for label in ("prefill", "decode"):
+                u = t[label]
+                scaled.append(u["scaled_err"])
+                checks[f"a:mamba_{label}_tp{tp}_within_limit"] = \
+                    u["finite"] and u["scaled_err"] <= 1.0
+                checks[f"a:mamba_{label}_tp{tp}_inputs_within_a_rounding"] \
+                    = (u["projection_within_a_rounding"]
+                       and u["normalised_within_a_rounding"])
+            # cuBLAS may take another kernel for a rank's narrower
+            # projection; where it gives the whole GEMM's bits, the new
+            # state and conv tail are the whole step's bits
+            u = t["decode"]
+            checks[f"a:mamba_decode_tp{tp}_state_bit_equal"] = \
+                not u["projection_bit_equal"] or (u["state_bit_equal"]
+                                                  and u["conv_bit_equal"])
+            checks[f"a:mamba_decode_tp{tp}_conv_history_bit_equal"] = \
+                u["conv_history_bit_equal"]
+        del h, h1
+    del x, x1
+    launches = 0
+    if cfg.n_heads:
+        counts.reset()
+        rec["heads"] = split_heads_check(cfg, params, prompts)
+        sync()
+        launched, plain = counts.snapshot()
+        launches = launched["flash_attention"]
+        checks["b:every_block_bit_equal"] = \
+            rec["heads"]["every_block_bit_equal"]
+        checks["b:one_launch_a_block_and_the_whole"] = \
+            launches == sum(SPLIT_TP) + 1 and not any(plain.values())
+    rec["largest_scaled_err"] = max(scaled) if scaled else None
+    return rec, checks, launches
+
+
+def split_bytes(smi: str) -> dict:
+    """(c) the bytes a rank holds on (1, tp) for the configurations of
+    ``SPLIT_BYTES`` at full depth, from ``meta`` structs (nothing is
+    allocated): its parameter blocks (the engine's :func:`rank_params`)
+    and its serve caches (``lm.rank_cache_struct``, batch 4 x 2048 + 32,
+    bf16), beside the whole model's and the card's memory; a rank's
+    parameters at most whole/tp plus the leaves the rules replicate and
+    the B/C columns every rank holds."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows, checks = [], {}
+    for arch, tps in SPLIT_BYTES:
+        cfg = get_config(arch)
+        struct = lm.param_struct(cfg)
+        nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+        whole = sum(nbytes(t) for t in lm.leaves(struct))
+        cache_whole = sum(nbytes(t) for t in lm.leaves(lm.cache_struct(
+            cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW)))
+        for tp in tps:
+            rules = split_rules(cfg, tp)
+            specs = dict(tree_mod.flatten_with_path(
+                lm.param_specs(rules, struct)))
+            replicated = 0
+            for p, t in tree_mod.flatten_with_path(struct):
+                if not collectives.spec_axes(specs[p]):
+                    replicated += nbytes(t)
+                elif p.split("/")[-1] in ("w_zxbcdt", "conv_w", "conv_b"):
+                    replicated += (nbytes(t) // t.shape[-1] * 2
+                                   * cfg.ssm.d_state * cfg.ssm.n_groups)
+            ranks = [sum(nbytes(t) for t in lm.leaves(rank_params(
+                cfg, rules, struct, {"data": 0, "model": r})))
+                for r in range(tp)]
+            cache = sum(nbytes(t) for t in lm.leaves(lm.rank_cache_struct(
+                cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, torch.bfloat16,
+                rules)))
+            row = {"config": cfg.name, "mesh": [1, tp],
+                   "whole_param_bytes": whole,
+                   "whole_cache_bytes": cache_whole,
+                   "rank_param_bytes": ranks, "rank_cache_bytes": cache,
+                   "replicated_bytes": replicated,
+                   "rank_total_over_card": (max(ranks) + cache) / total,
+                   "whole_total_over_card": (whole + cache_whole) / total,
+                   "card_bytes": total}
+            rows.append(row)
+            checks[f"c:{cfg.name}_tp{tp}_within_share"] = \
+                max(ranks) <= whole / tp + replicated
+            checks[f"c:{cfg.name}_tp{tp}_fits_the_card"] = \
+                max(ranks) + cache < total
+        del struct
+    return {"phase": "serve_experts_bytes", "card": smi, "rows": rows,
+            "checks": checks}
+
+
 def phase_serve_families(smi: str) -> int:
     """The moe, ssm and hybrid families through ``launch.serve.run`` at full
     width in bf16, random weights from seed 0, batch 4 x prompt 2048 + 32
@@ -3239,11 +3652,14 @@ def phase_serve_families(smi: str) -> int:
     version, the tokens, the advisor's pool; (b) the served logits against
     one prefill-mode forward (:func:`teacher_forced`); (c) the cache in
     pinned host memory (:func:`family_placement`); (d) the profile, host
-    syncs, device shares and peak memory (:func:`family_profile`).  Returns
-    the flash kernel's launches over the three runs."""
+    syncs, device shares and peak memory (:func:`family_profile`); then
+    the served weights' MoE and Mamba layers split over model axes of 2, 4
+    and 8 (:func:`family_splits`), and after the runs the bytes a rank
+    holds (:func:`split_bytes`).  Returns the flash kernel's launches over
+    the three runs, and those of the split part's head blocks."""
     t_phase = time.perf_counter()
     max_len = SERVE_PROMPT + SERVE_NEW
-    flash_launches = 0
+    flash_launches = split_launches = 0
     for kind, arch, n_layers in FAMILY_RUNS:
         t_run = time.perf_counter()
         checks = {}
@@ -3310,6 +3726,20 @@ def phase_serve_families(smi: str) -> int:
             checks["d:prefill_peak_below_limit"] = \
                 prof["prefill_peak_bytes"] < FAMILY_PEAK_LIMIT[kind]
 
+        # the layers split over model axes of 2, 4 and 8 on these weights
+        t_split = time.perf_counter()
+        split, split_checks, launches = family_splits(cfg, engine, prompts,
+                                                      toks)
+        split_launches += launches
+        emit({"phase": "serve_experts", "run": kind, "card": smi,
+              "config": cfg.name, "model_axes": list(SPLIT_TP), **split,
+              "flash_launches": launches, "checks": split_checks,
+              "seconds": time.perf_counter() - t_split})
+        for k_, ok in split_checks.items():
+            if not ok:
+                fail(f"serve_experts {kind}: check {k_}")
+        del split
+
         emit({"phase": "serve_families", "run": kind, "card": smi,
               "argv": argv, "n_layers_cut_from": (
                   get_config(arch).n_layers if n_layers else None),
@@ -3345,9 +3775,14 @@ def phase_serve_families(smi: str) -> int:
         del run, engine, params, res, prompts, toks, prof, placed, forced
         gc.collect()
         torch.cuda.empty_cache()
+    sizes = split_bytes(smi)
+    emit(sizes)
+    for k_, ok in sizes["checks"].items():
+        if not ok:
+            fail(f"serve_experts bytes: check {k_}")
     emit({"phase": "serve_families_done",
           "seconds": time.perf_counter() - t_phase})
-    return flash_launches
+    return flash_launches, split_launches
 
 
 # ---------------------------------------------------------------------------
@@ -4851,7 +5286,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # the moe, ssm and hybrid families: each run between a reset and a read
-    families = phase_serve_families(smi)
+    families, split_launches = phase_serve_families(smi)
     gc.collect()
     torch.cuda.empty_cache()
     # training: the backward kernel's checks, then the entry point, which
@@ -4887,13 +5322,15 @@ def main() -> int:
     flash_row["launches_by_path"] = {"attention": flash_row["launches"],
                                      "serve": serve["launches"],
                                      "serve_families": families,
+                                     "serve_experts": split_launches,
                                      "train": train_fwd,
                                      "distributed":
                                          dist_launches["flash_attention"],
                                      "train_tp":
                                          tp_launches["flash_attention"],
                                      "serve_mesh": mesh_launches}
-    flash_row["launches"] += (serve["launches"] + families + train_fwd
+    flash_row["launches"] += (serve["launches"] + families
+                              + split_launches + train_fwd
                               + dist_launches["flash_attention"]
                               + tp_launches["flash_attention"]
                               + mesh_launches)

@@ -18,8 +18,8 @@ On a mesh, one process a rank: ``torchrun`` (or a caller's own
 
 Every rank serves its rows with its blocks of the weights and the cache
 (:class:`repro_torch.serve.engine.ServeEngine`), and rank 0 prints.  A
-model axis of more than one rank takes the dense families only: a MoE or
-Mamba layer there is refused.
+model axis of more than one rank splits every family: attention heads,
+MLP columns, experts and SSM heads.
 
 :func:`run` does the work and returns what it made (:class:`ServeRun`);
 :func:`main` runs it and prints the reference's lines.
@@ -137,12 +137,6 @@ def serve(cfg: ModelConfig, args: argparse.Namespace) -> ServeRun:
     if mesh.size != world:
         raise ValueError(f"a mesh of {describe(mesh)} over a world of "
                          f"{world} ranks: --data x --model must use them all")
-    if mesh.axis_sizes["model"] > 1 and (cfg.moe is not None
-                                         or cfg.ssm is not None):
-        raise NotImplementedError(
-            f"serve: {cfg.name} on a model axis of "
-            f"{mesh.axis_sizes['model']}; expert and SSM-head parallelism "
-            "are not ported (ROADMAP queue 1, item 5b): use --model 1")
     rules = make_rules(cfg, mesh, global_batch=args.batch,
                        shape_kind="decode")
 

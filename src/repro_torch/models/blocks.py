@@ -78,8 +78,11 @@ def layer_has_ffn(cfg: ModelConfig, i: int) -> bool:
 
 
 def splits_over_model(cfg: ModelConfig) -> bool:
-    """Can every layer split its arithmetic over the model axis: an
-    attention mixer and a dense MLP (no MoE and no Mamba layer)?"""
+    """Can the train step split every layer's arithmetic over the model
+    axis: an attention mixer and a dense MLP (no MoE and no Mamba layer)?
+    Serving splits every family (:func:`layer_apply`); a train step of
+    a MoE or Mamba configuration keeps the whole-leaf step
+    (``train.step.model_split`` "storage")."""
     return all(cfg.layer_kind(i) == "attn" and not cfg.layer_is_moe(i)
                for i in range(cfg.n_layers))
 
@@ -119,15 +122,19 @@ def layer_apply(
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
     """One decoder block.  Returns (x, new_cache, aux_losses).  ``tp``
     (this rank's share on a mesh) reaches the attention layer and the
-    MLP in every mode, train too; a Mamba or MoE layer refuses a model
-    group of more than one rank (expert and SSM-head parallelism are not
-    ported; :func:`splits_over_model` tells the configurations apart)."""
+    MLP in every mode, train too, and the Mamba layer (its heads) and the
+    MoE layer (its experts) in prefill and decode; in train mode a Mamba
+    or MoE layer refuses a model group of more than one rank (the split
+    in training is not ported; :func:`splits_over_model` tells the
+    configurations apart)."""
     kind, is_moe, _ = layer_signature(cfg, layer_idx)
-    if tp is not None and tp.size > 1 and (kind != "attn" or is_moe):
+    if (mode == "train" and tp is not None and tp.size > 1
+            and (kind != "attn" or is_moe)):
         raise NotImplementedError(
             f"{cfg.name} layer {layer_idx}: a {'MoE' if is_moe else 'Mamba'}"
-            f" layer on a model axis of {tp.size}; expert and SSM-head "
-            "parallelism are not ported (ROADMAP queue 1, item 5b)")
+            f" layer in training on a model axis of {tp.size}; the split in "
+            "training is ROADMAP queue 1, item 5b's next step (the router's "
+            "two-part gradient, the B/C columns as partial leaves)")
     cst = constrain or (lambda v, _name: v)
     aux: Dict[str, torch.Tensor] = {}
 
@@ -139,7 +146,7 @@ def layer_apply(
             max_len=max_len, delta_cache=delta_cache, tp=tp)
     else:
         y, new_cache = mamba_layer(params["ssm"], h, cfg=cfg, mode=mode,
-                                   cache=cache)
+                                   cache=cache, tp=tp)
     x = cst(x + y, "hidden")
 
     if layer_has_ffn(cfg, layer_idx):
@@ -148,7 +155,7 @@ def layer_apply(
             y, aux = moe_apply(
                 params["moe"], h, cfg,
                 constrain_dispatch=lambda v: cst(v, "dispatch"),
-                dropless=mode != "train")
+                dropless=mode != "train", tp=tp)
         else:
             y = mlp_apply(params["mlp"], h, cfg,
                           constrain_ffn=lambda v: cst(v, "ffn"), tp=tp)

@@ -22,8 +22,11 @@ rank's block gets the gradient of its rows), a cut unembedding gives the
 rank's vocabulary block of the logits, gathered whole on every rank
 (serving; training keeps them cut, ``train.step.vocab_parallel_ce``),
 and the layers split their arithmetic (:mod:`repro_torch.models.
-attention`, ``mlp``), in train mode too.  The caches are this rank's
-blocks by :func:`cache_specs`.
+attention`, ``mlp``, in train mode too; ``moe`` and ``mamba`` in prefill
+and decode).  The caches are this rank's blocks by :func:`cache_specs`,
+but a Mamba layer's conv cache, whose channels are the rank's
+head-aligned ones (``mamba.head_columns``) where its heads are cut and
+whole where they are not (:func:`rank_cache_struct`).
 
 Parameter layout (see blocks.py for the period decomposition)::
 
@@ -137,14 +140,37 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
                  kv_dtype=torch.bfloat16, rules=None) -> Params:
     """The decode caches as ``meta`` tensors: shapes and dtypes, no
     memory.  With ``rules`` whose mesh is bound, this rank's blocks of
-    them by :func:`cache_specs`."""
-    whole = _cache_struct(cfg, batch, max_len, kv_dtype)
+    them (:func:`rank_cache_struct`)."""
     if rules is None or not rules.mesh.bound:
-        return whole
-    return tree_mod.tree_map(
-        lambda t, sp: t.new_empty(collectives.block_shape(tuple(t.shape), sp,
-                                              rules.mesh)),
-        whole, cache_specs(rules, whole))
+        return _cache_struct(cfg, batch, max_len, kv_dtype)
+    return rank_cache_struct(cfg, batch, max_len, kv_dtype, rules)
+
+
+def rank_cache_struct(cfg: ModelConfig, batch: int, max_len: int,
+                      kv_dtype, rules) -> Params:
+    """A rank's blocks of the decode caches on ``rules.mesh`` (bound or
+    a descriptor; every rank's blocks have the same shapes) as ``meta``
+    tensors: each leaf by :func:`cache_specs`, but a conv cache's channels
+    are the head-aligned ones of a rank where the SSM heads are cut
+    (``mamba.head_columns``), and all of them where they are not."""
+    from repro_torch.models import mamba
+    whole = _cache_struct(cfg, batch, max_len, kv_dtype)
+    tp = rules.mesh.axis_sizes.get(rules.tp, 1)
+    channels = None
+    if cfg.ssm is not None and mamba.heads_split(cfg, tp):
+        cols = mamba.head_columns(cfg, tp, 0)
+        channels = sum(b - a for a, b in cols["conv"])
+
+    def block(path, t, sp):
+        shape = collectives.block_shape(tuple(t.shape), sp, rules.mesh)
+        if path.split("/")[-1] == "conv":
+            shape = shape[:-1] + (channels or t.shape[-1],)
+        return t.new_empty(shape)
+
+    specs = tree_mod.leaves(cache_specs(rules, whole))
+    return tree_mod.unflatten_like(
+        whole, [block(path, t, sp) for (path, t), sp in
+                zip(tree_mod.flatten_with_path(whole), specs)])
 
 
 def _cache_struct(cfg: ModelConfig, batch: int, max_len: int,
@@ -422,17 +448,19 @@ def _spec_tree(tree, spec_for):
                for path, leaf in tree_mod.flatten_with_path(tree)])
 
 
+def param_spec(rules, path: str, shape) -> Any:
+    """The spec of the parameter leaf at ``path``; a scan-stacked leaf
+    gets a leading None axis."""
+    from repro_torch.parallel.sharding import P
+    if path.startswith("scan/"):
+        return P(None, *tuple(rules.param_spec(path, tuple(shape[1:]))))
+    return rules.param_spec(path, tuple(shape))
+
+
 def param_specs(rules, params: Params):
     """Spec tree; scan-stacked leaves get a leading None axis."""
-    from repro_torch.parallel.sharding import P
-
-    def spec_for(path, leaf):
-        if path.startswith("scan/"):
-            base = rules.param_spec(path, tuple(leaf.shape[1:]))
-            return P(None, *tuple(base))
-        return rules.param_spec(path, tuple(leaf.shape))
-
-    return _spec_tree(params, spec_for)
+    return _spec_tree(params,
+                      lambda path, leaf: param_spec(rules, path, leaf.shape))
 
 
 def cache_specs(rules, struct: Params):

@@ -15,6 +15,23 @@ tensors.
 At jamba's width (h = 128, T = 256) one within-chunk tensor of a batch of
 4 x 2048 tokens is (4, 8, 256, 256, 128) float32, 1.07 GB: each is
 dropped as soon as the next is made.
+
+SSM-head parallelism (``tp``, where ``tp.cuts(n_heads)``: the reference's
+``ssm_state_spec``) gives each rank of the model group its block of
+``nh/tp`` heads.  Its ``w_zxbcdt`` columns and conv channels are
+head-aligned (:func:`head_columns`): its heads' ``z``, ``x`` and ``dt``
+columns and the B/C columns of the groups its heads read, whole on every
+rank where there is one group; ``A_log``, ``dt_bias``, ``ssm_D``,
+``ssm_norm`` and ``w_ssm_out`` are the spec's own blocks.  The input
+enters through ``collectives.tp_copy``; the conv and the SSD run on the
+rank's heads (state ``(B, nh/tp, P, N)``); :func:`mamba_mix` gives the
+rank's gated block ``y·silu(z)`` and its float32 sum of squares, summed
+over the group (the first all-reduce, ``(B, S, 1)``) because the gated
+RMSNorm spans the whole ``d_inner``; :func:`mamba_out` normalises the
+block by the total and multiplies it by the rank's rows of ``w_ssm_out``,
+and the partials are summed (the second all-reduce, ``(B, S, D)``).
+Where the heads do not divide, every leaf is whole and nothing is
+summed.
 """
 from __future__ import annotations
 
@@ -26,7 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import _on
-from repro_torch.models.common import Params, dense_init, rmsnorm
+from repro_torch.models.common import Params, dense_init
+from repro_torch.parallel import collectives
 
 
 def _dims(cfg: ModelConfig):
@@ -35,6 +53,66 @@ def _dims(cfg: ModelConfig):
     di = s.d_inner(d)
     nh = s.n_heads(d)
     return s, d, di, nh, s.n_groups, s.d_state, s.d_conv, s.head_dim
+
+
+def heads_split(cfg: ModelConfig, size: int) -> bool:
+    """Does a model axis of ``size`` ranks cut the SSM heads (the rules'
+    ``ssm_state_spec``)?"""
+    return size > 1 and cfg.ssm.n_heads(cfg.d_model) % size == 0
+
+
+def _merge(ranges):
+    out = []
+    for a, b in ranges:
+        if out and out[-1][1] == a:
+            out[-1] = (out[-1][0], b)
+        else:
+            out.append((a, b))
+    return tuple(out)
+
+
+def head_columns(cfg: ModelConfig, size: int, index: int):
+    """Rank ``index`` of a model group of ``size``: its head-aligned
+    column ranges ``[(start, stop), ...]`` of ``w_zxbcdt`` (``"proj"``)
+    and of the conv channels (``conv_w``, ``conv_b``, the conv cache:
+    ``"conv"``), in the layer's order (z, x, B, C, dt; x, B, C), and its
+    first head, heads, first group and groups.  A rank's heads read the
+    groups ``h // (nh/ng)`` (the reference's ``repeat``); a block of heads
+    that reads its groups unevenly raises."""
+    s, d, di, nh, ng, ds, k, hp = _dims(cfg)
+    if nh % size:
+        raise ValueError(f"head_columns: {nh} SSM heads over {size} ranks")
+    nhl = nh // size
+    h0 = index * nhl
+    per_group = nh // ng
+    g0, g1 = h0 // per_group, (h0 + nhl - 1) // per_group + 1
+    if g1 - g0 > 1 and (nhl % per_group or h0 % per_group):
+        raise ValueError(f"head_columns: heads {h0}..{h0 + nhl - 1} read "
+                         f"groups of {per_group} heads unevenly")
+    z = (h0 * hp, (h0 + nhl) * hp)
+    bc = ((g0 * ds, g1 * ds), (ng * ds + g0 * ds, ng * ds + g1 * ds))
+    proj = [z, (di + z[0], di + z[1])]
+    proj += [(2 * di + a, 2 * di + b) for a, b in bc]
+    proj.append((2 * di + 2 * ng * ds + h0, 2 * di + 2 * ng * ds + h0 + nhl))
+    conv = [z] + [(di + a, di + b) for a, b in bc]
+    return {"proj": _merge(proj), "conv": _merge(conv), "head0": h0,
+            "heads": nhl, "group0": g0, "groups": g1 - g0}
+
+
+def take_columns(t: torch.Tensor, ranges) -> torch.Tensor:
+    """The columns (last dimension) of ``t`` in ``ranges``, concatenated
+    (works on ``meta`` tensors)."""
+    return torch.cat([t[..., a:b] for a, b in ranges], dim=-1)
+
+
+def _local_dims(cfg: ModelConfig, tp):
+    """:func:`_dims` for this rank's share: d_inner, heads and groups of
+    its block where the heads are cut."""
+    s, d, di, nh, ng, ds, k, hp = _dims(cfg)
+    if tp is None or not heads_split(cfg, tp.size):
+        return s, d, di, nh, ng, ds, k, hp
+    cols = head_columns(cfg, tp.size, tp.index)
+    return s, d, di // tp.size, cols["heads"], cols["groups"], ds, k, hp
 
 
 def mamba_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
@@ -60,8 +138,8 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     }
 
 
-def _split_proj(zxbcdt, cfg: ModelConfig):
-    s, d, di, nh, ng, ds, k, hp = _dims(cfg)
+def _split_proj(zxbcdt, dims):
+    s, d, di, nh, ng, ds, k, hp = dims
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * ng * ds]
     dt = zxbcdt[..., -nh:]
@@ -168,16 +246,18 @@ def ssd_step(state, x, dt, A, B, C):
 # ---------------------------------------------------------------------------
 
 
-def mamba_layer(params, x, *, cfg: ModelConfig, mode: str,
-                cache: Optional[Params] = None):
-    """x: (B,S,D) -> (y (B,S,D), new_cache or None).
-
-    A decode step returns the new state as new tensors; the caller writes
-    them into the cache (``lm``)."""
-    s_cfg, d, di, nh, ng, ds, k, hp = _dims(cfg)
+def mamba_mix(params, x, *, cfg: ModelConfig, mode: str,
+              cache: Optional[Params] = None, tp=None):
+    """x: (B,S,D) -> (the gated block ``y·silu(z)`` (B,S,d_inner) in
+    x's dtype, its float32 sum of squares (B,S,1), new_cache or None):
+    the layer up to its norm, on this rank's heads where ``tp`` cuts them
+    (then ``params`` are the rank's blocks, the block is ``d_inner/tp``
+    wide and the sum covers it alone)."""
+    dims = _local_dims(cfg, tp)
+    s_cfg, d, di, nh, ng, ds, k, hp = dims
     b, s, _ = x.shape
     zxbcdt = torch.einsum("bsd,de->bse", x, params["w_zxbcdt"])
-    z, xbc, dt = _split_proj(zxbcdt, cfg)
+    z, xbc, dt = _split_proj(zxbcdt, dims)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
 
@@ -227,8 +307,46 @@ def mamba_layer(params, x, *, cfg: ModelConfig, mode: str,
             new_cache = {"ssm": final, "conv": conv_tail}
 
     y = y.to(x.dtype) * F.silu(z)
-    y = rmsnorm(y, params["ssm_norm"], cfg.norm_eps)
-    return torch.einsum("bse,ed->bsd", y, params["w_ssm_out"]), new_cache
+    yf = y.float()
+    return y, (yf * yf).sum(dim=-1, keepdim=True), new_cache
+
+
+def mamba_norm(params, y, sumsq, cfg: ModelConfig):
+    """The gated RMSNorm of this rank's block ``y`` over the whole
+    ``d_inner``, given the float32 sum of squares of every rank's block
+    (``sumsq``, (B,S,1)), in y's dtype."""
+    di = cfg.ssm.d_inner(cfg.d_model)
+    yn = y.float() * torch.rsqrt(sumsq / di + cfg.norm_eps)
+    return (yn * (1.0 + params["ssm_norm"].float())).to(y.dtype)
+
+
+def mamba_out(params, y, sumsq, cfg: ModelConfig):
+    """:func:`mamba_norm`, then the block's product with its rows of
+    ``w_ssm_out``: (B,S,D), the rank's partial of the layer's output (the
+    output itself on one rank)."""
+    return torch.einsum("bse,ed->bsd", mamba_norm(params, y, sumsq, cfg),
+                        params["w_ssm_out"])
+
+
+def mamba_layer(params, x, *, cfg: ModelConfig, mode: str,
+                cache: Optional[Params] = None, tp=None):
+    """x: (B,S,D) -> (y (B,S,D), new_cache or None).
+
+    A decode step returns the new state as new tensors; the caller writes
+    them into the cache (``lm``).  ``tp``: this rank's share on a mesh
+    (the module's notes): two sums over ``tp.group`` where the heads are
+    cut, none otherwise."""
+    split = tp is not None and heads_split(cfg, tp.size)
+    if split:
+        x = collectives.tp_copy(x, tp.group)
+    y, sumsq, new_cache = mamba_mix(params, x, cfg=cfg, mode=mode,
+                                    cache=cache, tp=tp)
+    if split:
+        sumsq = collectives.tp_sum(sumsq, tp.group)
+    out = mamba_out(params, y, sumsq, cfg)
+    if split:
+        out = collectives.tp_sum(out, tp.group)
+    return out, new_cache
 
 
 def mamba_cache_shapes(cfg: ModelConfig, batch: int):

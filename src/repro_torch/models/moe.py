@@ -22,6 +22,19 @@ and sums the k ranks in a fixed order, so a token's sum is the same from
 run to run (an atomic scatter-add is not).  ``constrain_dispatch`` is
 accepted for the reference's signature; on one device there is nothing
 to constrain.
+
+Expert parallelism (``tp``, where ``tp.cuts(n_experts)``: the reference's
+``dispatch_spec``) splits by route-all, compute-own and sum.  The rank's
+``we_in``/``we_gate``/``we_out`` are its block of ``E/tp`` experts; the
+router is whole and the hidden states are the same on every rank of the
+model group, so every rank routes all the tokens of its rows (gates and
+the aux losses whole), runs the GEMMs of its own experts only (its one
+``.tolist()`` reads those experts' segment sizes), combines its own
+assignments, and the ``(B, S, D)`` partials are summed over the group by
+one ``collectives.tp_sum``.  Where the experts do not divide, the leaves
+are whole and nothing is summed.  Capacity mode (training) with a split
+raises: the router's gradient would need its combine part summed over
+the group.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import activation, dense_init
+from repro_torch.parallel import collectives
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> Dict[str, Any]:
@@ -60,8 +74,13 @@ def route(params, xg: torch.Tensor, k: int):
     return logits, probs, gate_vals, expert_ids
 
 
+def _expert_ffn(seg, w_in, w_gate, w_out, act):
+    """One expert's gated FFN on its segment of rows."""
+    return ((seg @ w_in) * act(seg @ w_gate)) @ w_out
+
+
 def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, n_groups: int = 0,
-              constrain_dispatch=None, dropless: bool = False
+              constrain_dispatch=None, dropless: bool = False, tp=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (y, aux).  Groups default to the batch dim.
 
@@ -69,13 +88,28 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, n_groups: int = 0,
     reference's capacity of ``n·k`` does: capacity-bounded dispatch is a
     training trade-off, and because the capacity depends on the sequence
     length it is non-causal.  ``dropless=False`` keeps the first ``cap``
-    assignments of each expert in each group."""
-    del constrain_dispatch              # one device: no dispatch to place
+    assignments of each expert in each group.
+
+    ``tp``: this rank's share on a mesh (the module's notes); with the
+    experts cut, ``params``' expert leaves are the rank's block and ``y``
+    is the sum over ``tp.group`` of every rank's partial (the partial
+    itself where ``tp.group`` is None)."""
+    del constrain_dispatch              # the dispatch is placed by ``tp``
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
     act = activation(cfg.act_fn)
     dev = x.device
+    split = tp is not None and tp.cuts(e)
+    if split and not dropless:
+        raise NotImplementedError(
+            f"{cfg.name}: capacity-mode (training) MoE with its experts cut "
+            f"over a model axis of {tp.size}; the split in training is "
+            "ROADMAP queue 1, item 5b's next step (the router's two-part "
+            "gradient)")
+    # the experts this rank holds, [lo, hi)
+    lo, hi = ((tp.index * e // tp.size, (tp.index + 1) * e // tp.size)
+              if split else (0, e))
 
     g = n_groups or b
     n = b * s // g                      # tokens per group
@@ -119,29 +153,37 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, n_groups: int = 0,
             ).reshape(-1)[by_expert]
     gate = sorted_gate.reshape(-1)[by_expert]
     sizes = torch.zeros(e + 1, dtype=torch.long, device=dev).scatter_add_(
-        0, bucket, torch.ones_like(bucket)).tolist()     # the one host sync
-    rows = nk * g - sizes[e]
-    slot, gate = slot[:rows], gate[:rows]
-    xk = x.reshape(g * n, d).index_select(0, slot // k)
+        0, bucket, torch.ones_like(bucket))
+    # the rows before this rank's first expert, then its experts' sizes:
+    # the one host sync
+    head = torch.cat([sizes[:lo].sum().reshape(1), sizes[lo:hi]]).tolist()
+    start, seg_sizes = head[0], head[1:]
+    rows = sum(seg_sizes)
+    slot = slot[start:start + rows]
+    gate = gate[start:start + rows]
+    xe = collectives.tp_copy(x, tp.group) if split else x
+    xk = xe.reshape(g * n, d).index_select(0, slot // k)
 
     y = torch.empty_like(xk)
-    start = 0
-    for ex, size in enumerate(sizes[:e]):
+    at = 0
+    for ex, size in enumerate(seg_sizes):
         if not size:
             continue
-        seg = xk[start:start + size]
-        h = seg @ params["we_in"][ex]
-        ga = seg @ params["we_gate"][ex]
-        y[start:start + size] = (h * act(ga)) @ params["we_out"][ex]
-        start += size
+        y[at:at + size] = _expert_ffn(
+            xk[at:at + size], params["we_in"][ex], params["we_gate"][ex],
+            params["we_out"][ex], act)
+        at += size
 
     # combine: each kept assignment's gate · y into its (token, rank) slot,
-    # then the k ranks of a token summed (dropped slots stay zero)
+    # then the k ranks of a token summed (dropped slots, and another
+    # rank's experts' slots, stay zero)
     contrib = x.new_zeros((g * nk, d))
     contrib[slot] = y * gate.to(x.dtype)[:, None]
-    out = contrib.reshape(g * n, k, d).sum(dim=1)
+    out = contrib.reshape(g * n, k, d).sum(dim=1).reshape(b, s, d)
+    if split:
+        out = collectives.tp_sum(out, tp.group)
 
     aux = {"moe_aux_loss": aux_loss * m.router_aux_weight,
            "moe_z_loss": z_loss * m.router_z_weight,
            "moe_drop_frac": 1.0 - keep.float().mean()}
-    return out.reshape(b, s, d), aux
+    return out, aux

@@ -28,11 +28,17 @@ the collectives; the port derives them itself, from the same specs
   :func:`tp_all_gather` hands each rank its slice of the gradient.  Each
   of these skips itself on a group of one rank.
 
-Serving and the train step of a dense decoder split the arithmetic over
-"model" (:mod:`repro_torch.models.attention`, ``mlp``, ``lm``;
-:func:`repro_torch.train.step.make_train_step`); the train step of a
-configuration with a MoE or Mamba layer still gathers whole leaves over
-"model" and splits only where parameters and moments live.  On a bound
+Serving splits the arithmetic of every family over "model": attention
+heads, MLP columns and the vocabulary (:mod:`repro_torch.models.
+attention`, ``mlp``, ``lm``), experts (``moe``: every rank routes all its
+rows, runs its own experts, one :func:`tp_sum` of the ``(B, S, D)``
+partials) and SSM heads (``mamba``: head-aligned columns, one
+:func:`tp_sum` of the gated norm's ``(B, S, 1)`` sum of squares and one
+of the ``(B, S, D)`` partials).  The train step of a dense decoder splits
+its arithmetic the same way (:func:`repro_torch.train.step.
+make_train_step`); that of a configuration with a MoE or Mamba layer
+still gathers whole leaves over "model" and splits only where parameters
+and moments live.  On a bound
 mesh the step's collectives run over their groups even where a group has
 one rank, so a bound 1x1 mesh takes the path a larger one takes; a
 one-device mesh with no process group (``rank`` None) has no groups, and
@@ -385,6 +391,20 @@ def tensor_parallel(rules) -> Optional[TensorParallel]:
                           kv_seq_axes=tuple(rules.kv_seq_axes),
                           seq_group=sg if seq_size > 1 else None,
                           seq_size=seq_size, seq_index=seq_index)
+
+
+def rank_view(rules, index: int) -> TensorParallel:
+    """Rank ``index`` of ``rules``' model axis with no group: a layer given
+    it computes that rank's share on the rank's blocks and skips every
+    collective, so that one process can run each rank's share in turn and
+    sum the partials itself.  No sequence cut."""
+    size = rules.mesh.axis_sizes.get(rules.tp, 1)
+    if not 0 <= index < size:
+        raise ValueError(f"rank_view: rank {index} of a model axis of {size}")
+    return TensorParallel(group=None, size=size, index=index,
+                          attn_mode=rules.attn_mode,
+                          q_heads_tp=rules.q_heads_tp, kv_seq_axes=(),
+                          seq_group=None, seq_size=1, seq_index=0)
 
 
 def _alone(group: Optional[AxisGroup]) -> bool:

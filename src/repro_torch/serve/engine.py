@@ -28,11 +28,12 @@ draws the same tokens: greedy by argmax, sampled from one explicit
 prefill's first.
 
 On a bound mesh (``rules.mesh``) the engine holds this rank's blocks of
-the parameters (:func:`repro_torch.parallel.collectives.shard_tree` by
-``lm.param_specs``, cut from the same whole init on every rank) and of
-the caches, serves the rows ``rules.batch`` gives it, and its steps split
-the dense arithmetic over the model group
-(:func:`repro_torch.parallel.collectives.tensor_parallel`).  Every rank of
+the parameters (:func:`rank_params`: ``lm.param_specs``' blocks, but a
+Mamba layer's head-aligned columns; cut from the same whole init on every
+rank) and of the caches, serves the rows ``rules.batch`` gives it, and
+its steps split the arithmetic of every layer over the model group
+(:func:`repro_torch.parallel.collectives.tensor_parallel`): attention
+heads, MLP columns, experts and SSM heads.  Every rank of
 a model group holds the whole logits of its rows and the same generator,
 so it draws the same tokens; a draw at temperature > 0 on a batch cut
 over ranks samples the whole batch's gathered logits, as one device
@@ -49,8 +50,9 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch import tree as tree_mod
 from repro_torch.configs.base import ModelConfig, ServeConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, mamba
 from repro_torch.parallel import collectives
 from repro_torch.parallel.sharding import P, ShardingRules
 from repro_torch.train.step import make_constrain
@@ -179,6 +181,48 @@ def param_shardings(cfg: ModelConfig, rules: ShardingRules):
                                     lm.param_specs(rules, struct), struct)
 
 
+# the Mamba leaves whose rank block is head-aligned, and their column map
+_HEAD_ALIGNED = {"w_zxbcdt": "proj", "conv_w": "conv", "conv_b": "conv"}
+
+
+def rank_block(cfg: ModelConfig, rules: ShardingRules, path: str,
+               leaf: torch.Tensor, coords=None) -> torch.Tensor:
+    """The block of the parameter leaf at ``path`` (``lm.param_specs``'s
+    paths) that a rank holds on ``rules.mesh``: ``coords`` (its
+    coordinates; default this rank's).  A Mamba layer's ``w_zxbcdt``,
+    ``conv_w`` and ``conv_b`` are its head-aligned columns
+    (``mamba.head_columns``) where the SSM heads are cut, and every Mamba
+    leaf is whole where they are not (the layer then runs whole, as
+    ``ssm_state_spec`` replicates its state); every other leaf is its
+    block by ``lm.param_specs``.  A new tensor where the leaf is cut, the
+    leaf itself otherwise; ``meta`` leaves give ``meta`` blocks."""
+    mesh = rules.mesh
+    coords = mesh.coords if coords is None else coords
+    parts = path.split("/")
+    if len(parts) > 1 and parts[-2] == "ssm":
+        tp = mesh.axis_sizes.get(rules.tp, 1)
+        if not mamba.heads_split(cfg, tp):
+            return leaf
+        if parts[-1] in _HEAD_ALIGNED:
+            cols = mamba.head_columns(cfg, tp, coords[rules.tp])
+            return mamba.take_columns(leaf, cols[_HEAD_ALIGNED[parts[-1]]])
+    sl = collectives.block_slices(tuple(leaf.shape),
+                                  lm.param_spec(rules, path, leaf.shape),
+                                  mesh, coords)
+    if all(s == slice(None) for s in sl):
+        return leaf
+    return leaf[sl].clone()
+
+
+def rank_params(cfg: ModelConfig, rules: ShardingRules, params: Params,
+                coords=None) -> Params:
+    """Every leaf of the whole ``params`` cut to a rank's block
+    (:func:`rank_block`)."""
+    return tree_mod.unflatten_like(
+        params, [rank_block(cfg, rules, path, leaf, coords)
+                 for path, leaf in tree_mod.flatten_with_path(params)])
+
+
 def sample_token(logits: torch.Tensor, gen: Optional[torch.Generator] = None,
                  temperature: float = 0.0) -> torch.Tensor:
     """(B, V) logits -> (B,) token ids: the argmax at temperature 0, else
@@ -229,9 +273,8 @@ class ServeEngine:
                  rules: ShardingRules, scfg: Optional[ServeConfig] = None,
                  advisor=None, pool_mgr=None, monitor=None):
         self.cfg = cfg
-        self.shardings = param_shardings(cfg, rules)
-        if self.shardings is not None:
-            params = collectives.shard_tree(params, self.shardings)
+        if rules.mesh.bound:
+            params = rank_params(cfg, rules, params)
         self.params = params
         self.rules = rules
         mesh = rules.mesh

@@ -341,8 +341,8 @@ RESULT["gen", "gemma3-1b", (1, 2)] = generate("gemma3-1b", (1, 2),
 RESULT["gen", "gemma3-1b", (1, 1)] = generate("gemma3-1b", (1, 1),
                                               max_new_tokens=8)
 
-# the MoE and Mamba families: a (2, 1) mesh splits the batch only; a
-# model axis of 2 is refused by the layers and by the launcher
+# the MoE and Mamba families: a (2, 1) mesh splits the batch only; the
+# launcher on a model axis of 2 splits the experts and the SSM heads
 for a in ("olmoe-1b-7b", "mamba2-370m"):
     cfg = get_config(a).reduced()
     toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (B, PROMPT))
@@ -354,22 +354,13 @@ for a in ("olmoe-1b-7b", "mamba2-370m"):
             torch.from_numpy(toks).long(), max_new_tokens=5)
         RESULT["family", a, shape] = {"tokens": res.tokens.tolist(),
                                       "logits": res.logits.tolist()}
-    rules = sharding.make_rules(cfg, on_mesh((1, 2)), global_batch=B,
-                                shape_kind="decode")
-    try:
-        eng.ServeEngine(cfg, params, rules).generate(
-            torch.from_numpy(toks).long(), max_new_tokens=2)
-        RESULT["refused", a] = ""
-    except NotImplementedError as e:
-        RESULT["refused", a] = str(e)
     from repro_torch.launch import serve as serve_cli
-    try:
-        serve_cli.run(["--arch", a, "--reduced", "--batch", "2",
+    r = serve_cli.run(["--arch", a, "--reduced", "--batch", "2",
                        "--prompt-len", "8", "--new-tokens", "2", "--data",
                        "1", "--model", "2", "--device", "cpu"])
-        RESULT["launcher_refused", a] = ""
-    except NotImplementedError as e:
-        RESULT["launcher_refused", a] = str(e)
+    RESULT["family_launcher", a] = {"mesh": [list(r.mesh.shape),
+                                             r.mesh.rank],
+                                    "tokens": r.result.tokens.tolist()}
 
 # the launcher's mesh path: the group exists, so it binds a (1, 2) mesh
 from repro_torch.launch import serve as serve_cli
@@ -608,18 +599,24 @@ def test_the_cost_counter_sees_one_sum_a_row_parallel_contraction(
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-370m"])
-def test_moe_and_mamba_serve_on_the_data_axis_and_refuse_the_model_axis(
+def test_moe_and_mamba_serve_on_the_data_axis_and_on_the_model_axis(
         two, arch):
     """(2,1) splits the batch only: the same tokens as (1,1), logits within
-    3e-4; a model axis of 2 raises in the layers and in the launcher."""
-    for rec in two:
+    3e-4; the launcher on a model axis of 2 (the experts or the SSM heads
+    split) serves the same tokens as the one-process launcher's (1,1)."""
+    alone = serve_cli.run(["--arch", arch, "--reduced", "--batch", "2",
+                           "--prompt-len", "8", "--new-tokens", "2",
+                           "--data", "1", "--model", "2", "--device", "cpu"])
+    assert not alone.mesh.bound
+    for r, rec in enumerate(two):
         got = _get(rec, "family", arch, (2, 1))
         one = _get(rec, "family", arch, (1, 1))
         assert got["tokens"] == one["tokens"]
         np.testing.assert_allclose(got["logits"], one["logits"],
                                    atol=LOGITS_TOL)
-        assert "item 5b" in _get(rec, "refused", arch)
-        assert "item 5b" in _get(rec, "launcher_refused", arch)
+        launched = _get(rec, "family_launcher", arch)
+        assert launched["mesh"] == [[1, 2], r]
+        assert launched["tokens"] == alone.result.tokens.tolist()
 
 
 def test_the_launcher_serves_on_two_ranks(two):
