@@ -34,7 +34,11 @@ kernel on the tensor cores -> AdamW -> the resilient loop), the same
 training through the mesh path on one NCCL rank, tensor-parallel
 training's pieces at the same width (each rank's head block through the
 flash forward and backward, the vocabulary-parallel cross-entropy's
-rank-local terms combined as a model group would), and serving through the
+rank-local terms combined as a model group would), the MoE and Mamba-2
+families' training split over the model axis (each rank's share of their
+layers in turn against the whole layer, forward and backward; the head
+blocks of their attention; mamba2-370m's and a cut olmoe-1b-7b's first
+train steps on the card), and serving through the
 mesh path (``launch.serve`` on a one-rank NCCL group against the same
 argv with no group; each tensor-parallel rank's head block through the
 flash kernel; GPipe over one decoder layer) — checks the results, and
@@ -2537,12 +2541,13 @@ TRACE_PADS = 64
 TRACE_SETTLE_S = 0.1
 
 
-def profile_calls(fn, n: int) -> dict:
+def profile_calls(fn, n: int, traces: int = 0) -> dict:
     """``fn`` run ``n`` times under ``torch.profiler`` after one warm call:
     each call's kernels, their device time summed, the six kernels with
     the most of it, and the time of the port's flash kernels, forward and
     backward, wherever they rank.  The trace is taken again until a new
-    one counts every kernel as an earlier one did, up to ``TRACES`` in all;
+    one counts every kernel as an earlier one did, up to ``traces`` in all
+    (default ``TRACES``);
     the numbers are that trace's when two agreed (``whole``), else the
     fullest's (a call whose kernels depend on its data, as an MoE layer's
     do, may never agree), and ``count_diff`` lists the kernels whose counts
@@ -2552,8 +2557,8 @@ def profile_calls(fn, n: int) -> dict:
     host, so the call's wall time is the caller's, taken without it."""
     fn()
     sync()
-    traces = []
-    for _ in range(TRACES):
+    limit, traces = traces or TRACES, []
+    for _ in range(limit):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
@@ -4598,12 +4603,14 @@ TP_CE_GRAD_REL = 1e-4
 TP_CE_BLOCKS = (2, 4)
 
 
-def head_block_check(cfg) -> tuple:
-    """(b): q (B, 12, S, 128) and k, v (B, 2, S, 128) at the train
-    microbatch (B = ``TRAIN_BATCH // TRAIN_MB``, S = ``TRAIN_SEQ``), bf16,
-    causal, from a seed; #12 with the log-sum-exp and #12b on one seeded
-    ``do``, whole, then on each rank's head block of a model axis of 2
-    and 4 (``head_blocks``, the rules' cut and ``attention.kv_heads_of``).
+def head_block_check(cfg, tps=None) -> tuple:
+    """(b): q (B, H, S, D) and k, v (B, KV, S, D) of ``cfg``'s widths
+    (qwen2-1.5b: 12 and 2 heads of 128) at the train microbatch
+    (B = ``TRAIN_BATCH // TRAIN_MB``, S = ``TRAIN_SEQ``), bf16, causal,
+    from a seed; #12 with the log-sum-exp and #12b on one seeded ``do``,
+    whole, then on each rank's head block of every model axis of ``tps``
+    (default ``MESH_TP``, 2 and 4; ``head_blocks``, the rules' cut and
+    ``attention.kv_heads_of``).
     Each block's output, log-sum-exp and dq bit-equal to the whole call's
     slices; dk and dv summed over the ranks that read each KV head against
     the whole call's: |sum - want| <= BF16_RTOL sum|term| +
@@ -4619,6 +4626,7 @@ def head_block_check(cfg) -> tuple:
     g = torch.Generator(device=DEV).manual_seed(TP_ATTN_SEED + 5)
     do = torch.randn(q.shape, generator=g, device=DEV).to(bf)
     inst = flash_attention.INSTANCE[bf]
+    tps = MESH_TP if tps is None else tps
 
     def fwd_bwd(q_, k_, v_, do_):
         lse_ = torch.empty(q_.shape[:3], dtype=torch.float32, device=DEV)
@@ -4631,7 +4639,7 @@ def head_block_check(cfg) -> tuple:
     o, lse, dq, dk, dv = fwd_bwd(q, k, v, do)
     counts.reset()
     recs, sums = [], []
-    for tp in MESH_TP:
+    for tp in tps:
         mode, ranks = head_blocks(cfg, tp)
         acc = {n: torch.zeros(t.shape, dtype=torch.float32, device=DEV)
                for n, t in (("dk", dk), ("dv", dv), ("mag_k", dk),
@@ -4667,7 +4675,7 @@ def head_block_check(cfg) -> tuple:
     launched, plain = counts.snapshot()
     # the whole call and rank 0's block of each model axis, timed
     times = {"whole_fwd_bwd_ms": time_ms(lambda: fwd_bwd(q, k, v, do), 3)}
-    for tp in MESH_TP:
+    for tp in tps:
         h0, hl, kv_heads = head_blocks(cfg, tp)[1][0]
         qb, kb, vb, dob = (q[:, h0:h0 + hl].contiguous(),
                            k[:, kv_heads].contiguous(),
@@ -4809,6 +4817,520 @@ def phase_train_tp(smi: str) -> dict:
             fail(f"train_tp: check {k_}")
     return {"flash_attention": launched["flash_attention"],
             "flash_attention_bwd": launched["flash_attention_bwd"]}
+
+
+# ---------------------------------------------------------------------------
+# training the MoE and Mamba-2 families split over "model": each rank's
+# share of their layers in turn (one card, no group), #12 and #12b on each
+# rank's head block of their attention layers, and the families' first
+# train steps on the card
+# ---------------------------------------------------------------------------
+
+# (a), (d): the layers, at full width in bf16 from seeded weights, in train
+# mode (capacity) at the train microbatch (2 x train_4k's 4096 tokens)
+TX_LAYERS = (("olmoe-1b-7b", "moe"), ("jamba-v0.1-52b", "moe"),
+             ("mamba2-370m", "ssm"), ("jamba-v0.1-52b", "ssm"))
+TX_SEED = 70
+# (a): a gradient's partials summed within this normalised distance of
+# the whole layer's gradient: one bf16 rounding on each side (2^-8 each).
+# Elementwise, split_errors' limit holds the output; a bf16 gradient sums
+# terms that cancel (a token's k experts' rows, the router's part), so the
+# whole layer's own gradient is off its float32 recomputation by more than
+# that limit, and its elementwise terms are reported, not checked
+TX_GRAD_NORM = 2.0 ** -7
+# (b): the configurations whose attention layers train on head blocks
+TX_HEADS = ("olmoe-1b-7b", "jamba-v0.1-52b")
+# (c): mamba2-370m at full size through the launcher, as TRAIN_ARGV but
+# for 3 steps; olmoe-1b-7b cut to 4 of its 16 layers through the step
+TX_STEPS = 3
+TX_MAMBA_ARGV = (["--arch", "mamba2-370m", "--steps", str(TX_STEPS)]
+                 + TRAIN_ARGV[4:])
+TX_OLMOE_LAYERS = 4
+# (c): traces of a step at most (an MoE step's kernels depend on its
+# routing, so two traces rarely agree and ``TRACES`` would take five)
+TX_TRACES = 2
+
+
+def tx_rules(cfg, tp: int):
+    from repro_torch.launch.mesh import Mesh
+    return make_rules(cfg, Mesh(("data", "model"), (1, tp)),
+                      global_batch=TRAIN_BATCH, shape_kind="train")
+
+
+def tx_block(rules, sub: str, name: str, leaf, r: int):
+    """Rank ``r``'s spec block of one layer's leaf, as the train state
+    holds it (``lm.param_spec``; the layer's leaves are unstacked, so
+    their path is a tail layer's)."""
+    spec = lm.param_spec(rules, f"tail/t0/{sub}/{name}", leaf.shape)
+    return leaf[collectives.block_slices(tuple(leaf.shape), spec,
+                                         rules.mesh,
+                                         {"data": 0, "model": r})]
+
+
+def tx_layer(cfg, sub: str, seed: int) -> tuple:
+    """A layer's weights from ``seed`` (the model's own init, bf16 on the
+    card), a seeded input (2, 4096, d_model) and upstream gradient."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    init = moe_mod.moe_init if sub == "moe" else mamba_mod.mamba_init
+    lp = init(gen, cfg, torch.bfloat16)
+    shape = (TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+    return lp, x, dy
+
+
+def tx_leaves(d: dict) -> dict:
+    return {k: v.detach().clone().requires_grad_() for k, v in d.items()}
+
+
+def tx_whole(cfg, sub: str, lp, x, dy) -> tuple:
+    """The whole layer's forward and backward: (output, gradients of x and
+    of every leaf, the MoE's aux and expert segments)."""
+    w, xw = tx_leaves(lp), x.detach().clone().requires_grad_()
+    segs: list = []
+    aux = None
+    with expert_segments(segs):
+        if sub == "moe":
+            y, aux = moe_mod.moe_apply(w, xw, cfg, dropless=False)
+            loss = ((y.float() * dy.float()).sum() + aux["moe_aux_loss"]
+                    + aux["moe_z_loss"])
+        else:
+            y, _ = mamba_mod.mamba_layer(w, xw, cfg=cfg, mode="train")
+            loss = (y.float() * dy.float()).sum()
+    loss.backward()
+    grads = {"x": xw.grad, **{k: v.grad for k, v in w.items()}}
+    return y.detach(), grads, aux, segs
+
+
+def tx_rank_leaves(cfg, rules, sub: str, lp, r: int) -> dict:
+    """Rank ``r``'s leaves as the split train step hands them to the
+    layer: spec blocks, but a Mamba layer's ``w_zxbcdt``, ``conv_w`` and
+    ``conv_b`` whole (the layer takes its head-aligned columns); each a
+    leaf of its own, so that its gradient is the rank's."""
+    out = {}
+    for k, v in lp.items():
+        if sub == "ssm" and k in step_mod.HEAD_ALIGNED:
+            out[k] = v
+        else:
+            out[k] = tx_block(rules, sub, k, v, r)
+    return tx_leaves(out)
+
+
+def tx_split_forward(cfg, sub: str, locs, xs, views):
+    """Every rank's share of the layer in one autograd graph: (the ranks'
+    partial outputs, the loss's aux term, each rank's aux, each rank's
+    expert segments).  A Mamba layer's ranks' sums of squares are added
+    before ``mamba_out`` (the group's first sum); a MoE's aux losses,
+    the same on every rank, enter once."""
+    parts, auxes, segs = [], [], []
+    if sub == "moe":
+        for loc, x_, v in zip(locs, xs, views):
+            seen: list = []
+            with expert_segments(seen):
+                y, a = moe_mod.moe_apply(loc, x_, cfg, dropless=False, tp=v)
+            parts.append(y)
+            auxes.append(a)
+            segs.append(seen)
+        return parts, auxes[0]["moe_aux_loss"] + auxes[0]["moe_z_loss"], \
+            auxes, segs
+    mixed = [mamba_mod.mamba_mix(mamba_mod.rank_columns(loc, cfg, v), x_,
+                                 cfg=cfg, mode="train", tp=v)
+             for loc, x_, v in zip(locs, xs, views)]
+    sumsq = mixed[0][1]
+    for m in mixed[1:]:
+        sumsq = sumsq + m[1]
+    parts = [mamba_mod.mamba_out(loc, m[0], sumsq, cfg)
+             for loc, m in zip(locs, mixed)]
+    return parts, 0.0, auxes, segs
+
+
+def tx_carried(cfg, lp, locs, xs, views):
+    """What the Mamba ranks' normalised blocks, where their bf16 values
+    differ from the whole layer's (the sum of squares summed in another
+    order), carry into the output (``mamba_split_check``'s term)."""
+    with torch.no_grad():
+        g_whole, ss_whole, _ = mamba_mod.mamba_mix(lp, xs[0], cfg=cfg,
+                                                   mode="train")
+        yn_whole = mamba_mod.mamba_norm(lp, g_whole, ss_whole, cfg)
+        mixed = [mamba_mod.mamba_mix(mamba_mod.rank_columns(loc, cfg, v),
+                                     x_, cfg=cfg, mode="train", tp=v)
+                 for loc, x_, v in zip(locs, xs, views)]
+        sumsq = sum(m[1] for m in mixed)
+        hp = cfg.ssm.head_dim
+        carried = None
+        for loc, m, v in zip(locs, mixed, views):
+            cols = mamba_mod.head_columns(cfg, v.size, v.index)
+            cut = slice(cols["head0"] * hp,
+                        (cols["head0"] + cols["heads"]) * hp)
+            yn = mamba_mod.mamba_norm(loc, m[0], sumsq, cfg)
+            term = (yn.float() - yn_whole[..., cut].float()).abs() @ \
+                loc["w_ssm_out"].float().abs()
+            carried = term if carried is None else carried + term
+        return carried
+
+
+def tx_grad_errors(parts, want) -> dict:
+    """A gradient's partials summed against the whole layer's:
+    :func:`split_errors`' elementwise terms (reported) and the normalised
+    distance ||sum - want|| / ||want||, which the check holds to
+    ``TX_GRAD_NORM``."""
+    rec = split_errors(parts, want)
+    total = sum(p.float() for p in parts)
+    wf = want.float()
+    den = float(wf.norm())
+    rec["norm_dist"] = float((total - wf).norm()) / den if den else (
+        0.0 if float(total.norm()) == 0.0 else math.inf)
+    return rec
+
+
+def tx_split_check(cfg, sub: str, lp, x, dy) -> dict:
+    """(a) one layer, whole and split over every model axis of
+    ``SPLIT_TP``, forward and backward: the partials' sum, the gradient
+    of x (each rank's share of it summed, as the *f* at the layer's input
+    sums it), each spec block's gradient against its slice of the whole
+    gradient (the router's, whole on every rank, summed over the ranks,
+    as the gates' *f* sums its combine part), the three Mamba leaves'
+    whole-shaped gradients summed over the ranks (B/C columns included),
+    each within :func:`split_errors`' limit; the MoE's drops bit-equal and
+    the ranks' expert segments and rows adding up to the whole's kept
+    ones; (d)'s times at ``SPLIT_TIME_TP``."""
+    want_y, want, aux, segs = tx_whole(cfg, sub, lp, x, dy)
+    rec = {"leaves": {k: list(v.shape) for k, v in lp.items()}}
+    if sub == "moe":
+        rec.update(whole_segments=len(segs), whole_rows=sum(segs),
+                   drop_frac=float(aux["moe_drop_frac"]))
+    dyf = dy.float()
+    for tp in SPLIT_TP:
+        rules = tx_rules(cfg, tp)
+        views = [collectives.rank_view(rules, r) for r in range(tp)]
+        locs = [tx_rank_leaves(cfg, rules, sub, lp, r) for r in range(tp)]
+        xs = [x.detach().clone().requires_grad_() for _ in range(tp)]
+        parts, extra, auxes, rsegs = tx_split_forward(cfg, sub, locs, xs,
+                                                      views)
+        loss = extra
+        for p in parts:
+            loss = loss + (p.float() * dyf).sum()
+        loss.backward()
+        carried = (tx_carried(cfg, lp, locs, xs, views) if sub == "ssm"
+                   else None)
+        errs = {"y": split_errors([p.detach() for p in parts], want_y,
+                                  carried),
+                "x": tx_grad_errors([x_.grad for x_ in xs], want["x"])}
+        for k, v in lp.items():
+            if k == "router" or (sub == "ssm" and
+                                 k in step_mod.HEAD_ALIGNED):
+                errs[k] = tx_grad_errors([loc[k].grad for loc in locs],
+                                         want[k])
+                continue
+            per = [tx_grad_errors([loc[k].grad],
+                                  tx_block(rules, sub, k, want[k], r))
+                   for r, loc in enumerate(locs)]
+            errs[k] = {"scaled_err": max(e["scaled_err"] for e in per),
+                       "max_abs_err": max(e["max_abs_err"] for e in per),
+                       "over_limit": sum(e["over_limit"] for e in per),
+                       "bit_equal": all(e["bit_equal"] for e in per),
+                       "finite": all(e["finite"] for e in per),
+                       "norm_dist": max(e["norm_dist"] for e in per),
+                       "block_shape": list(locs[0][k].shape)}
+        grads = [e for k, e in errs.items() if k != "y"]
+        t = {"errors": errs,
+             "y_scaled_err": errs["y"]["scaled_err"],
+             "largest_grad_norm_dist": max(e["norm_dist"] for e in grads),
+             "largest_grad_scaled_err": max(e["scaled_err"] for e in grads),
+             "within_limit": (errs["y"]["finite"]
+                              and errs["y"]["scaled_err"] <= 1.0
+                              and all(e["finite"]
+                                      and e["norm_dist"] <= TX_GRAD_NORM
+                                      for e in grads))}
+        if sub == "moe":
+            t.update(drop_fracs=[float(a["moe_drop_frac"]) for a in auxes],
+                     drops_bit_equal=all(
+                         torch.equal(a["moe_drop_frac"],
+                                     aux["moe_drop_frac"]) for a in auxes),
+                     experts_a_rank=[int(loc["we_in"].shape[0])
+                                     for loc in locs],
+                     rows=[sum(s_) for s_ in rsegs],
+                     segments_add_up=sum(len(s_) for s_ in rsegs)
+                     == len(segs),
+                     rows_add_up=sum(sum(s_) for s_ in rsegs) == sum(segs))
+        else:
+            t["heads_a_rank"] = [mamba_mod.head_columns(cfg, tp, r)["heads"]
+                                 for r in range(tp)]
+        rec[f"tp{tp}"] = t
+        del locs, xs, parts, loss, carried
+    del want_y, want
+    rec["times"] = tx_times(cfg, sub, lp, x, dy)
+    return rec
+
+
+def tx_times(cfg, sub: str, lp, x, dy) -> dict:
+    """(d) printed, not checked: the whole layer's forward and backward,
+    and each rank's share of it at a model axis of ``SPLIT_TIME_TP`` (a
+    Mamba rank's own sum of squares standing for the group's)."""
+    def fwd_bwd(leaves, view=None):
+        w = tx_leaves(leaves)
+
+        def call():
+            for v in w.values():
+                v.grad = None
+            xw = x.detach().requires_grad_()
+            if sub == "moe":
+                y, a = moe_mod.moe_apply(w, xw, cfg, dropless=False,
+                                         tp=view)
+                loss = a["moe_aux_loss"] + a["moe_z_loss"]
+            else:
+                y, _ = mamba_mod.mamba_layer(w, xw, cfg=cfg, mode="train",
+                                             tp=view)
+                loss = 0.0
+            (loss + (y.float() * dy.float()).sum()).backward()
+        return call
+
+    rules = tx_rules(cfg, SPLIT_TIME_TP)
+    out = {"whole_ms": time_ms(fwd_bwd(lp), 3)}
+    ranks = []
+    for r in range(SPLIT_TIME_TP):
+        view = collectives.rank_view(rules, r)
+        loc = {k: (v if sub == "ssm" and k in step_mod.HEAD_ALIGNED
+                   else tx_block(rules, sub, k, v, r))
+               for k, v in lp.items()}
+        ranks.append(time_ms(fwd_bwd(loc, view), 3))
+    out["rank_ms"] = ranks
+    out["slowest_rank_over_whole"] = max(ranks) / out["whole_ms"]
+    return out
+
+
+def tx_train_olmoe(smi: str) -> tuple:
+    """(c) olmoe-1b-7b cut to ``TX_OLMOE_LAYERS`` layers through
+    ``train.step.make_train_step`` at the launcher's settings for
+    TRAIN_ARGV (bf16, remat by layer, 2 microbatches of 2 x 4096),
+    ``TX_STEPS`` steps between a reset and a read of the counts.
+    Returns (record, checks, the counts)."""
+    argv = ["--arch", "olmoe-1b-7b", "--steps", str(TX_STEPS)] + \
+        TRAIN_ARGV[4:]
+    _, mesh, shape, _, tcfg = train_cli.build(
+        train_cli.parser().parse_args(argv))
+    whole_cfg = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(whole_cfg, n_layers=TX_OLMOE_LAYERS)
+    rules = make_rules(cfg, mesh, global_batch=TRAIN_BATCH,
+                       shape_kind="train")
+    torch.cuda.reset_peak_memory_stats()
+    state = step_mod.init_state(
+        cfg, tcfg, torch.Generator(device=DEV).manual_seed(tcfg.seed))
+    loader = DataLoader(cfg, shape, mesh=mesh, device=DEV, seed=tcfg.seed)
+    step_fn = step_mod.make_train_step(cfg, rules, tcfg,
+                                       microbatches=tcfg.microbatches)
+    hist, step_s = [], []
+    counts.reset()
+    for i in range(TX_STEPS):
+        batch = loader.device_batch(i)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch.tokens, batch.labels)
+        hist.append(fault_tolerance._scalars(metrics))
+        sync()
+        step_s.append(time.perf_counter() - t0)
+    launched, plain = counts.snapshot()
+    by_instance = dict(counts.INSTANCES)
+    peak = torch.cuda.max_memory_allocated()
+    batch = loader.device_batch(0)
+
+    def one_step():
+        return step_fn(state, batch.tokens, batch.labels)
+
+    prof = profile_calls(one_step, 1, traces=TX_TRACES)
+    syncs = host_syncs(lambda: fault_tolerance._scalars(one_step()[1]))
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    roofline_line(f"{cfg.name} ({TX_OLMOE_LAYERS} of "
+                  f"{whole_cfg.n_layers} layers) train step", cfg,
+                  TRAIN_SHAPE, count_call(step_fn, state, batch.tokens,
+                                          batch.labels),
+                  step_ms, TRAIN_BATCH * TRAIN_SEQ)
+    mb = tcfg.microbatches
+    rec = {"config": cfg.name, "argv_settings": argv,
+           "n_layers": TX_OLMOE_LAYERS,
+           "n_layers_cut_from": whole_cfg.n_layers,
+           "n_params": sum(t.numel() for t in tree_mod.leaves(
+               state["params"])),
+           "step_ms": [x * 1e3 for x in step_s], "step_ms_median": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "losses": [m["loss"] for m in hist],
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "moe_drop_fracs": [m["moe_drop_frac"] for m in hist],
+           "launches": launched, "launches_by_instance": by_instance,
+           "plain_calls": plain, "profile_one_step": prof,
+           "busy_share": prof["device_ms_a_call"] / step_ms,
+           "host_syncs_a_step": syncs, "peak_bytes": peak}
+    fwd_want = 2 * TX_OLMOE_LAYERS * mb * TX_STEPS
+    checks = tx_step_checks(cfg, rec)
+    checks["c:olmoe_flash_forward_twice_a_layer_and_microbatch"] = (
+        launched["flash_attention"] == fwd_want
+        and by_instance["flash_attention:wgmma_bf16"] == fwd_want)
+    checks["c:olmoe_flash_backward_once_a_layer_and_microbatch"] = (
+        launched["flash_attention_bwd"] == fwd_want // 2
+        and by_instance["flash_attention_bwd:wgmma_bf16"] == fwd_want // 2)
+    checks["c:olmoe_no_plain_version"] = not any(plain.values())
+    del state, loader, step_fn, batch
+    return rec, checks, launched
+
+
+def tx_step_checks(cfg, rec: dict) -> dict:
+    """(c)'s checks of one family's steps: every loss and grad norm
+    finite, step 0's loss within ``TRAIN_LOSS0_TOL`` of ln V."""
+    name = cfg.name.split("-")[0]
+    return {f"c:{name}_losses_and_grad_norms_finite": all(
+        math.isfinite(v) for v in rec["losses"] + rec["grad_norms"]),
+        f"c:{name}_step0_loss_near_ln_v":
+            abs(rec["losses"][0] - math.log(cfg.vocab_size))
+            <= TRAIN_LOSS0_TOL,
+        f"c:{name}_steps_run": len(rec["losses"]) == TX_STEPS}
+
+
+def tx_train_mamba(smi: str) -> tuple:
+    """(c) mamba2-370m at full size through ``launch.train.run``
+    (``TX_MAMBA_ARGV``) between a reset and a read of the counts.
+    Returns (record, checks)."""
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    run = train_cli.run(TX_MAMBA_ARGV, verbose=False)
+    sync()
+    entry_s = time.perf_counter() - t0
+    launched, plain = counts.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    cfg, state, hist = run.cfg, run.state, run.result.metrics_history
+    step_s = run.step_seconds
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    step_fn = step_mod.make_train_step(cfg, run.rules, run.tcfg,
+                                       microbatches=TRAIN_MB)
+    batch = DataLoader(cfg, run.shape, device=DEV, seed=0).device_batch(0)
+
+    def one_step():
+        return step_fn(state, batch.tokens, batch.labels)
+
+    prof = profile_calls(one_step, 1, traces=TX_TRACES)
+    syncs = host_syncs(lambda: fault_tolerance._scalars(one_step()[1]))
+    roofline_line(f"{cfg.name} train step", cfg, TRAIN_SHAPE,
+                  count_call(step_fn, state, batch.tokens, batch.labels),
+                  step_ms, TRAIN_BATCH * TRAIN_SEQ)
+    rec = {"config": cfg.name, "argv": TX_MAMBA_ARGV,
+           "n_params": cfg.n_params(), "n_layers": cfg.n_layers,
+           "entry_seconds": entry_s,
+           "step_ms": [x * 1e3 for x in step_s], "step_ms_median": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "losses": [m["loss"] for m in hist],
+           "grad_norms": [m["grad_norm"] for m in hist],
+           "launches": launched, "plain_calls": plain,
+           "profile_one_step": prof,
+           "busy_share": prof["device_ms_a_call"] / step_ms,
+           "host_syncs_a_step": syncs, "peak_bytes": peak}
+    checks = tx_step_checks(cfg, rec)
+    checks["c:mamba2_on_the_card"] = str(run.device).startswith("cuda")
+    checks["c:mamba2_no_plain_version"] = not any(plain.values())
+    del run, state, step_fn, batch
+    return rec, checks
+
+
+def phase_train_experts(smi: str) -> dict:
+    """Training the MoE and Mamba-2 families split over "model", on one
+    card (one card carries one rank, so each rank's share runs in turn
+    through ``collectives.rank_view`` with no group; the gloo tests of
+    ``tests/test_torch_train_experts.py`` hold the collectives): (a) the
+    first MoE layer of olmoe-1b-7b and jamba-v0.1-52b and the first Mamba
+    layer of mamba2-370m and jamba, split over model axes of 2, 4 and 8
+    against the whole layer, forward and backward
+    (:func:`tx_split_check`); (b) #12 and #12b on each rank's head block
+    of olmoe's and jamba's attention at those axes
+    (:func:`head_block_check`); (c) the families' first train steps at
+    full width: mamba2-370m through the launcher, olmoe-1b-7b cut to 4
+    layers through the step; (d) the split layers' times.  Returns the
+    launches of #12 and #12b in (b) and (c)."""
+    t_phase = time.perf_counter()
+    checks, layers = {}, []
+    for arch, sub in TX_LAYERS:
+        cfg = get_config(arch)
+        lp, x, dy = tx_layer(cfg, sub, TX_SEED + len(layers))
+        rec = tx_split_check(cfg, sub, lp, x, dy)
+        name = f"{arch.split('-')[0]}_{sub}"
+        for tp in SPLIT_TP:
+            t = rec[f"tp{tp}"]
+            checks[f"a:{name}_tp{tp}_within_limit"] = t["within_limit"]
+            if sub == "moe":
+                checks[f"a:{name}_tp{tp}_drops_bit_equal"] = \
+                    t["drops_bit_equal"]
+                checks[f"a:{name}_tp{tp}_segments_add_up"] = \
+                    t["segments_add_up"] and t["rows_add_up"]
+                checks[f"a:{name}_tp{tp}_experts_a_rank"] = \
+                    t["experts_a_rank"] == [cfg.moe.n_experts // tp] * tp
+            else:
+                checks[f"a:{name}_tp{tp}_heads_a_rank"] = \
+                    t["heads_a_rank"] == \
+                    [cfg.ssm.n_heads(cfg.d_model) // tp] * tp
+        layers.append({"config": arch, "layer": sub, **rec})
+        del lp, x, dy
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_phase
+
+    heads, launches = [], {"flash_attention": 0, "flash_attention_bwd": 0}
+    for arch in TX_HEADS:
+        cfg = get_config(arch)
+        recs, sums, launched, plain, times = head_block_check(cfg, SPLIT_TP)
+        n_blocks = sum(SPLIT_TP)
+        name = arch.split("-")[0]
+        checks[f"b:{name}_head_mode"] = all(r["mode"] == "head"
+                                            for r in sums)
+        checks[f"b:{name}_o_lse_dq_bit_equal"] = len(recs) == n_blocks and \
+            all(r["o_bit_equal"] and r["lse_bit_equal"] and r["dq_bit_equal"]
+                for r in recs)
+        checks[f"b:{name}_dk_dv_within_tol"] = all(
+            r["dk_scaled_err"] <= 1.0 and r["dv_scaled_err"] <= 1.0
+            for r in sums)
+        checks[f"b:{name}_forward_once_a_block"] = \
+            launched["flash_attention"] == n_blocks
+        checks[f"b:{name}_backward_once_a_block"] = \
+            launched["flash_attention_bwd"] == n_blocks
+        checks[f"b:{name}_no_plain_version"] = not any(plain.values())
+        for k in launches:
+            launches[k] += launched[k]
+        heads.append({"config": arch, "blocks": recs, "kv_sums": sums,
+                      "times": times, "launches": launched})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_b = time.perf_counter() - t_phase - t_a
+    t0 = time.perf_counter()
+    mamba_rec, c = tx_train_mamba(smi)
+    mamba_rec["seconds"] = time.perf_counter() - t0
+    checks.update(c)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    olmoe_rec, c, launched = tx_train_olmoe(smi)
+    olmoe_rec["seconds"] = time.perf_counter() - t0
+    checks.update(c)
+    for k in launches:
+        launches[k] += launched[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_experts", "card": smi,
+          "model_axes": list(SPLIT_TP),
+          "shape": [TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ],
+          "layers": layers, "heads": heads,
+          "train": {"mamba2": mamba_rec, "olmoe": olmoe_rec},
+          "largest_y_scaled_err": max(
+              layer[f"tp{tp}"]["y_scaled_err"] for layer in layers
+              for tp in SPLIT_TP),
+          "largest_grad_norm_dist": max(
+              layer[f"tp{tp}"]["largest_grad_norm_dist"] for layer in layers
+              for tp in SPLIT_TP),
+          "grad_norm_limit": TX_GRAD_NORM,
+          "launches": launches, "checks": checks, "seconds_a": t_a,
+          "seconds_b": t_b,
+          "seconds": time.perf_counter() - t_phase})
+    for k_, ok in checks.items():
+        if not ok:
+            fail(f"train_experts: check {k_}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5311,6 +5833,14 @@ def main() -> int:
     bwd_row["launches"] += tp_launches["flash_attention_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
+    # the MoE and Mamba families' training split over "model": each
+    # rank's share in turn, the head blocks, the families' first steps
+    tx_launches = phase_train_experts(smi)
+    bwd_row["launches_by_path"]["train_experts"] = \
+        tx_launches["flash_attention_bwd"]
+    bwd_row["launches"] += tx_launches["flash_attention_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
     # serving on a mesh over NCCL (world 1): the phase resets and reads the
     # counts around its mesh run
     mesh_launches = phase_serve_mesh(smi)
@@ -5328,11 +5858,14 @@ def main() -> int:
                                          dist_launches["flash_attention"],
                                      "train_tp":
                                          tp_launches["flash_attention"],
+                                     "train_experts":
+                                         tx_launches["flash_attention"],
                                      "serve_mesh": mesh_launches}
     flash_row["launches"] += (serve["launches"] + families
                               + split_launches + train_fwd
                               + dist_launches["flash_attention"]
                               + tp_launches["flash_attention"]
+                              + tx_launches["flash_attention"]
                               + mesh_launches)
     flash_row["serve_call"] = serve["call"]
 

@@ -14,9 +14,9 @@ On several processes the mesh comes from the process group, ``nccl`` for
 ``--device cuda`` (one card a rank) and ``gloo`` for ``--device cpu``;
 the state is sharded by ``state_specs`` and the batch by
 ``batch_specs``.  The opening line's ``model_axis`` says how the step
-uses the model axis (``step.model_split``): ``arithmetic`` (a dense
-decoder, each rank its share on its blocks), ``storage`` (a MoE or Mamba
-configuration, blocks gathered whole) or ``none``::
+uses the model axis (``step.model_split``): ``arithmetic`` (every
+family: each rank its share of the heads, MLP columns, experts and SSM
+heads on its blocks) or ``none``::
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch qwen2-1.5b --reduced --data 2 --model 2 --device cpu

@@ -77,16 +77,6 @@ def layer_has_ffn(cfg: ModelConfig, i: int) -> bool:
     return cfg.family != "ssm"
 
 
-def splits_over_model(cfg: ModelConfig) -> bool:
-    """Can the train step split every layer's arithmetic over the model
-    axis: an attention mixer and a dense MLP (no MoE and no Mamba layer)?
-    Serving splits every family (:func:`layer_apply`); a train step of
-    a MoE or Mamba configuration keeps the whole-leaf step
-    (``train.step.model_split`` "storage")."""
-    return all(cfg.layer_kind(i) == "attn" and not cfg.layer_is_moe(i)
-               for i in range(cfg.n_layers))
-
-
 def layer_init(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
                dtype) -> Params:
     kind, is_moe, _ = layer_signature(cfg, layer_idx)
@@ -121,20 +111,10 @@ def layer_apply(
     tp=None,
 ) -> Tuple[torch.Tensor, Optional[Params], Dict[str, torch.Tensor]]:
     """One decoder block.  Returns (x, new_cache, aux_losses).  ``tp``
-    (this rank's share on a mesh) reaches the attention layer and the
-    MLP in every mode, train too, and the Mamba layer (its heads) and the
-    MoE layer (its experts) in prefill and decode; in train mode a Mamba
-    or MoE layer refuses a model group of more than one rank (the split
-    in training is not ported; :func:`splits_over_model` tells the
-    configurations apart)."""
+    (this rank's share on a mesh) reaches the attention layer (its
+    heads), the MLP (its columns), the Mamba layer (its SSM heads) and
+    the MoE layer (its experts) in every mode, train too."""
     kind, is_moe, _ = layer_signature(cfg, layer_idx)
-    if (mode == "train" and tp is not None and tp.size > 1
-            and (kind != "attn" or is_moe)):
-        raise NotImplementedError(
-            f"{cfg.name} layer {layer_idx}: a {'MoE' if is_moe else 'Mamba'}"
-            f" layer in training on a model axis of {tp.size}; the split in "
-            "training is ROADMAP queue 1, item 5b's next step (the router's "
-            "two-part gradient, the B/C columns as partial leaves)")
     cst = constrain or (lambda v, _name: v)
     aux: Dict[str, torch.Tensor] = {}
 

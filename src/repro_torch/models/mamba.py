@@ -4,7 +4,8 @@ The port of ``repro/models/mamba.py``.  Train and prefill use the chunked
 SSD algorithm (arXiv:2405.21060 §6): within-chunk "attention-like"
 products plus a recurrence over the chunk states, which the reference
 runs as a ``lax.scan`` and this port as a Python loop over the chunks.
-Decode is the O(1) recurrent update.  Internals are float32.
+Decode is the O(1) recurrent update.  Internals are float32 (float64
+where the inputs are float64).
 
 State layout: (B, H, P, N) with H = ssm heads, P = head_dim, N = d_state.
 Conv cache: (B, K-1, conv_channels).  A decode step over a cache in pinned
@@ -30,8 +31,17 @@ over the group (the first all-reduce, ``(B, S, 1)``) because the gated
 RMSNorm spans the whole ``d_inner``; :func:`mamba_out` normalises the
 block by the total and multiplies it by the rank's rows of ``w_ssm_out``,
 and the partials are summed (the second all-reduce, ``(B, S, D)``).
+The total of the sums of squares feeds every rank's own block, so a
+rank's gradient of it is only its share: in training it is summed over
+the group too (``tp_copy`` after ``tp_sum``: an all-reduce each way).
 Where the heads do not divide, every leaf is whole and nothing is
 summed.
+
+Training keeps the reference's contiguous spec blocks of ``w_zxbcdt``,
+``conv_w`` and ``conv_b`` in its state; its step hands the layer those
+leaves whole (``train.step``), and the layer takes the rank's
+head-aligned columns itself (:func:`rank_columns`), so that autograd
+gives their gradient in the whole leaf's shape.
 """
 from __future__ import annotations
 
@@ -45,6 +55,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import _on
 from repro_torch.models.common import Params, dense_init
 from repro_torch.parallel import collectives
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the layer's internal precision: float32, or float64 where
+    it is float64 already."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def _dims(cfg: ModelConfig):
@@ -103,6 +119,23 @@ def take_columns(t: torch.Tensor, ranges) -> torch.Tensor:
     """The columns (last dimension) of ``t`` in ``ranges``, concatenated
     (works on ``meta`` tensors)."""
     return torch.cat([t[..., a:b] for a, b in ranges], dim=-1)
+
+
+def rank_columns(params, cfg: ModelConfig, tp):
+    """``params`` with ``w_zxbcdt``, ``conv_w`` and ``conv_b`` cut to this
+    rank's head-aligned columns where ``tp`` cuts the heads and they are
+    whole (a train step hands them whole; serving, already cut)."""
+    if tp is None or not heads_split(cfg, tp.size):
+        return params
+    s, d, di, nh, ng, ds, k, hp = _dims(cfg)
+    if params["w_zxbcdt"].shape[-1] != 2 * di + 2 * ng * ds + nh:
+        return params
+    cols = head_columns(cfg, tp.size, tp.index)
+    out = dict(params)
+    for name, key in (("w_zxbcdt", "proj"), ("conv_w", "conv"),
+                      ("conv_b", "conv")):
+        out[name] = take_columns(params[name], cols[key])
+    return out
 
 
 def _local_dims(cfg: ModelConfig, tp):
@@ -178,21 +211,26 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     if s % chunk:
         raise ValueError(f"ssd_chunked: S {s} not a multiple of chunk {chunk}")
     nc = s // chunk
-    xc = x.reshape(b, nc, chunk, h, p).float()
-    dtc = dt.reshape(b, nc, chunk, h).float()
-    Bc = B.reshape(b, nc, chunk, g, n).float()
-    Cc = C.reshape(b, nc, chunk, g, n).float()
+    xc = _wide(x.reshape(b, nc, chunk, h, p))
+    dtc = _wide(dt.reshape(b, nc, chunk, h))
+    Bc = _wide(B.reshape(b, nc, chunk, g, n))
+    Cc = _wide(C.reshape(b, nc, chunk, g, n))
 
     seg = torch.cumsum(dtc * A, dim=2)               # (b,nc,T,h)
     seg_last = seg[:, :, -1:]                        # (b,nc,1,h)
 
     # within-chunk (diagonal block): L[i,j] = exp(seg_i - seg_j) for i >= j,
     # weighted by dt_j and the scores C_i . B_j (group-broadcast to heads);
-    # each (b,nc,T,T,h) tensor is freed once the next is made
+    # each (b,nc,T,T,h) tensor is freed once the next is made.  The
+    # exponent is masked before the exp (-inf above the diagonal, where
+    # seg_i - seg_j > 0 overflows at a full chunk): masking the exp's
+    # output instead, as the reference does, gives the same values but a
+    # NaN gradient (inf times the mask's 0)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
-    M = torch.exp(seg[:, :, :, None, :] - seg[:, :, None, :, :])
-    M = torch.where(mask[None, None, :, :, None], M, 0.0)
+    M = torch.exp(torch.where(mask[None, None, :, :, None],
+                              seg[:, :, :, None, :] - seg[:, :, None, :, :],
+                              -math.inf))
     M = M * dtc[:, :, None, :, :]
     Gm = torch.einsum("bctgn,bcsgn->bctsg", Cc, Bc)  # (b,nc,T,T,g)
     M = (M.reshape(b, nc, chunk, chunk, g, hg) * Gm[..., None]
@@ -211,8 +249,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None):
     # inter-chunk recurrence over nc (the reference's lax.scan): the state
     # entering each chunk, and the final one
     chunk_decay = torch.exp(seg_last[:, :, 0])       # (b,nc,h)
-    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-             if init_state is None else init_state.float())
+    state = (torch.zeros((b, h, p, n), dtype=xc.dtype, device=x.device)
+             if init_state is None else _wide(init_state))
     prev = []
     for c in range(nc):
         prev.append(state)
@@ -258,7 +296,7 @@ def mamba_mix(params, x, *, cfg: ModelConfig, mode: str,
     b, s, _ = x.shape
     zxbcdt = torch.einsum("bsd,de->bse", x, params["w_zxbcdt"])
     z, xbc, dt = _split_proj(zxbcdt, dims)
-    dt = F.softplus(dt.float() + params["dt_bias"])
+    dt = F.softplus(_wide(dt) + params["dt_bias"])
     A = -torch.exp(params["A_log"])
 
     if mode == "decode":
@@ -267,12 +305,12 @@ def mamba_mix(params, x, *, cfg: ModelConfig, mode: str,
         conv_out, conv_tail = _causal_conv(
             xbc, params["conv_w"], params["conv_b"],
             prev=_on(cache["conv"], x.device))
-        xs = conv_out[..., :di].reshape(b, nh, hp).float()
+        xs = _wide(conv_out[..., :di].reshape(b, nh, hp))
         Bm = conv_out[..., di:di + ng * ds].reshape(b, ng, ds)
         Cm = conv_out[..., di + ng * ds:].reshape(b, ng, ds)
         y, new_state = ssd_step(
-            _on(cache["ssm"], x.device).float(), xs, dt[:, 0], A,
-            Bm.float(), Cm.float())
+            _wide(_on(cache["ssm"], x.device)), xs, dt[:, 0], A,
+            _wide(Bm), _wide(Cm))
         y = y + params["ssm_D"][:, None] * xs
         y = y.reshape(b, 1, di)
         new_cache = {"ssm": new_state, "conv": conv_tail}
@@ -300,14 +338,14 @@ def mamba_mix(params, x, *, cfg: ModelConfig, mode: str,
         if pad:
             y = y[:, :s]
             xs = xs[:, :s]
-        y = y + params["ssm_D"][None, None, :, None] * xs.float()
+        y = y + params["ssm_D"][None, None, :, None] * _wide(xs)
         y = y.reshape(b, s, di)
         new_cache = None
         if mode == "prefill":
             new_cache = {"ssm": final, "conv": conv_tail}
 
     y = y.to(x.dtype) * F.silu(z)
-    yf = y.float()
+    yf = _wide(y)
     return y, (yf * yf).sum(dim=-1, keepdim=True), new_cache
 
 
@@ -316,8 +354,8 @@ def mamba_norm(params, y, sumsq, cfg: ModelConfig):
     ``d_inner``, given the float32 sum of squares of every rank's block
     (``sumsq``, (B,S,1)), in y's dtype."""
     di = cfg.ssm.d_inner(cfg.d_model)
-    yn = y.float() * torch.rsqrt(sumsq / di + cfg.norm_eps)
-    return (yn * (1.0 + params["ssm_norm"].float())).to(y.dtype)
+    yn = _wide(y) * torch.rsqrt(sumsq / di + cfg.norm_eps)
+    return (yn * (1.0 + _wide(params["ssm_norm"]))).to(y.dtype)
 
 
 def mamba_out(params, y, sumsq, cfg: ModelConfig):
@@ -335,14 +373,19 @@ def mamba_layer(params, x, *, cfg: ModelConfig, mode: str,
     A decode step returns the new state as new tensors; the caller writes
     them into the cache (``lm``).  ``tp``: this rank's share on a mesh
     (the module's notes): two sums over ``tp.group`` where the heads are
-    cut, none otherwise."""
+    cut (and two more in the backward pass), none otherwise; the three
+    head-aligned leaves may come whole (:func:`rank_columns`)."""
     split = tp is not None and heads_split(cfg, tp.size)
     if split:
         x = collectives.tp_copy(x, tp.group)
+        params = rank_columns(params, cfg, tp)
     y, sumsq, new_cache = mamba_mix(params, x, cfg=cfg, mode=mode,
                                     cache=cache, tp=tp)
     if split:
-        sumsq = collectives.tp_sum(sumsq, tp.group)
+        # summed forward, and its gradient summed backward: the total
+        # feeds every rank's block
+        sumsq = collectives.tp_copy(collectives.tp_sum(sumsq, tp.group),
+                                    tp.group)
     out = mamba_out(params, y, sumsq, cfg)
     if split:
         out = collectives.tp_sum(out, tp.group)

@@ -32,9 +32,17 @@ the aux losses whole), runs the GEMMs of its own experts only (its one
 ``.tolist()`` reads those experts' segment sizes), combines its own
 assignments, and the ``(B, S, D)`` partials are summed over the group by
 one ``collectives.tp_sum``.  Where the experts do not divide, the leaves
-are whole and nothing is summed.  Capacity mode (training) with a split
-raises: the router's gradient would need its combine part summed over
-the group.
+are whole and nothing is summed.  Capacity mode (training) splits the
+same way: every rank routes every row with the whole router, so every
+rank computes the same ``keep`` (the same ``cap`` and stable order, the
+reference's drops) and takes its own experts' kept rows.  The router's
+gradient has two parts, the aux and z losses' (whole and the same on
+every rank) and the combine's (a rank's own experts' assignments only),
+so the renormalised gates enter the dispatch through
+``collectives.tp_copy``: its backward sums the ``(g, n, k)`` gate
+gradient over the group, after which the router's gradient, and its
+gradient of ``x``, are whole and the same on every rank.  The experts'
+gradient of ``x`` is summed by the ``tp_copy`` of the dispatched rows.
 """
 from __future__ import annotations
 
@@ -64,9 +72,11 @@ def _round_up(x: int, m: int) -> int:
 
 
 def route(params, xg: torch.Tensor, k: int):
-    """xg: (g, n, d) -> (router logits (g, n, e) f32, probs, renormalised
-    gates (g, n, k), expert ids (g, n, k)), highest probability first."""
-    logits = torch.einsum("gnd,de->gne", xg.float(), params["router"])
+    """xg: (g, n, d) -> (router logits (g, n, e) in the router's dtype
+    (float32), probs, renormalised gates (g, n, k), expert ids (g, n, k)),
+    highest probability first."""
+    logits = torch.einsum("gnd,de->gne", xg.to(params["router"].dtype),
+                          params["router"])
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, k, dim=-1)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(
@@ -101,12 +111,6 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, n_groups: int = 0,
     act = activation(cfg.act_fn)
     dev = x.device
     split = tp is not None and tp.cuts(e)
-    if split and not dropless:
-        raise NotImplementedError(
-            f"{cfg.name}: capacity-mode (training) MoE with its experts cut "
-            f"over a model axis of {tp.size}; the split in training is "
-            "ROADMAP queue 1, item 5b's next step (the router's two-part "
-            "gradient)")
     # the experts this rank holds, [lo, hi)
     lo, hi = ((tp.index * e // tp.size, (tp.index + 1) * e // tp.size)
               if split else (0, e))
@@ -133,6 +137,9 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, n_groups: int = 0,
     else:
         cap = _round_up(int(math.ceil(k * n * m.capacity_factor / e)), 8)
         cap = min(cap, nk)
+    if split:
+        # the combine's part of the gates' gradient, summed over the group
+        gate_vals = collectives.tp_copy(gate_vals, tp.group)
     flat_gate = gate_vals.reshape(g, nk)
     order = torch.argsort(flat_expert, dim=-1, stable=True)       # (g, nk)
     sorted_expert = torch.gather(flat_expert, 1, order)
@@ -164,15 +171,19 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, n_groups: int = 0,
     xe = collectives.tp_copy(x, tp.group) if split else x
     xk = xe.reshape(g * n, d).index_select(0, slot // k)
 
-    y = torch.empty_like(xk)
-    at = 0
+    # one view an expert, and the segments' outputs joined once: in
+    # training, indexing a stacked leaf an expert and writing each output
+    # into a slice would each cost a whole-sized gradient an expert
+    w_in, w_gate, w_out = (params[name].unbind(0)
+                           for name in ("we_in", "we_gate", "we_out"))
+    outs, at = [], 0
     for ex, size in enumerate(seg_sizes):
         if not size:
             continue
-        y[at:at + size] = _expert_ffn(
-            xk[at:at + size], params["we_in"][ex], params["we_gate"][ex],
-            params["we_out"][ex], act)
+        outs.append(_expert_ffn(xk[at:at + size], w_in[ex], w_gate[ex],
+                                w_out[ex], act))
         at += size
+    y = torch.cat(outs) if outs else xk[:0]
 
     # combine: each kept assignment's gate · y into its (token, rank) slot,
     # then the k ranks of a token summed (dropped slots, and another

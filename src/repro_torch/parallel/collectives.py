@@ -34,11 +34,11 @@ attention`, ``mlp``, ``lm``), experts (``moe``: every rank routes all its
 rows, runs its own experts, one :func:`tp_sum` of the ``(B, S, D)``
 partials) and SSM heads (``mamba``: head-aligned columns, one
 :func:`tp_sum` of the gated norm's ``(B, S, 1)`` sum of squares and one
-of the ``(B, S, D)`` partials).  The train step of a dense decoder splits
+of the ``(B, S, D)`` partials).  The train step of every family splits
 its arithmetic the same way (:func:`repro_torch.train.step.
-make_train_step`); that of a configuration with a MoE or Mamba layer
-still gathers whole leaves over "model" and splits only where parameters
-and moments live.  On a bound
+make_train_step`), with two more sums backward: the MoE gates' gradient
+(a :func:`tp_copy` of the gates) and the Mamba sum of squares' (a
+:func:`tp_copy` after its :func:`tp_sum`).  On a bound
 mesh the step's collectives run over their groups even where a group has
 one rank, so a bound 1x1 mesh takes the path a larger one takes; a
 one-device mesh with no process group (``rank`` None) has no groups, and

@@ -23,12 +23,16 @@ process group the state is this rank's blocks (ZeRO-1 moments) and the
 gradients are averaged over the batch group
 (:mod:`repro_torch.parallel.collectives`); on a one-device mesh with no
 process group every block is the whole leaf and no collective runs.  On
-a model axis of more than one rank a dense decoder's step is
-tensor-parallel, Megatron's way: each rank runs its share of the layers
-on its parameter blocks (:mod:`repro_torch.models.attention`, ``mlp``,
-``lm``), the cross-entropy keeps the logits cut by vocabulary
+a model axis of more than one rank the step is tensor-parallel for every
+family, Megatron's way: each rank runs its share of the layers on its
+parameter blocks (:mod:`repro_torch.models.attention`, ``mlp``, ``moe``,
+``mamba``, ``lm``: heads, MLP columns, experts, SSM heads), the
+cross-entropy keeps the logits cut by vocabulary
 (:func:`vocab_parallel_ce`), and the float32 gradients come out as the
-blocks; nothing is gathered whole over "model".
+blocks.  The only leaves gathered whole over "model" are a split Mamba
+layer's ``w_zxbcdt`` and ``conv_w`` (``conv_b`` the spec replicates):
+the state keeps their contiguous spec blocks, a rank computes on its
+head-aligned columns.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.models import attention, blocks as blocks_mod, lm
+from repro_torch.models import attention, lm, mamba
 from repro_torch.optim import adamw
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel import compression
@@ -367,13 +371,43 @@ def make_grads_fn(cfg: ModelConfig, rules: ShardingRules,
 
 def model_split(cfg: ModelConfig, rules: ShardingRules) -> str:
     """How a train step on ``rules.mesh`` uses the model axis:
-    ``"arithmetic"`` (a dense decoder on more than one rank: each rank
-    runs its share on its blocks), ``"storage"`` (a configuration with a
-    MoE or Mamba layer on more than one rank: the blocks are gathered
-    whole and every rank runs the whole model), or ``"none"``."""
+    ``"arithmetic"`` (more than one rank: each runs its share of every
+    layer on its blocks) or ``"none"``."""
     if rules.mesh.axis_sizes.get(rules.tp, 1) == 1:
         return "none"
-    return "arithmetic" if blocks_mod.splits_over_model(cfg) else "storage"
+    return "arithmetic"
+
+
+# a Mamba layer's leaves whose spec blocks are not the columns a rank
+# computes on where its SSM heads are cut (``mamba.head_columns``)
+HEAD_ALIGNED = ("w_zxbcdt", "conv_w", "conv_b")
+
+
+def leaf_roles(cfg: ModelConfig, rules: ShardingRules, paths) -> list:
+    """What the step does with each parameter leaf at ``paths`` on the
+    model axis: ``"block"`` (the layer computes on the rank's spec block;
+    its gradient is the block's), ``"columns"`` (a Mamba leaf of
+    :data:`HEAD_ALIGNED` where the heads are cut: gathered whole, the
+    layer takes its head-aligned columns, the whole-shaped gradient is
+    summed over the model group and cut to the block) or ``"whole"`` (a
+    Mamba leaf where the heads are not cut: gathered whole, the layer runs
+    whole on every rank, each keeps its block of the identical
+    gradient)."""
+    size = rules.mesh.axis_sizes.get(rules.tp, 1)
+    if size == 1 or cfg.ssm is None:
+        return ["block"] * len(paths)
+    split = mamba.heads_split(cfg, size)
+    roles = []
+    for p in paths:
+        parts = p.split("/")
+        if len(parts) < 2 or parts[-2] != "ssm":
+            roles.append("block")
+        elif not split:
+            roles.append("whole")
+        else:
+            roles.append("columns" if parts[-1] in HEAD_ALIGNED
+                         else "block")
+    return roles
 
 
 def make_train_step(cfg: ModelConfig, rules: ShardingRules,
@@ -384,20 +418,22 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules,
     and ``labels`` this rank's rows of the global batch
     (:class:`repro_torch.data.pipeline.DataLoader` with ``mesh=``).
 
-    On a model axis of more than one rank a dense decoder (no MoE and no
-    Mamba layer, :func:`model_split` ``"arithmetic"``) runs
-    :func:`make_grads_fn` on the rank's parameter blocks with the model
-    group's context (:func:`repro_torch.parallel.collectives.
-    tensor_parallel`): the layers and the cross-entropy split their
-    arithmetic, the float32 gradients come out as the blocks, and the
-    leaves whole on every rank that a rank reads for its share of heads
-    only (``attention.partial_leaves``) have their gradients summed over
-    the model group once, in one flat all-reduce.  Nothing is gathered
-    whole over "model".  A configuration with a MoE or Mamba layer on such
-    an axis (``"storage"``) still gathers each parameter whole over the
-    axes its spec names, runs the whole model on every rank of the group
-    and keeps its block of each gradient, until expert and SSM-head
-    parallelism are ported (the next slice, ROADMAP queue 1, item 5b).
+    On a model axis of more than one rank (:func:`model_split`
+    ``"arithmetic"``) the step runs :func:`make_grads_fn` on the rank's
+    parameter blocks with the model group's context
+    (:func:`repro_torch.parallel.collectives.tensor_parallel`): the
+    layers (attention heads, MLP columns, experts, SSM heads) and the
+    cross-entropy split their arithmetic and the float32 gradients come
+    out as the blocks.  The leaves whole on every rank that a rank reads
+    for its share of heads only (``attention.partial_leaves``) have their
+    gradients summed over the model group once, in one flat all-reduce.
+    A split Mamba layer's :data:`HEAD_ALIGNED` leaves are gathered whole
+    first (one all-gather a leaf); the layer takes the rank's columns
+    and their whole-shaped gradient is summed over the model group (one
+    all-reduce a leaf, which also adds up the B/C columns every rank
+    reads) and cut to the rank's block (:func:`leaf_roles`).  No other
+    leaf is gathered whole over "model", except the cut leaves of a Mamba
+    layer whose heads do not divide (it runs whole on every rank).
 
     Then, on every mesh, the step averages the float32 gradients'
     parameter blocks over the batch group (``all_reduce``; with
@@ -437,9 +473,13 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules,
         if g is not None:
             norm_groups.append((g, [i for i, k in enumerate(norm_keys)
                                     if k == key]))
-    kind = model_split(cfg, rules)
-    tp = col.tensor_parallel(rules) if kind == "arithmetic" else None
-    whole_leaf = kind == "storage"
+    tp = (col.tensor_parallel(rules)
+          if model_split(cfg, rules) == "arithmetic" else None)
+    roles = leaf_roles(cfg, rules, paths)
+    # the leaves handed to the layers whole, and those whose whole-shaped
+    # gradients are summed over the model group
+    whole = [i for i, r in enumerate(roles) if r != "block"]
+    summed = [i for i, r in enumerate(roles) if r == "columns"]
     # the leaves each rank holds a share of the gradient of
     names = attention.partial_leaves(cfg, tp)
     partial = [i for i, p in enumerate(paths)
@@ -453,15 +493,20 @@ def make_train_step(cfg: ModelConfig, rules: ShardingRules,
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         blocks = tree.leaves(state["params"])
         params = state["params"]
-        if whole_leaf:
-            params = tree.unflatten_like(params, [
-                col.gather(b, ps, mesh, s)
-                for b, ps, s in zip(blocks, pspecs, shapes)])
+        if whole:
+            leaves = list(blocks)
+            for i in whole:
+                leaves[i] = col.gather(blocks[i], pspecs[i], mesh, shapes[i])
+            params = tree.unflatten_like(params, leaves)
+            del leaves
         metrics, gblocks = grads_fn(params, tokens, labels, frontend)
         del params
-        if whole_leaf:
-            # this rank's parameter block of each float32 gradient
-            gblocks = [g[sl] for g, sl in zip(gblocks, pslices)]
+        for i in summed:
+            dist.all_reduce(gblocks[i], op=dist.ReduceOp.SUM,
+                            group=tp.group.group)
+        for i in whole:
+            # this rank's block of the float32 gradient, the whole freed
+            gblocks[i] = gblocks[i][pslices[i]].contiguous()
         if partial:
             _sum_partial(gblocks, partial, tp.group)
         if compress:

@@ -852,18 +852,22 @@ def planned_collectives(rules, tcfg, params_struct, *, seq=S,
     run, as its specs imply them, in launch order, ``[kind, operand
     bytes, group size]`` a call (an all-gather's input, an all-reduce's
     tensor, as ``analysis.cost`` counts them), for this rank's rows of the
-    global batch ``B`` of ``seq`` tokens.  A dense decoder on a model axis
-    of more than one rank splits the arithmetic (:func:`_split_calls`)
-    and gathers no parameter over "model"; any other step gathers each
-    parameter over its spec's axes.  Then over the batch axes each
-    float32 gradient block all-reduced (after its int8 scale's MAX with
-    ``int8_ef``), then the metrics; the sums of squares all-reduced once
-    a set of moment axes; each updated block gathered over the axes
+    global batch ``B`` of ``seq`` tokens.  On a model axis of more than
+    one rank the step splits the arithmetic of every family
+    (:func:`_split_calls`), and the only leaves gathered over "model" are
+    a Mamba layer's: ``w_zxbcdt`` and ``conv_w`` where its SSM heads are
+    cut (a rank computes on head-aligned columns, not on its spec block),
+    every cut one where they are not (the layer runs whole); each is
+    gathered before the forward, in leaf order.  Then over the batch axes
+    each float32 gradient block all-reduced (after its int8 scale's MAX
+    with ``int8_ef``), then the metrics; the sums of squares all-reduced
+    once a set of moment axes; each updated block gathered over the axes
     ZeRO-1 adds."""
     mesh = rules.mesh
     cfg = rules.cfg
     specs = step_mod.state_specs(cfg, rules, tcfg, params_struct)
     flat = tree.leaves(params_struct)
+    paths = [p for p, _ in tree.flatten_with_path(params_struct)]
     pspecs = tree.leaves(specs["params"])
     mspecs = tree.leaves(specs["opt"].m)
 
@@ -878,24 +882,24 @@ def planned_collectives(rules, tcfg, params_struct, *, seq=S,
                                                    mesh))) * itemsize
 
     batch = axes(rules.batch)
-    dense = all(cfg.layer_kind(i) == "attn" and not cfg.layer_is_moe(i)
-                for i in range(cfg.n_layers))
     calls = []
-    if mesh.axis_sizes.get("model", 1) > 1 and dense:
-        calls += _split_calls(rules, tcfg, params_struct,
-                              B // size(batch), seq, microbatches)
-    else:
-        for p, ps in zip(flat, pspecs):
+    if mesh.axis_sizes.get("model", 1) > 1:
+        for path, p, ps in zip(paths, flat, pspecs):
             ax = axes(collectives.spec_axes(ps))
-            if ax:
+            if ax and _mamba_whole(cfg, rules, path):
                 calls.append(["all-gather", nbytes(p, ps, p.element_size()),
                               size(ax)])
+        calls += _split_calls(rules, tcfg, params_struct,
+                              B // size(batch), seq, microbatches)
     if batch:
         for p, ps in zip(flat, pspecs):
             if tcfg.grad_compression == "int8_ef":
                 calls.append(["all-reduce", 4, size(batch)])
             calls.append(["all-reduce", nbytes(p, ps, 4), size(batch)])
-        calls.append(["all-reduce", 4 * STEP_METRICS, size(batch)])
+        calls.append(["all-reduce", 4 * STEP_METRICS
+                      + 8 * any(cfg.layer_is_moe(i)
+                                for i in range(cfg.n_layers)),
+                      size(batch)])
     keys = [axes(collectives.spec_axes(ms)) for ms in mspecs]
     for key in dict.fromkeys(k for k in keys if k):
         calls.append(["all-reduce", 4 * keys.count(key), size(key)])
@@ -908,47 +912,103 @@ def planned_collectives(rules, tcfg, params_struct, *, seq=S,
     return calls
 
 
+def _ssm_heads_cut(cfg, m) -> bool:
+    return cfg.ssm is not None and cfg.ssm.n_heads(cfg.d_model) % m == 0
+
+
+def _mamba_whole(cfg, rules, path) -> bool:
+    """Does the split step hand the Mamba leaf at ``path`` to the layer
+    whole: one of the three whose head-aligned columns a rank computes
+    on, where the SSM heads are cut, or any, where they are not?"""
+    parts = path.split("/")
+    if len(parts) < 2 or parts[-2] != "ssm":
+        return False
+    if not _ssm_heads_cut(cfg, rules.mesh.axis_sizes["model"]):
+        return True
+    return parts[-1] in ("w_zxbcdt", "conv_w", "conv_b")
+
+
+def _layer_sums(rules, i, act, rows, seq):
+    """Layer ``i``'s all-reduces over the model group: (forward, in
+    order; backward, in order; whether the layer's last operation is a
+    forward sum).  Mixer then FFN forward, FFN then mixer backward.  An
+    attention layer with its heads cut: the sum after ``wo``, its *f*
+    backward.  A Mamba layer with its SSM heads cut: the float32 (B,S,1)
+    sum of squares, then the output's sum; backward the sum of squares'
+    gradient (summed both ways), then the input's *f*.  An MLP with its
+    columns cut: the sum after ``w_out``, its *f*.  A MoE with its
+    experts cut: the sum of the partials; backward the dispatched rows'
+    *f*, then the float32 (g, n, k) gates' *f*.  A part that is not cut
+    runs whole: no sum."""
+    cfg, m = rules.cfg, rules.mesh.axis_sizes["model"]
+    heads = ((rules.attn_mode == "head" or rules.q_heads_tp)
+             and cfg.n_heads % m == 0)
+    sumsq = rows * seq * 4
+    if cfg.layer_kind(i) == "attn":
+        mix_f, mix_b = ([act], [act]) if heads else ([], [])
+    else:
+        mix_f, mix_b = (([sumsq, act], [sumsq, act])
+                        if _ssm_heads_cut(cfg, m) else ([], []))
+    if not blocks.layer_has_ffn(cfg, i):
+        return mix_f, mix_b, bool(mix_f)
+    if cfg.layer_is_moe(i):
+        cut = cfg.moe.n_experts % m == 0
+        gates = rows * seq * cfg.moe.top_k * 4
+        ffn_f, ffn_b = ([act], [act, gates]) if cut else ([], [])
+    else:
+        ffn_f, ffn_b = ([act], [act]) if cfg.d_ff % m == 0 else ([], [])
+    return mix_f + ffn_f, ffn_b + mix_b, bool(ffn_f)
+
+
 def _split_calls(rules, tcfg, params_struct, rows, seq, mb):
     """The model group's all-reduces of a tensor-parallel step (Megatron)
     over ``rows`` rows in ``mb`` microbatches.  Per microbatch, forward:
-    the vocabulary-parallel embedding's sum, each layer's sums after its
-    row-parallel ``wo`` and ``w_out``, each cross-entropy chunk's MAX of
-    the rows' maxima and SUM of their rescaled sums and label logits.
-    Backward: the sum of the hidden's gradient entering the CE (*f*); the
-    *f* sums of each tail layer's MLP and attention inputs, last layer
-    first; then, last period first, the period's recompute and its *f*
-    sums.  ``lm.forward`` checkpoints a whole period, so its recompute
-    repeats the period's forward sums in forward order up to its last
-    saved tensor, the last layer's ``w_out`` product (its MLP sum is not
-    repeated), before the period's layers' *f* sums, last layer first.
-    After the last microbatch, one flat SUM of the leaves whole on every
-    rank that a rank reads for its heads only (biases, qk-norms;
-    ``wk``/``wv`` in "seq" mode)."""
+    the vocabulary-parallel embedding's sum, each layer's forward sums
+    (:func:`_layer_sums`), each cross-entropy chunk's MAX of the rows'
+    maxima and SUM of their rescaled sums and label logits.  Backward:
+    the sum of the hidden's gradient entering the CE (*f*); each tail
+    layer's backward sums, last layer first; then, last period first, the
+    period's recompute and its layers' backward sums, last layer first.
+    ``lm.forward`` checkpoints a whole period, so its recompute repeats
+    the period's forward sums in forward order up to its last saved
+    tensor: a sum that is the period's last operation (an MLP's or MoE's,
+    or a Mamba layer's output with no FFN after it) is not repeated.
+    After the last microbatch, one SUM a leaf of the whole-shaped float32
+    gradients of the Mamba leaves a rank computes on by head-aligned
+    columns (where the SSM heads are cut), in leaf order; then one flat
+    SUM of the leaves whole on every rank that a rank reads for its heads
+    only (biases, qk-norms; ``wk``/``wv`` in "seq" mode)."""
     cfg, m = rules.cfg, rules.mesh.axis_sizes["model"]
     item = params_struct["embed"].element_size()   # the activations'
-    act = rows // mb * seq * cfg.d_model * item
+    r = rows // mb
+    act = r * seq * cfg.d_model * item
     heads = ((rules.attn_mode == "head" or rules.q_heads_tp)
              and cfg.n_heads % m == 0)
-    ffn = cfg.d_ff % m == 0
     vocab = cfg.padded_vocab % m == 0
     plan = blocks.make_plan(cfg)
-    sums = [act for cut in (heads, ffn) if cut]     # a layer's, forward
-    fs = [act for cut in (ffn, heads) if cut]       # a layer's, backward
+    layer = [_layer_sums(rules, i, act, r, seq) for i in range(cfg.n_layers)]
     chunk = min(tcfg.loss_chunk, seq)
     chunks = [chunk] * (seq // chunk) + ([seq % chunk] if seq % chunk else [])
     one = [act] if vocab else []
-    one += sums * cfg.n_layers
+    for f, _, _ in layer:
+        one += f
     if vocab:
         for c in chunks:
-            one += [rows // mb * c * 4, 2 * rows // mb * c * 4]
+            one += [r * c * 4, 2 * r * c * 4]
         one.append(act)
-    one += fs * plan.n_tail
+    for j in reversed(range(plan.n_tail)):
+        one += layer[plan.tail_layer_idx(j)][1]
     for _ in range(plan.n_full):
         if tcfg.remat == "layer":
-            redo = sums * plan.period
-            one += redo[:-1] if ffn else redo
-        one += fs * plan.period
+            redo = [n for p in range(plan.period) for n in layer[p][0]]
+            one += redo[:-1] if layer[plan.period - 1][2] else redo
+        for p in reversed(range(plan.period)):
+            one += layer[p][1]
     calls = [["all-reduce", n, m] for n in one] * mb
+    if _ssm_heads_cut(cfg, m):
+        calls += [["all-reduce", 4 * leaf.numel(), m] for path, leaf in
+                  tree.flatten_with_path(params_struct)
+                  if _mamba_whole(cfg, rules, path)]
     names = ((("bq", "bk", "bv") if cfg.qkv_bias else ())
              + (("q_norm", "k_norm") if cfg.qk_norm else ())
              + (("wk", "wv") if rules.attn_mode == "seq" else ()))

@@ -645,10 +645,13 @@ def test_the_ranks_expert_segments_add_up_to_the_whole_layers(arch):
                                        ("jamba-v0.1-52b", "moe"),
                                        ("jamba-v0.1-52b", "ssm")])
 def test_train_mode_with_a_split_raises_naming_the_next_item(arch, kind):
-    """A MoE or Mamba layer in train mode on a model axis of 2 raises
-    ``NotImplementedError`` naming ROADMAP queue 1, item 5b (no gradient
-    that would be silently wrong); so does capacity-mode ``moe_apply``
-    with its experts cut.  Prefill on the same rank view runs."""
+    """A MoE or Mamba layer in train mode on a model axis of 2 runs (the
+    split in training; no layer refuses any more): ``layer_apply`` in
+    train mode on a rank view gives finite values, capacity-mode
+    ``moe_apply`` on each rank's experts sums to the whole layer's output
+    within 1e-5 with the same drops, and the Mamba layer's ranks (their
+    sums of squares added before ``mamba_out``) sum to the whole train
+    output within 1e-5.  Prefill on the same rank view runs."""
     cfg = get_config(arch).reduced()
     params = lm.init_params(cfg, torch.Generator().manual_seed(0))
     rules = sharding.make_rules(cfg, Mesh(("data", "model"), (1, 2)),
@@ -658,19 +661,41 @@ def test_train_mode_with_a_split_raises_naming_the_next_item(arch, kind):
                  else cfg.layer_kind(i) == "ssm"))
     period = blocks.make_plan(cfg).period
     path = f"scan/p{i % period}"
-    lp = tree.unflatten_like(
-        _layer(params, path),
-        [eng.rank_block(cfg, rules, f"{path}/{p}", t,
-                        {"data": 0, "model": 0})[0]
-         for p, t in tree.flatten_with_path(_layer(params, path))])
-    x = torch.randn(B, PROMPT, cfg.d_model)
+
+    def rank_leaves(r):
+        return tree.unflatten_like(
+            _layer(params, path),
+            [eng.rank_block(cfg, rules, f"{path}/{p}", t,
+                            {"data": 0, "model": r})[0]
+             for p, t in tree.flatten_with_path(_layer(params, path))])
+
+    node = _layer(params, path)
+    whole = tree.unflatten_like(node, [t[0] for t in tree.leaves(node)])
+    lp = rank_leaves(0)
+    x = torch.randn(B, PROMPT, cfg.d_model,
+                    generator=torch.Generator().manual_seed(2))
     view = collectives.rank_view(rules, 0)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        blocks.layer_apply(lp, x, cfg=cfg, layer_idx=i % period,
-                           mode="train", tp=view)
+    y, _, _ = blocks.layer_apply(lp, x, cfg=cfg, layer_idx=i % period,
+                                 mode="train", tp=view)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    views = [collectives.rank_view(rules, r) for r in range(2)]
+    locs = [rank_leaves(r) for r in range(2)]
     if kind == "moe":
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            moe.moe_apply(lp["moe"], x, cfg, dropless=False, tp=view)
+        want, waux = moe.moe_apply(whole["moe"], x, cfg, dropless=False)
+        parts = [moe.moe_apply(locs[r]["moe"], x, cfg, dropless=False,
+                               tp=views[r]) for r in range(2)]
+        for _, aux in parts:
+            assert float(aux["moe_drop_frac"]) == \
+                float(waux["moe_drop_frac"])
+        got = parts[0][0] + parts[1][0]
+    else:
+        want, _ = mamba.mamba_layer(whole["ssm"], x, cfg=cfg, mode="train")
+        mixed = [mamba.mamba_mix(locs[r]["ssm"], x, cfg=cfg, mode="train",
+                                 tp=views[r]) for r in range(2)]
+        sumsq = mixed[0][1] + mixed[1][1]
+        got = sum(mamba.mamba_out(locs[r]["ssm"], mixed[r][0], sumsq, cfg)
+                  for r in range(2))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     y, _, _ = blocks.layer_apply(lp, x, cfg=cfg, layer_idx=i % period,
                                  mode="prefill", max_len=PROMPT, tp=view)
     assert y.shape == x.shape and bool(torch.isfinite(y).all())

@@ -43,8 +43,6 @@ B, S = 4, 32
 TCFG = dict(total_steps=5, warmup_steps=1, loss_chunk=16)
 CASES = (("qwen2-1.5b", (1, 2)), ("glm4-9b", (1, 2)),
          ("qwen2-1.5b", (1, 4)), ("gemma3-1b", (2, 2)))
-# the MoE and Mamba families keep the whole-leaf step on a model axis of 2
-STORAGE = ("olmoe-1b-7b", "mamba2-370m")
 
 
 REF = """
@@ -186,10 +184,6 @@ for arch in ("qwen2-1.5b", "glm4-9b"):
     RES[arch, (1, 2)]["leaves"] = seen[0]
     if RANK == 0:
         RES[arch, (1, 1)] = run(arch, (1, 1))
-for arch in STORAGE:
-    RES[arch, (1, 2)] = run(arch, (1, 2), counted=True)
-    if RANK == 0:
-        RES[arch, (1, 1)] = run(arch, (1, 1))
 
 # serving on (1, 2): the engine's tokens against the unbound engine's
 from repro_torch.models import lm
@@ -243,8 +237,7 @@ with open(os.path.join(OUT, f"rank{RANK}.json"), "w") as f:
 
 
 def _launch(tmp, world, body, ref_npz):
-    prelude = (f"REF = {ref_npz!r}\nB, S = {B}, {S}\nTCFG = {TCFG!r}\n"
-               f"STORAGE = {STORAGE!r}\n")
+    prelude = f"REF = {ref_npz!r}\nB, S = {B}, {S}\nTCFG = {TCFG!r}\n"
     d = spawn(tmp, world, prelude + PORT + textwrap.dedent(body))
     recs = []
     for r in range(world):
@@ -353,30 +346,6 @@ def test_the_counted_collectives_follow_the_remat_periods(four):
         assert got == planned_collectives(rules, tcfg, struct), r
 
 
-@pytest.mark.parametrize("arch", STORAGE)
-def test_moe_and_mamba_keep_the_whole_leaf_step(two, arch):
-    """A configuration with a MoE or Mamba layer on (1,2) keeps the step
-    that gathers each cut parameter whole over "model" (its plan's
-    all-gathers), and matches the one-device step as before."""
-    d, recs = two
-    got = _get(recs[0], arch, (1, 2))
-    assert got["split"] == "storage"
-    cfg = get_config(arch).reduced()
-    tcfg = TrainConfig(**TCFG)
-    struct = step_mod.state_struct(cfg, tcfg)["params"]
-    rules = sharding.make_rules(cfg, Mesh(("data", "model"), (1, 2), rank=0),
-                                global_batch=B)
-    gathers = [c for c in got["counted"] if c[0] == "all-gather"]
-    assert gathers and gathers == [
-        c for c in planned_collectives(rules, tcfg, struct)
-        if c[0] == "all-gather"]
-    base = _get(recs[0], arch, (1, 1))["metrics"]
-    assert abs(got["metrics"]["loss"] - base["loss"]) < 3e-4
-    state, one = _state(d, arch, (1, 2)), _state(d, arch, (1, 1))
-    _hold_gradient(arch, got["metrics"]["grad_norm"], _moments(state),
-                   base["grad_norm"], _moments(one), "none")
-
-
 def test_the_differentiable_collectives_give_autograds_gradients(two):
     """``tp_copy`` (f) and ``tp_sum`` (g) around a column/row split and
     ``tp_all_gather``'s backward on 2 ranks: every rank's outputs and
@@ -474,17 +443,14 @@ def test_the_rank_terms_of_the_cross_entropy_combine_to_chunked_ce():
 
 
 def test_model_split_names_each_configuration():
-    """``model_split``: every dense family splits its arithmetic on a
-    model axis of 2, the MoE, Mamba and hybrid ones store blocks only,
-    and a model axis of 1 splits nothing."""
-    want = {"gemma3-4b": "arithmetic", "qwen2-1.5b": "arithmetic",
-            "gemma3-1b": "arithmetic", "glm4-9b": "arithmetic",
-            "musicgen-large": "arithmetic", "internvl2-26b": "arithmetic",
-            "phi3.5-moe-42b-a6.6b": "storage", "olmoe-1b-7b": "storage",
-            "mamba2-370m": "storage", "jamba-v0.1-52b": "storage"}
-    for arch, kind in want.items():
+    """``model_split``: every family (dense, MoE, Mamba and hybrid) splits
+    its arithmetic on a model axis of 2, and a model axis of 1 splits
+    nothing."""
+    for arch in ("gemma3-4b", "qwen2-1.5b", "gemma3-1b", "glm4-9b",
+                 "musicgen-large", "internvl2-26b", "phi3.5-moe-42b-a6.6b",
+                 "olmoe-1b-7b", "mamba2-370m", "jamba-v0.1-52b"):
         cfg = get_config(arch)
-        for shape, k in (((1, 2), kind), ((2, 1), "none")):
+        for shape, k in (((1, 2), "arithmetic"), ((2, 1), "none")):
             rules = sharding.make_rules(cfg, Mesh(("data", "model"), shape),
                                         global_batch=8)
             assert step_mod.model_split(cfg, rules) == k, (arch, shape)
