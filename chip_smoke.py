@@ -41,8 +41,11 @@ blocks of their attention; mamba2-370m's and a cut olmoe-1b-7b's first
 train steps on the card), and serving through the
 mesh path (``launch.serve`` on a one-rank NCCL group against the same
 argv with no group; each tensor-parallel rank's head block through the
-flash kernel; GPipe over one decoder layer) — checks the results, and
-times every kernel beside its bound.  One JSON object per
+flash kernel; GPipe over one decoder layer), and the dry-run
+(``repro_torch.launch.dryrun``: every architecture's production train
+cell as one rank's call on ``meta`` tensors, and its predicted counts and
+peak memory held against the same calls on the card) — checks the
+results, and times every kernel beside its bound.  One JSON object per
 phase goes to standard output; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase makes the exit code non-zero and withholds that line.
@@ -5589,6 +5592,407 @@ def phase_serve_mesh(smi: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the dry-run: every architecture's production cell as one rank's call on
+# ``meta`` tensors (repro_torch.launch.dryrun), and its predictions held
+# against the card
+# ---------------------------------------------------------------------------
+
+# (a): every architecture's train_4k on the 16x16 mesh, rank 0, each cell
+# in a process of its own (one ``fake`` group a process), this many at once
+DRY_SHAPE, DRY_MESH, DRY_PARALLEL = "train_4k", "pod", 4
+DRY_CELL_LIMIT = 600           # seconds for one cell's process
+# (b), (c): the card's peak within this share of the predicted one
+DRY_PEAK_REL = 0.10
+# (c): and less cuBLAS's workspaces (the child makes them at its first
+# GEMMs; (b)'s process holds them before its start) within this share:
+# what is left is the allocator's rounding and the temporaries inside an
+# operation, which a dispatch mode does not see
+DRY_PEAK_LESS_WS_REL = 0.02
+# (c): the production cell whose rank share runs on the card, and the one
+# taken instead where (a) predicts more than this share of the card
+DRY_CARD_CELL = ("qwen2-1.5b", "train_4k")
+DRY_CARD_ALT = ("qwen2-1.5b", "prefill_32k")
+DRY_CARD_SHARE = 0.90
+# the counts a dry-run predicts and the card must count alike
+DRY_COUNTS = ("hlo_flops", "hlo_bytes", "movement_bytes", "kernels",
+              "collective_ops")
+# (c): one rank's call on the card, in a process of its own: the cell as
+# the dry-run builds it (rank 0 on the production mesh, the ``fake``
+# group), its blocks seeded from a torch.Generator on the card; the
+# record, the card's peak above the process's start, the launches and one
+# more step's device ms on the last line
+DRY_CHILD = r'''
+import json, sys
+import torch
+from repro_torch import tree
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.kernels import counts
+from repro_torch.launch import dryrun
+from repro_torch.parallel import collectives
+arch, shape_name = sys.argv[1], sys.argv[2]
+cfg, shape = get_config(arch), SHAPES[shape_name]
+dev = torch.device("cuda")
+fn, args, meta = dryrun.lower_cell(arch, shape_name)
+gen = torch.Generator(dev).manual_seed(0)
+def seeded(t):
+    if not isinstance(t, torch.Tensor):
+        return t
+    if t.is_floating_point():
+        return torch.empty(t.shape, dtype=t.dtype, device=dev).normal_(
+            0.0, 0.02, generator=gen)
+    if t.dim() == 0:
+        return torch.zeros((), dtype=t.dtype, device=dev)
+    return torch.randint(0, cfg.vocab_size, t.shape, dtype=t.dtype,
+                         device=dev, generator=gen)
+def zeroed(t):
+    return torch.zeros(t.shape, dtype=t.dtype, device=dev)
+def on_card(a):
+    # a train state as init_state makes it: seeded parameters, the
+    # moments, the step and an error state zero
+    if isinstance(a, dict) and "opt" in a:
+        return {k: tree.tree_map(seeded if k == "params" else zeroed, v)
+                for k, v in a.items()}
+    return tree.tree_map(seeded, a) if isinstance(a, dict) else seeded(a)
+torch.cuda.synchronize()
+base = torch.cuda.memory_allocated()
+card = tuple(on_card(a) for a in args)
+del args
+torch.cuda.synchronize()
+arg_bytes = torch.cuda.memory_allocated() - base
+torch.cuda.reset_peak_memory_stats()
+counts.reset()
+rec = dryrun.analyze_cell(fn, card, meta, cfg, shape)
+torch.cuda.synchronize()
+peak = torch.cuda.max_memory_allocated() - base
+launched, plain = counts.snapshot()
+instances = dict(counts.INSTANCES)
+start = torch.cuda.Event(enable_timing=True)
+stop = torch.cuda.Event(enable_timing=True)
+start.record()
+fn(*card)
+stop.record()
+stop.synchronize()
+# what the steps left allocated beyond the arguments, and the part of it
+# that is cuBLAS's workspaces (one a thread and stream, made at its first
+# GEMM, which a process that has run a GEMM before holds already)
+resident = torch.cuda.memory_allocated() - base - arg_bytes
+torch._C._cuda_clearCublasWorkspaces()
+workspaces = resident - (torch.cuda.memory_allocated() - base - arg_bytes)
+collectives.teardown()
+print("DRY_CARD " + json.dumps({
+    "record": rec, "peak": peak, "launches": launched, "plain": plain,
+    "instances": instances, "step_ms": start.elapsed_time(stop),
+    "arg_bytes": arg_bytes, "resident": resident,
+    "cublas_workspaces": workspaces}))
+'''
+
+
+def dry_cells(cells, out: str) -> dict:
+    """Runs ``python -m repro_torch.launch.dryrun`` for each (arch, shape,
+    mesh) of ``cells``, ``DRY_PARALLEL`` at once, with the package on
+    their path and no card visible (the dry-run needs none); ->
+    {(arch, shape): (its record or None, its seconds, its log's last
+    lines)}."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    pending, running, done = list(cells), {}, {}
+    while pending or running:
+        while pending and len(running) < DRY_PARALLEL:
+            arch, shape, mesh = pending.pop(0)
+            log = tempfile.TemporaryFile(mode="w+")
+            p = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh,
+                 "--out", out], env=env, cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT)
+            running[(arch, shape)] = (p, log, mesh, time.perf_counter())
+        time.sleep(0.2)
+        for key, (p, log, mesh, t0) in list(running.items()):
+            if p.poll() is None and time.perf_counter() - t0 < DRY_CELL_LIMIT:
+                continue
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.seek(0)
+            tail = log.read().splitlines()[-4:]
+            log.close()
+            path = os.path.join(out, f"{key[0]}_{key[1]}_{mesh}.json")
+            rec = (json.load(open(path)) if p.returncode == 0
+                   and os.path.exists(path) else None)
+            done[key] = (rec, time.perf_counter() - t0, tail)
+            del running[key]
+    return done
+
+
+def dry_versus_card(kind: str) -> dict:
+    """(b): qwen2-1.5b at full size, no mesh, the dry-run's call on
+    ``meta`` and then on the card (random weights from a seed): ``train``
+    one step of 4 x 4096 in 2 microbatches with remat; ``prefill`` the
+    serve prefill of 4 x 2048.  The counts equal, the predicted peak
+    within ``DRY_PEAK_REL`` of the card's ``max_memory_allocated`` above
+    the arguments' start, #12 and #12b launched on ``wgmma_bf16`` only."""
+    from repro_torch.launch import dryrun
+    cfg = get_config("qwen2-1.5b")
+    if kind == "train":
+        shape = TRAIN_SHAPE
+        tcfg = TrainConfig(microbatches=TRAIN_MB,
+                           loss_chunk=min(1024, TRAIN_SEQ), remat="layer")
+        rules = make_rules(cfg, make_host_mesh(1, 1),
+                           global_batch=TRAIN_BATCH)
+        fn = step_mod.make_train_step(cfg, rules, tcfg,
+                                      microbatches=TRAIN_MB)
+        rows = (TRAIN_BATCH, TRAIN_SEQ)
+
+        def arguments(dev, gen):
+            state = (step_mod.state_struct(cfg, tcfg) if gen is None else
+                     step_mod.init_state(cfg, tcfg, gen))
+            return (state, *(torch.randint(0, cfg.vocab_size, rows,
+                                           dtype=torch.int32, device=dev)
+                             for _ in range(2)), None)
+        want = {"flash_attention": 2 * cfg.n_layers * TRAIN_MB,
+                "flash_attention_bwd": cfg.n_layers * TRAIN_MB}
+    else:
+        shape = SERVE_PREFILL_SHAPE
+        rules = make_rules(cfg, make_host_mesh(1, 1),
+                           global_batch=SERVE_BATCH, shape_kind="prefill")
+        fn = make_prefill_step(cfg, rules, max_len=SERVE_PROMPT)
+        rows = (SERVE_BATCH, SERVE_PROMPT)
+
+        def arguments(dev, gen):
+            params = (lm.param_struct(cfg) if gen is None else
+                      lm.init_params(cfg, gen))
+            return (params, torch.randint(0, cfg.vocab_size, rows,
+                                          dtype=torch.int32, device=dev),
+                    None)
+        want = {"flash_attention": cfg.n_layers, "flash_attention_bwd": 0}
+    info = {"arch": cfg.name, "shape": shape.name, "mesh": "1 x H100",
+            "n_devices": 1}
+    # the dry-run: no launch, no plain call, the kernels modelled
+    before = counts.snapshot()
+    modelled = dict(counts.MODELLED)
+    t0 = time.perf_counter()
+    meta_args = arguments(torch.device("meta"), None)
+    predicted = dryrun.analyze_cell(fn, meta_args, info, cfg, shape)
+    meta_s = time.perf_counter() - t0
+    after_meta = counts.snapshot()
+    del meta_args
+    modelled = {k: counts.MODELLED[k] - modelled[k] for k in modelled
+                if counts.MODELLED[k] > modelled[k]}
+    # the card: the same call, its peak above the arguments' start
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    base = torch.cuda.memory_allocated()
+    args = arguments(DEV, torch.Generator(DEV).manual_seed(0))
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    t0 = time.perf_counter()
+    measured = dryrun.analyze_cell(fn, args, info, cfg, shape)
+    sync()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launched, plain = counts.snapshot()
+    instances = {k: v for k, v in counts.INSTANCES.items() if v}
+    del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    pred = predicted["bytes_per_device"]
+    checks = {f"{k}_equal": predicted[k] == measured[k] for k in DRY_COUNTS}
+    checks.update(
+        meta_launched_nothing=before == after_meta,
+        modelled_both=(set(modelled) == {f"{k}:wgmma_bf16" for k, n in
+                                         want.items() if n}),
+        peak_within=abs(pred - peak) <= DRY_PEAK_REL * peak,
+        tracker_equal=(measured["bytes_per_device"] == pred),
+        launches=all(launched[k] == n for k, n in want.items()),
+        wgmma_only=all(instances.get(f"{k}:wgmma_bf16", 0) == n
+                       for k, n in want.items()),
+        no_plain=not any(plain.values()))
+    return {"kind": kind, "shape": dataclasses.asdict(shape),
+            "predicted_peak_bytes": pred, "card_peak_bytes": peak,
+            "card_tracker_bytes": measured["bytes_per_device"],
+            "peak_gap": (pred - peak) / peak,
+            "memory_analysis": predicted["memory_analysis"],
+            "counts": {k: predicted[k] for k in DRY_COUNTS},
+            "card_counts": {k: measured[k] for k in DRY_COUNTS},
+            "t_compute_ms": predicted["t_compute"] * 1e3,
+            "t_memory_ms": predicted["t_memory"] * 1e3,
+            "modelled": modelled, "launches": launched,
+            "instances": instances, "meta_s": meta_s, "card_s": card_s,
+            "checks": checks}
+
+
+def dry_card_cell(arch: str, shape: str) -> dict:
+    """(c): the child's result for ``arch``/``shape`` (``DRY_CHILD``)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", DRY_CHILD, arch, shape], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, timeout=DRY_CELL_LIMIT)
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("DRY_CARD ")), None)
+    if proc.returncode != 0 or line is None:
+        raise RuntimeError(f"dryrun (c): the child exited {proc.returncode}"
+                           f": {proc.stderr[-2000:]}")
+    return json.loads(line[len("DRY_CARD "):])
+
+
+def phase_dryrun(smi: str) -> dict:
+    """(a) every architecture's ``train_4k`` on the 16x16 mesh as rank 0's
+    call on ``meta`` (``python -m repro_torch.launch.dryrun``, no card);
+    (b) the dry-run of qwen2-1.5b's train step and prefill at full size
+    against the same calls on the card; (c) a production cell's rank share
+    on the card under the ``fake`` group against (a)'s record.  Returns
+    the launches of #12 and #12b on the card ((b) and (c)); the calls
+    modelled on ``meta`` are no launches."""
+    from repro_torch.configs import ALL_ARCHS
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    checks = {}
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    try:
+        # (a)
+        t0 = time.perf_counter()
+        done = dry_cells([(a, DRY_SHAPE, DRY_MESH) for a in ALL_ARCHS], out)
+        a_seconds = time.perf_counter() - t0
+        keys = dryrun.RECORD_KEYS + dryrun.TRAIN_KEYS
+        cells = []
+        for arch in ALL_ARCHS:
+            rec, secs, tail = done[(arch, DRY_SHAPE)]
+            cfg = get_config(arch)
+            attn = any(cfg.layer_kind(i) == "attn"
+                       for i in range(cfg.n_layers))
+            row = {"arch": arch, "seconds": secs, "log": tail}
+            ok = rec is not None
+            if ok:
+                flash = {"flash_attention", "flash_attention_bwd"}
+                ok = (all(k in rec for k in keys)
+                      and all(rec[k] > 0 for k in (
+                          "hlo_flops", "hlo_bytes", "bytes_per_device",
+                          "collective_bytes"))
+                      and rec["bottleneck"] in ("compute", "memory",
+                                                "collective")
+                      and (flash <= set(rec["kernels"]) if attn
+                           else not rec["kernels"]))
+                row.update(
+                    mesh=rec["mesh"], gb=rec["bytes_per_device"] / 1e9,
+                    card_gb=total / 1e9,
+                    share_of_card=rec["bytes_per_device"] / total,
+                    hlo_flops=rec["hlo_flops"], hlo_bytes=rec["hlo_bytes"],
+                    collective_bytes=rec["collective_bytes"],
+                    t_compute_ms=rec["t_compute"] * 1e3,
+                    t_memory_ms=rec["t_memory"] * 1e3,
+                    t_collective_ms=rec["t_collective"] * 1e3,
+                    bottleneck=rec["bottleneck"],
+                    kernels={k: v[0] for k, v in rec["kernels"].items()})
+            row["ok"] = ok
+            checks[f"a_{arch}"] = ok
+            cells.append(row)
+            print(f"dryrun (a) {arch} {DRY_SHAPE} {DRY_MESH}: "
+                  f"{secs:.1f} s, " + (f"{row['gb']:.2f} GB a device of "
+                                       f"{total / 1e9:.2f}" if rec else
+                                       "no record") + f"  [{smi}]",
+                  flush=True)
+        # (b)
+        t0 = time.perf_counter()
+        versus = {kind: dry_versus_card(kind) for kind in ("train",
+                                                           "prefill")}
+        b_seconds = time.perf_counter() - t0
+        for kind, v in versus.items():
+            for k, ok in v["checks"].items():
+                checks[f"b_{kind}_{k}"] = ok
+            print(f"dryrun (b) {kind}: predicted "
+                  f"{v['predicted_peak_bytes'] / 1e9:.3f} GB, card "
+                  f"{v['card_peak_bytes'] / 1e9:.3f} GB, gap "
+                  f"{100 * v['peak_gap']:+.2f} %  [{smi}]", flush=True)
+        # the backward's scratch as the library sizes it
+        scratch = _build.bind("flash_attention_bwd_tc",
+                              "repro_flash_attention_bwd_tc_scratch",
+                              (ctypes.c_int,) * 3, ctypes.c_longlong)
+        checks["b_scratch_as_the_library"] = all(
+            scratch(b, h, s) == flash_attention.bwd_scratch_floats(
+                "wgmma_bf16", b, h, s)
+            for b, h, s in ((1, 1, 1), (2, 12, 4096), (3, 5, 129),
+                            (1, 8, 32768)))
+        # (c)
+        t0 = time.perf_counter()
+        arch, shape = DRY_CARD_CELL
+        rec_a = done[(arch, shape)][0]
+        swapped = (rec_a is not None
+                   and rec_a["bytes_per_device"] > DRY_CARD_SHARE * total)
+        if swapped:
+            arch, shape = DRY_CARD_ALT
+            rec_a = dry_cells([(arch, shape, DRY_MESH)], out)[(arch,
+                                                              shape)][0]
+        card = dry_card_cell(arch, shape)
+        c_seconds = time.perf_counter() - t0
+        rec_c = card["record"]
+        want_c = {k: rec_a[k] for k in DRY_COUNTS} if rec_a else {}
+        for k in DRY_COUNTS:
+            checks[f"c_{k}_equal"] = rec_a is not None and \
+                rec_c[k] == want_c[k]
+        pred = rec_a["bytes_per_device"] if rec_a else 0
+        checks["c_peak_within"] = abs(pred - card["peak"]) <= \
+            DRY_PEAK_REL * card["peak"]
+        less_ws = card["peak"] - card["cublas_workspaces"]
+        checks["c_peak_less_workspaces_within"] = abs(pred - less_ws) <= \
+            DRY_PEAK_LESS_WS_REL * card["peak"]
+        flash_c = {k: card["launches"][k] for k in ("flash_attention",
+                                                    "flash_attention_bwd")}
+        checks["c_launched"] = all(flash_c[k] > 0 for k in flash_c
+                                   if shape.startswith("train")
+                                   or k == "flash_attention")
+        checks["c_wgmma_only"] = all(
+            card["instances"].get(f"{k}:wgmma_bf16", 0) == n
+            for k, n in flash_c.items())
+        checks["c_no_plain"] = not any(card["plain"].values())
+        gaps = [100 * (pred - x) / card["peak"] for x in (card["peak"],
+                                                           less_ws)]
+        print(f"dryrun (c) {arch} {shape} rank 0 of {rec_c['mesh']}: "
+              f"predicted {pred / 1e9:.3f} GB, card "
+              f"{card['peak'] / 1e9:.3f} GB ({gaps[0]:+.2f} %), less "
+              f"cuBLAS's workspaces {less_ws / 1e9:.3f} GB "
+              f"({gaps[1]:+.2f} %); one step "
+              f"{card['step_ms']:.1f} ms on the card, t_compute "
+              f"{rec_c['t_compute'] * 1e3:.1f} ms, t_memory "
+              f"{rec_c['t_memory'] * 1e3:.1f} ms  [{smi}]", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    launches = {k: sum(v["launches"][k] for v in versus.values())
+                + flash_c[k] for k in ("flash_attention",
+                                       "flash_attention_bwd")}
+    emit({"phase": "dryrun", "card": smi, "card_bytes": total,
+          "a": {"shape": DRY_SHAPE, "mesh": DRY_MESH, "rank": 0,
+                "device": "meta", "parallel": DRY_PARALLEL,
+                "seconds": a_seconds, "cells": cells},
+          "b": {"seconds": b_seconds, **versus},
+          "c": {"arch": arch, "shape": shape, "swapped_for_memory": swapped,
+                "values": "not checked: the fake group's collectives move "
+                          "no data",
+                "predicted_peak_bytes": pred, "card_peak_bytes":
+                card["peak"], "peak_gap": (pred - card["peak"])
+                / card["peak"], "card_arg_bytes": card["arg_bytes"],
+                "cublas_workspace_bytes": card["cublas_workspaces"],
+                "resident_after_bytes": card["resident"],
+                "peak_gap_less_workspaces": (pred - less_ws) / card["peak"],
+                "step_ms": card["step_ms"],
+                "t_compute_ms": rec_c["t_compute"] * 1e3,
+                "t_memory_ms": rec_c["t_memory"] * 1e3,
+                "t_collective_ms": rec_c["t_collective"] * 1e3,
+                "counts": {k: rec_c[k] for k in DRY_COUNTS
+                           if k != "collective_ops"},
+                "collective_by_kind": rec_c["collective_by_kind"],
+                "launches": flash_c, "seconds": c_seconds},
+          "launches": launches, "checks": checks,
+          "seconds": time.perf_counter() - t_phase})
+    for k_, ok in checks.items():
+        if not ok:
+            fail(f"dryrun: check {k_}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the roofline of every model path: the cost counter's count of the calls
 # that serve, serve_families and train time, beside their measured times
 # ---------------------------------------------------------------------------
@@ -5844,6 +6248,14 @@ def main() -> int:
     # serving on a mesh over NCCL (world 1): the phase resets and reads the
     # counts around its mesh run
     mesh_launches = phase_serve_mesh(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the dry-run: the production cells on ``meta`` (no launch), then its
+    # predictions against the card, whose launches the phase counts
+    dry_launches = phase_dryrun(smi)
+    bwd_row["launches_by_path"]["dryrun"] = \
+        dry_launches["flash_attention_bwd"]
+    bwd_row["launches"] += dry_launches["flash_attention_bwd"]
     # the roofline: (c), then every path's line (printed in its phase)
     roofline_same_count()
     emit({"phase": "roofline_done", "card": smi, "paths": ROOF["lines"],
@@ -5860,13 +6272,16 @@ def main() -> int:
                                          tp_launches["flash_attention"],
                                      "train_experts":
                                          tx_launches["flash_attention"],
-                                     "serve_mesh": mesh_launches}
+                                     "serve_mesh": mesh_launches,
+                                     "dryrun":
+                                         dry_launches["flash_attention"]}
     flash_row["launches"] += (serve["launches"] + families
                               + split_launches + train_fwd
                               + dist_launches["flash_attention"]
                               + tp_launches["flash_attention"]
                               + tx_launches["flash_attention"]
-                              + mesh_launches)
+                              + mesh_launches
+                              + dry_launches["flash_attention"])
     flash_row["serve_call"] = serve["call"]
 
     phase_checks(records, launched, plain)

@@ -9,14 +9,12 @@ innermost frame in ``repro_torch`` outside ``analysis/`` and
 ``models/mlp.py:<line> <function>`` (in the backward pass with its
 autograd node in brackets), or the name of a hand-written kernel for the
 work it reports: the line to change, which is what ``op_name`` was for.
-
-The reference's ``profile_cell`` lowers a cell through
-``launch/dryrun.lower_cell``; the port has no ``launch/dryrun.py`` yet,
-so it has no ``profile_cell``: that waits for the dry-run's port.
+:func:`profile_cell` profiles one rank's share of a production cell, as
+the dry-run builds it (``launch/dryrun.lower_cell``), on ``meta`` tensors.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 from repro_torch.analysis.cost import CostCounter, devices_of
 
@@ -56,3 +54,15 @@ def render(p: Dict, top: int = 20) -> str:
     for b, kind, name in p["collectives"][:top]:
         out.append(f"{b / 2**30:9.3f} GiB  {kind:18s} {name[:90]}")
     return "\n".join(out)
+
+
+def profile_cell(arch: str, shape: str, *, multi_pod: bool = False,
+                 top: int = 20, train_overrides: Optional[dict] = None
+                 ) -> str:
+    """Build one cell's call for rank 0 of the production mesh, as the
+    dry-run does (on ``meta`` tensors, on the process's ``fake`` group),
+    and render its profile."""
+    from repro_torch.launch.dryrun import lower_cell
+    fn, args, _ = lower_cell(arch, shape, multi_pod=multi_pod,
+                             train_overrides=train_overrides)
+    return render(profile(fn, *args, top=top), top=top)

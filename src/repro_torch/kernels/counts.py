@@ -11,6 +11,11 @@ kernels sets both to zero before (``reset``) and reads them after
 more than one design by the design that ran (``"<kernel>:<instance>"``);
 ``reset`` zeroes it too.
 
+A call on ``meta`` tensors (the dry-run, :mod:`repro_torch.launch.dryrun`)
+is the model of a launch, not one: the wrapper reports through
+:func:`modelled`, which hands its work to the active counters and adds one
+to ``MODELLED`` only, never to ``LAUNCHES``, ``PLAIN`` or ``INSTANCES``.
+
 Both take the call's counted :class:`Work`, from the kernel module's own
 function of its arguments (``flash_attention.forward_work``,
 ``stream.work``, ...).  A launch through ``ctypes`` is invisible to
@@ -38,6 +43,9 @@ INSTANCES: Dict[str, int] = {"flash_attention:wgmma_bf16": 0,
                              "flash_attention_bwd:fma_bf16": 0,
                              "flash_attention_bwd:fma_f32": 0}
 
+#: the calls modelled on ``meta`` a kernel instance (``"<kernel>:<instance>"``)
+MODELLED: Dict[str, int] = dict.fromkeys(INSTANCES, 0)
+
 #: the least the device memory moves for a load (one sector), what a
 #: chase's hop counts
 SECTOR_BYTES = 32
@@ -61,6 +69,7 @@ def reset() -> None:
         PLAIN[k] = 0
     for k in INSTANCES:
         INSTANCES[k] = 0
+        MODELLED[k] = 0
 
 
 def snapshot() -> Tuple[Dict[str, int], Dict[str, int]]:
@@ -85,6 +94,14 @@ def launched(name: str, work: Optional[Work],
     LAUNCHES[name] += 1
     if instance is not None:
         INSTANCES[f"{name}:{instance}"] += 1
+
+
+def modelled(name: str, work: Work, instance: str) -> None:
+    """Where ``name``'s kernel ``instance`` was modelled on ``meta``
+    tensors: its work to the active counters and one to ``MODELLED``; no
+    launch and no plain call."""
+    _report(name, work)
+    MODELLED[f"{name}:{instance}"] += 1
 
 
 @contextlib.contextmanager

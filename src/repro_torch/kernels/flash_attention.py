@@ -40,6 +40,16 @@ this is the gradient of the port's forward kernels' exact function.  On
 CPU tensors the same Function runs the plain forward and
 :func:`ref.flash_attention_bwd_ref`, the backward's algorithm in plain
 torch.
+
+On ``meta`` tensors (the dry-run, :mod:`repro_torch.launch.dryrun`) every
+entry point models the card's launch: the card's checks first
+(:func:`_check_args`, :func:`kernel_refusal`, which raises as it would on
+the card), then ``meta`` outputs of the card route's shapes and dtypes,
+every tensor the card route allocates allocated (the float32 log-sum-exp,
+the backward's outputs and its rows' scratch), and the card's counted work
+reported through ``counts.modelled``: never a launch, never a plain call.
+Any device but the CPU, the card (or pinned host memory) and ``meta``
+raises.
 """
 from __future__ import annotations
 
@@ -77,6 +87,18 @@ _BWD_ENTRY = {"wgmma_bf16": ("flash_attention_bwd_tc",
                            (torch.bfloat16,))}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the backward kernel's rows of scratch are padded to this (see
+# ``repro_flash_attention_bwd_tc_scratch``)
+_BWD_PAD_ROWS = 128
+
+
+# a launch's refusal of ``meta`` tensors, which only the entry points model
+META_REFUSAL = "meta tensors: a launch takes the card's"
+
+
+def modelled(t: torch.Tensor) -> bool:
+    """True for a ``meta`` tensor: the call models the card's launch."""
+    return t.device.type == "meta"
 
 
 def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -151,7 +173,7 @@ def kernel_refusal(q: torch.Tensor, k: torch.Tensor,
     if q.shape[-1] not in HEAD_DIMS:
         return f"head dim {q.shape[-1]} (the kernel takes {HEAD_DIMS})"
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _build.launches_kernel(t):
+        if not modelled(t) and not _build.launches_kernel(t):
             return f"{name} in pageable host memory"
         if not t.is_contiguous():
             return f"{name} is not contiguous"
@@ -179,7 +201,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, sm_scale,
                                       block_q, block_k)
-    if not _build.launches_kernel(q):
+    if not modelled(q) and not _build.launches_kernel(q):
         with counts.plain("flash_attention", forward_work(
                 q, k, v, causal=causal, window=window)):
             return ref.flash_attention_ref(
@@ -188,6 +210,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     refusal = kernel_refusal(q, k, v)
     if refusal is not None:
         raise ValueError(f"flash_attention: the kernel does not take {refusal}")
+    if modelled(q):
+        return _model_forward(q, k, v, causal=causal, window=window,
+                              lse=False)[0]
     return run_instance(INSTANCE[q.dtype], q, k, v, causal=causal,
                         window=window, sm_scale=sm_scale)
 
@@ -218,6 +243,8 @@ def _launch_forward(instance: str, q: torch.Tensor, k: torch.Tensor,
     refusal = kernel_refusal(q, k, v)
     if refusal is None and q.dtype not in dtypes:
         refusal = f"dtype {q.dtype} in the {instance} kernel"
+    if refusal is None and modelled(q):
+        refusal = META_REFUSAL
     if refusal is not None:
         raise ValueError(f"flash_attention: the kernel does not take {refusal}")
     b, h, sq, d = q.shape
@@ -242,6 +269,19 @@ def _launch_forward(instance: str, q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def _model_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: int, lse: bool):
+    """The card's forward launch modelled on ``meta`` tensors that
+    :func:`kernel_refusal` took: its output (and, with ``lse``, its float32
+    log-sum-exp) and its counted work.  Returns (out, lse or None)."""
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse_t = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+             if lse else None)
+    counts.modelled("flash_attention", forward_work(
+        q, k, v, causal=causal, window=window, lse=lse), INSTANCE[q.dtype])
+    return out, lse_t
+
+
 # ---------------------------------------------------------------------------
 # The gradient
 # ---------------------------------------------------------------------------
@@ -260,15 +300,20 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, sm_scale, block_q, block_k):
-        if _build.launches_kernel(q):
+        if modelled(q) or _build.launches_kernel(q):
             refusal = kernel_refusal(q, k, v)
             if refusal is not None:
                 raise ValueError(
                     f"flash_attention: the kernel does not take {refusal}")
-            lse = _build.empty_like_placed(q, tuple(q.shape[:3]),
-                                           torch.float32)
-            out = _launch_forward(INSTANCE[q.dtype], q, k, v, causal=causal,
-                                  window=window, sm_scale=sm_scale, lse=lse)
+            if modelled(q):
+                out, lse = _model_forward(q, k, v, causal=causal,
+                                          window=window, lse=True)
+            else:
+                lse = _build.empty_like_placed(q, tuple(q.shape[:3]),
+                                               torch.float32)
+                out = _launch_forward(INSTANCE[q.dtype], q, k, v,
+                                      causal=causal, window=window,
+                                      sm_scale=sm_scale, lse=lse)
         else:
             with counts.plain("flash_attention", forward_work(
                     q, k, v, causal=causal, window=window, lse=True)):
@@ -320,7 +365,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`ref.flash_attention_bwd_ref`, tiled by ``block_q``/``block_k``
     (the kernels' tiles are their own)."""
     _check_bwd_args(q, k, v, o, lse, do, window, block_q, block_k)
-    if not _build.launches_kernel(q):
+    if not modelled(q) and not _build.launches_kernel(q):
         with counts.plain("flash_attention_bwd", backward_work(
                 q, k, v, causal=causal, window=window)):
             return ref.flash_attention_bwd_ref(
@@ -329,8 +374,56 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in BWD_INSTANCE:
         raise ValueError("flash_attention_bwd: the kernel does not take "
                          + kernel_refusal(q, k, v))
+    if modelled(q):
+        return _model_backward(q, k, v, o, lse, do, causal=causal,
+                               window=window)
     return run_bwd_instance(BWD_INSTANCE[q.dtype], q, k, v, o, lse, do,
                             causal=causal, window=window, sm_scale=sm_scale)
+
+
+def bwd_scratch_floats(instance: str, b: int, h: int, sq: int) -> int:
+    """The float32 elements of the rows' scratch the backward ``instance``
+    takes for (B, H, Sq): delta (B, H, Sq) for the FMA kernel; lse2 and
+    delta, each Sq padded to 128 rows, for the tensor-core kernel (its
+    library's ``repro_flash_attention_bwd_tc_scratch``)."""
+    if instance == "wgmma_bf16":
+        return 2 * b * h * (-(-sq // _BWD_PAD_ROWS) * _BWD_PAD_ROWS)
+    return b * h * sq
+
+
+def _bwd_refusal(instance: str, q, k, v, o, lse, do) -> Optional[str]:
+    """Why the backward ``instance`` would not take these inputs (on the
+    card or ``meta``), or None when it would."""
+    refusal = (f"dtype {q.dtype} in the {instance} kernel"
+               if q.dtype not in _BWD_ENTRY[instance][2]
+               else kernel_refusal(q, k, v))
+    for name, t in (("o", o), ("do", do), ("lse", lse)):
+        if refusal is None and ((not modelled(t)
+                                 and not _build.launches_kernel(t))
+                                or not t.is_contiguous()
+                                or t.data_ptr() % 16):
+            refusal = f"{name} not contiguous and 16-byte aligned on the card"
+    return refusal
+
+
+def _model_backward(q, k, v, o, lse, do, *, causal: bool, window: int):
+    """The card's backward launch modelled on ``meta`` tensors: its
+    refusals, dq, dk, dv and the rows' scratch allocated (the scratch
+    freed at the return, as the card route's), and its counted work."""
+    instance = BWD_INSTANCE[q.dtype]
+    refusal = _bwd_refusal(instance, q, k, v, o, lse, do)
+    if refusal is not None:
+        raise ValueError(
+            f"flash_attention_bwd: the kernel does not take {refusal}")
+    b, h, sq, _ = q.shape
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    scratch = torch.empty(bwd_scratch_floats(instance, b, h, sq),
+                          dtype=torch.float32, device=q.device)
+    counts.modelled("flash_attention_bwd", backward_work(
+        q, k, v, causal=causal, window=window), instance)
+    del scratch
+    return dq, dk, dv
 
 
 def run_bwd_instance(instance: str, q: torch.Tensor, k: torch.Tensor,
@@ -347,15 +440,11 @@ def run_bwd_instance(instance: str, q: torch.Tensor, k: torch.Tensor,
     if instance not in _BWD_ENTRY:
         raise ValueError(f"flash_attention_bwd: no instance {instance!r}; "
                          f"there are {sorted(_BWD_ENTRY)}")
-    source, entry, dtypes = _BWD_ENTRY[instance]
+    source, entry, _ = _BWD_ENTRY[instance]
     _check_bwd_args(q, k, v, o, lse, do, window, 1, 1)
-    refusal = (f"dtype {q.dtype} in the {instance} kernel"
-               if q.dtype not in dtypes else kernel_refusal(q, k, v))
-    for name, t in (("o", o), ("do", do), ("lse", lse)):
-        if refusal is None and (not _build.launches_kernel(t)
-                                or not t.is_contiguous()
-                                or t.data_ptr() % 16):
-            refusal = f"{name} not contiguous and 16-byte aligned on the card"
+    refusal = _bwd_refusal(instance, q, k, v, o, lse, do)
+    if refusal is None and modelled(q):
+        refusal = META_REFUSAL
     if refusal is not None:
         raise ValueError(
             f"flash_attention_bwd: the kernel does not take {refusal}")
@@ -365,13 +454,12 @@ def run_bwd_instance(instance: str, q: torch.Tensor, k: torch.Tensor,
     window = min(window, sq)
     dev = _build.compute_device(q)
     dq, dk, dv = (_build.empty_like_placed(t) for t in (q, k, v))
-    # the rows' scratch: delta (B, H, Sq) for the FMA kernel; padded rows
-    # of lse and delta for the tensor-core kernel, as its library says
-    if instance == "wgmma_bf16":
-        n_scratch = _build.bind(source, entry + "_scratch", (_I, _I, _I),
-                                ctypes.c_longlong)(b, h, sq)
-    else:
-        n_scratch = b * h * sq
+    # the rows' scratch: padded rows of lse and delta for the tensor-core
+    # kernel, as its library says; delta (B, H, Sq) for the FMA kernel
+    n_scratch = (_build.bind(source, entry + "_scratch", (_I, _I, _I),
+                             ctypes.c_longlong)(b, h, sq)
+                 if instance == "wgmma_bf16"
+                 else bwd_scratch_floats(instance, b, h, sq))
     delta = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     fn = _build.bind(source, entry, (_VP,) * 10 + (_I,) * 9 + (_F, _VP))
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

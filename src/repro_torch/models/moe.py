@@ -17,6 +17,11 @@ adds ``gate · y`` into each token's row.  The segment sizes come to the
 host once a layer (one ``.tolist()``, a synchronisation of the card; the
 counts behind it and the aux loss's one-hot mean are scatter-adds, which
 do not synchronise as ``bincount`` and ``one_hot`` do).
+On ``meta`` tensors (the dry-run) there are no values to route by, so the
+segment sizes are those of balanced routing (:func:`balanced_sizes`): each
+group's ``n·k`` assignments dealt evenly over the experts, each capped at
+``cap`` in capacity mode.  Every other operation runs as on the card, at
+the sizes that routing gives.
 The combine scatters each assignment's row into its (token, rank) place
 and sums the k ranks in a fixed order, so a token's sum is the same from
 run to run (an atomic scatter-add is not).  ``constrain_dispatch`` is
@@ -82,6 +87,15 @@ def route(params, xg: torch.Tensor, k: int):
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp(
         min=1e-9)
     return logits, probs, gate_vals, expert_ids
+
+
+def balanced_sizes(g: int, nk: int, e: int, cap: int) -> list:
+    """The rows each of ``e`` experts gets where routing is balanced: each
+    of ``g`` groups deals its ``nk`` assignments evenly (the first
+    ``nk % e`` experts one more), each expert keeping at most ``cap`` of a
+    group's."""
+    q, r = divmod(nk, e)
+    return [g * min(cap, q + (1 if ex < r else 0)) for ex in range(e)]
 
 
 def _expert_ffn(seg, w_in, w_gate, w_out, act):
@@ -162,8 +176,12 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig, *, n_groups: int = 0,
     sizes = torch.zeros(e + 1, dtype=torch.long, device=dev).scatter_add_(
         0, bucket, torch.ones_like(bucket))
     # the rows before this rank's first expert, then its experts' sizes:
-    # the one host sync
-    head = torch.cat([sizes[:lo].sum().reshape(1), sizes[lo:hi]]).tolist()
+    # the one host sync (balanced routing on ``meta``)
+    if dev.type == "meta":
+        every = balanced_sizes(g, nk, e, cap)
+        head = [sum(every[:lo])] + every[lo:hi]
+    else:
+        head = torch.cat([sizes[:lo].sum().reshape(1), sizes[lo:hi]]).tolist()
     start, seg_sizes = head[0], head[1:]
     rows = sum(seg_sizes)
     slot = slot[start:start + rows]

@@ -5,7 +5,10 @@ the collectives; the port derives them itself, from the same specs
 (:mod:`repro_torch.parallel.sharding`):
 
 * **process groups**: :func:`setup` creates the default group from the
-  environment ``torchrun`` gives, or from a file store; :func:`bind` puts
+  environment ``torchrun`` gives, or from a file store; :func:`setup_dry`
+  creates one in this process alone, on torch's ``fake`` backend, whose
+  collectives move no data (the dry-run's: one rank's share of a
+  production mesh, :mod:`repro_torch.launch.dryrun`); :func:`bind` puts
   this rank on a mesh (row-major) and makes one group for every set of
   its axes (every axis, every set of batch axes, every set a spec names).
   A group that spans the whole world is the world group.
@@ -109,6 +112,24 @@ def setup(backend: str, *, store_path: Optional[str] = None,
         store = dist.FileStore(store_path, world_size)
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world_size)
+    return True
+
+
+def setup_dry(rank: int, world_size: int) -> bool:
+    """Create the default process group in this process alone, as
+    ``rank`` of ``world_size``, on torch's ``fake`` backend: every
+    collective returns at once and leaves its tensors as they are, on any
+    device (``meta`` too), so that one process can run one rank's share of
+    a mesh of any size.  True if this call created it (the caller destroys
+    it, :func:`teardown`), False if one existed."""
+    if initialized():
+        return False
+    if not 0 <= rank < world_size:
+        raise ValueError(f"setup_dry: rank {rank} of a world of {world_size}")
+    # importing the module registers the backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
     return True
 
 

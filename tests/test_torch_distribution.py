@@ -72,8 +72,10 @@ def _axes(shape):
 
 
 def _low_priority():
-    """Subprocesses of this file yield the CPU to the suite's other
-    workers, whose wall-clock tests would otherwise feel 8 ranks."""
+    """The ranks of this file yield the CPU to the suite's other workers,
+    whose wall-clock tests would otherwise feel 8 ranks.  The reference
+    runs at the normal priority: its test waits for it, and at the lowest
+    one the other workers starve it past its limit."""
     os.nice(19)
 
 
@@ -89,8 +91,7 @@ def run_forced(body: str, n_devices: int, timeout: int = REF_LIMIT) -> str:
     """)
     env = dict(os.environ, PYTHONPATH=SRC)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=timeout, env=env,
-                       preexec_fn=_low_priority)
+                       text=True, timeout=timeout, env=env)
     assert r.returncode == 0, f"stderr:\n{r.stderr[-3000:]}"
     assert "SUBPROC_OK" in r.stdout
     return r.stdout

@@ -116,9 +116,10 @@ def ref(tmp_path_factory):
         OUT = {path!r}
     """) + textwrap.dedent(REF_BODY)
     env = dict(os.environ, PYTHONPATH=SRC)
+    # at the normal priority: every test of this file waits for it, and
+    # at the lowest one the suite's other workers starve it past its limit
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=REF_LIMIT, env=env,
-                       preexec_fn=_low_priority)
+                       text=True, timeout=REF_LIMIT, env=env)
     assert r.returncode == 0, f"stderr:\n{r.stderr[-3000:]}"
     with open(path, "rb") as f:
         return path, pickle.load(f)
